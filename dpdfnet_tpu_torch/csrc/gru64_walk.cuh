@@ -1,0 +1,255 @@
+// Shared C = 64 GRU walk for the DPRNN kernels (dprnn_inter.cu, dprnn_intra.cu).
+//
+// One thread block owns R = GROUPS * RPT independent rows and walks S steps
+// of a GRU with input size == hidden size == 64 inside the block.  The 256
+// threads are 4 row groups of 64: thread (grp, u) computes hidden unit u of
+// rows grp, grp + 4, ... (RPT rows).  Per step and row:
+//
+//     xp = x_t . Wi + bi ;  hh = h . Wh + bh           (64 x 192 each)
+//     r = sigma(xp_r + hh_r) ; z = sigma(xp_z + hh_z)
+//     n = tanh(xp_n + r * hh_n)                         (bh_n inside r *)
+//     h = (1 - z) * n + z * h
+//
+// then an epilogue on h (see MODE below).  Wi, Wh (48 KB each) and Wfc
+// (16 KB) stay in shared memory for the whole walk; x_t and h rows are
+// staged in shared memory and read as float4 broadcasts.  Each weight load
+// from shared memory feeds RPT rows.
+//
+// Rows are addressed through strides, so the kernels read the model's
+// [B, T, Fq, C] plane directly: element c of row n at step s lives at
+//   (n / rpg) * sg + (n % rpg) * sr + t(s) * ss + c,
+// t(s) = s, or S - 1 - s for a reverse walk.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dpdf {
+
+constexpr int C = 64;                 // channels == hidden size
+constexpr int G3 = 3 * C;             // gate columns r | z | n
+constexpr int THREADS = 256;
+constexpr int GROUPS = THREADS / C;   // row groups per block
+
+enum Mode {
+  // out = x + LN(h . Wfc + bfc) * g + bln   (DPRNN inter stage)
+  MODE_LN_RESIDUAL = 0,
+  // part = h . Wfc_d, no bias: one direction's half of the intra fc
+  MODE_FC_PART = 1,
+};
+
+struct Rows {
+  int64_t rpg, sg, sr, ss;   // row n, step t -> (n/rpg)*sg + (n%rpg)*sr + t*ss
+  __device__ __forceinline__ int64_t off(int64_t n, int64_t t) const {
+    return (n / rpg) * sg + (n % rpg) * sr + t * ss;
+  }
+};
+
+// Weight element (k, gate, u) at w[(row0 + k) * ld + gate * gstride + col0 + u];
+// bias (gate, u) at b[gate * gstride + col0 + u].  Plain GRU weights
+// [C, 3C]: ld = 3C, row0 = col0 = 0, gstride = C.  Direction d of the packed
+// bidirectional weights [2C, 6C] (gate-major [r_f r_b z_f z_b n_f n_b]):
+// ld = 6C, row0 = col0 = d*C, gstride = 2C.
+struct GruWeights {
+  const float* wi;
+  const float* wh;
+  const float* bi;
+  const float* bh;
+  int ld, row0, gstride, col0;
+};
+
+struct Epilogue {
+  const float* wfc;   // [C, C] rows for this walk (HWIO-style [in, out])
+  const float* bfc;   // [C] (MODE_LN_RESIDUAL)
+  const float* g;     // [C] LayerNorm gain
+  const float* bln;   // [C] LayerNorm bias
+  float* out;         // same row addressing as x
+  float eps;
+};
+
+__device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int RPT>
+constexpr int walk_smem_floats() {
+  // swi, swh, swfc, sbi, sbh, sx, sh, sred
+  return 2 * C * G3 + C * C + 2 * G3 + 2 * (GROUPS * RPT) * C + 2 * (GROUPS * RPT);
+}
+
+// Walk S steps for the block's rows.  h0 == nullptr starts from zeros;
+// h_last == nullptr skips the final hidden.  h0 / h_last are [N, C].
+template <int RPT, int MODE>
+__device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, int S,
+                           bool reverse, GruWeights w, Epilogue ep,
+                           const float* __restrict__ h0, float* __restrict__ h_last) {
+  constexpr int R = GROUPS * RPT;
+  extern __shared__ __align__(16) float smem[];
+  float* swi = smem;                 // [C][G3]
+  float* swh = swi + C * G3;         // [C][G3]
+  float* swfc = swh + C * G3;        // [C][C]
+  float* sbi = swfc + C * C;         // [G3]
+  float* sbh = sbi + G3;             // [G3]
+  float* sx = sbh + G3;              // [R][C]
+  float* sh = sx + R * C;            // [R][C]
+  float* sred = sh + R * C;          // [R][2]
+
+  const int tid = threadIdx.x;
+  const int u = tid % C;
+  const int grp = tid / C;
+  const int half = (tid / 32) % 2;   // which warp of the row group
+  const int lane = tid % 32;
+  const int64_t row0 = (int64_t)blockIdx.x * R;
+
+  for (int i = tid; i < C * G3; i += THREADS) {
+    const int k = i / G3, col = i % G3, gate = col / C, uu = col % C;
+    const int64_t src = (int64_t)(w.row0 + k) * w.ld + gate * w.gstride + w.col0 + uu;
+    swi[i] = w.wi[src];
+    swh[i] = w.wh[src];
+  }
+  for (int i = tid; i < C * C; i += THREADS) swfc[i] = ep.wfc[i];
+  for (int i = tid; i < G3; i += THREADS) {
+    const int src = (i / C) * w.gstride + w.col0 + i % C;
+    sbi[i] = w.bi[src];
+    sbh[i] = w.bh[src];
+  }
+  for (int i = tid; i < R * C; i += THREADS) {
+    const int64_t n = row0 + i / C;
+    sh[i] = (h0 != nullptr && n < N) ? h0[n * C + i % C] : 0.0f;
+  }
+  __syncthreads();
+
+  const float bir = sbi[u], biz = sbi[C + u], bin = sbi[2 * C + u];
+  const float bhr = sbh[u], bhz = sbh[C + u], bhn = sbh[2 * C + u];
+  float gain = 0.0f, shift = 0.0f, fcb = 0.0f;
+  if (MODE == MODE_LN_RESIDUAL) {
+    gain = ep.g[u];
+    shift = ep.bln[u];
+    fcb = ep.bfc[u];
+  }
+
+  for (int s = 0; s < S; ++s) {
+    const int64_t t = reverse ? (S - 1 - s) : s;
+    for (int i = tid; i < R * C; i += THREADS) {
+      const int64_t n = row0 + i / C;
+      sx[i] = (n < N) ? x[rows.off(n, t) + i % C] : 0.0f;
+    }
+    __syncthreads();
+
+    float axr[RPT], axz[RPT], axn[RPT], ahr[RPT], ahz[RPT], ahn[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      axr[j] = axz[j] = axn[j] = ahr[j] = ahz[j] = ahn[j] = 0.0f;
+    }
+    for (int k = 0; k < C; k += 4) {
+      float4 xv[RPT], hv[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int r = grp + GROUPS * j;
+        xv[j] = *reinterpret_cast<const float4*>(&sx[r * C + k]);
+        hv[j] = *reinterpret_cast<const float4*>(&sh[r * C + k]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* wir = &swi[(k + kk) * G3];
+        const float* whr = &swh[(k + kk) * G3];
+        const float wr = wir[u], wz = wir[C + u], wn = wir[2 * C + u];
+        const float vr = whr[u], vz = whr[C + u], vn = whr[2 * C + u];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const float xs = (&xv[j].x)[kk];
+          const float hs = (&hv[j].x)[kk];
+          axr[j] = fmaf(xs, wr, axr[j]);
+          axz[j] = fmaf(xs, wz, axz[j]);
+          axn[j] = fmaf(xs, wn, axn[j]);
+          ahr[j] = fmaf(hs, vr, ahr[j]);
+          ahz[j] = fmaf(hs, vz, ahz[j]);
+          ahn[j] = fmaf(hs, vn, ahn[j]);
+        }
+      }
+    }
+    float hnew[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int r = grp + GROUPS * j;
+      const float rg = sigmoid_f((axr[j] + bir) + (ahr[j] + bhr));
+      const float zg = sigmoid_f((axz[j] + biz) + (ahz[j] + bhz));
+      const float ng = tanhf((axn[j] + bin) + rg * (ahn[j] + bhn));
+      hnew[j] = (1.0f - zg) * ng + zg * sh[r * C + u];
+    }
+    __syncthreads();                       // every read of the old h is done
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) sh[(grp + GROUPS * j) * C + u] = hnew[j];
+    __syncthreads();
+
+    // epilogue: y = h . Wfc for this unit
+    float y[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) y[j] = 0.0f;
+    for (int k = 0; k < C; k += 4) {
+      float4 hv[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j)
+        hv[j] = *reinterpret_cast<const float4*>(&sh[(grp + GROUPS * j) * C + k]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float wf = swfc[(k + kk) * C + u];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) y[j] = fmaf((&hv[j].x)[kk], wf, y[j]);
+      }
+    }
+    if (MODE == MODE_FC_PART) {
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int64_t n = row0 + grp + GROUPS * j;
+        if (n < N) ep.out[rows.off(n, t) + u] = y[j];
+      }
+    } else {
+      // LayerNorm over the 64 units of each row: two warps per row group
+      float d[RPT];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        y[j] += fcb;
+        const float sm = warp_sum(y[j]);
+        if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sm;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int r = grp + GROUPS * j;
+        const float mu = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
+        d[j] = y[j] - mu;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const float sq = warp_sum(d[j] * d[j]);
+        if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sq;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int r = grp + GROUPS * j;
+        const float var = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
+        const float yn = d[j] * (1.0f / sqrtf(var + ep.eps));
+        const int64_t n = row0 + r;
+        if (n < N) ep.out[rows.off(n, t) + u] = sx[r * C + u] + (yn * gain + shift);
+      }
+    }
+    __syncthreads();                       // sx / sred reused next step
+  }
+
+  if (h_last != nullptr) {
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int64_t n = row0 + grp + GROUPS * j;
+      if (n < N) h_last[n * C + u] = sh[(grp + GROUPS * j) * C + u];
+    }
+  }
+}
+
+}  // namespace dpdf

@@ -1,0 +1,155 @@
+"""Inference-time parameter re-parameterisations (counterpart of
+``dpdfnet_tpu.models.fuse``).
+
+- ``fuse_separable``: (depthwise/grouped conv -> 1x1 pointwise) is one
+  linear map, so it collapses into a single dense conv kernel.
+- ``pack_dprnn_bidir``: the DPRNN intra GRUs' weights packed
+  direction-blockdiag, gate-major, as the intra kernel takes them.
+
+The JAX package's ``fold_hr_tail`` (the 48 kHz 480-bin plane re-expressed
+as ``[160, 3C]``) is a TPU layout choice and is not ported; the forward
+takes the unfolded branch when the folded weights are absent.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..config import ModelConfig
+
+Params = Dict
+
+
+def _dense_from_grouped(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """Grouped HWIO ``[kt, kf, cin/g, cout]`` -> dense ``[kt, kf, cin, cout]``."""
+    kt, kf, cin_g, cout = w.shape
+    g = cin // cin_g
+    dense = w.new_zeros((kt, kf, cin, cout))
+    out_per_g = cout // g
+    for gi in range(g):
+        dense[:, :, gi * cin_g:(gi + 1) * cin_g,
+              gi * out_per_g:(gi + 1) * out_per_g] = \
+            w[:, :, :, gi * out_per_g:(gi + 1) * out_per_g]
+    return dense
+
+
+def _fuse_conv(p: Dict, cin: int) -> Dict:
+    """Collapse {'w' (grouped/depthwise), 'pw'} into one dense 'w'."""
+    if p is None or p.get("pw") is None:
+        return p
+    pw = p["pw"]["w"]
+    dense = _dense_from_grouped(p["w"], cin)
+    out = {k: v for k, v in p.items() if k != "pw"}
+    out["w"] = torch.einsum("tfcm,md->tfcd", dense, pw)
+    if out.get("b") is not None:
+        # epilogue order is bias -> pointwise, so the bias transforms too
+        out["b"] = p["b"] @ pw
+    return out
+
+
+def _fuse_subpixel(p: Dict, cin: int, fstride: int) -> Dict:
+    """Collapse depthwise sub-pixel convs + pointwise into one dense conv
+    whose output channels are packed freq-major (``i*Cout + d``, key
+    ``'w_fm'``)."""
+    if p is None or p.get("pw") is None:
+        return p
+    pw = p["pw"]["w"]
+    kt, kf, _, scout = p["w"].shape
+    cout = scout // fstride
+    dense = _dense_from_grouped(p["w"], cin).reshape(kt, kf, cin, cout, fstride)
+    fused = torch.einsum("tfcms,md->tfcds", dense, pw)
+    fused = fused.movedim(-1, -2).reshape(kt, kf, cin, cout * fstride)
+    out = {k: v for k, v in p.items() if k not in ("pw", "w")}
+    out["w_fm"] = fused
+    if out.get("b") is not None:
+        bf = torch.einsum("ci,cd->di", p["b"].reshape(cout, fstride), pw)
+        out["b"] = bf.movedim(-1, 0).reshape(-1)
+    return out
+
+
+def fuse_separable(params: Params, cfg: ModelConfig) -> Params:
+    """Return a new params tree with all separable convs fused dense."""
+    C = cfg.conv_ch
+    st3, st2, st1 = cfg.dec_fstrides
+    p = dict(params)
+
+    enc = dict(p["enc"])
+    for name, cin in (("erb_conv1", C), ("erb_conv2", C), ("erb_conv3", C),
+                      ("df_conv0", 2), ("df_conv1", C)):
+        enc[name] = _fuse_conv(dict(enc[name]), cin)
+    p["enc"] = enc
+
+    dec = dict(p["erb_dec"])
+    if st3 == 1:
+        dec["convt3"] = _fuse_conv(dict(dec["convt3"]), C)
+    elif cfg.upsample == "subpixel":
+        dec["convt3"] = _fuse_subpixel(dict(dec["convt3"]), C, st3)
+    if cfg.upsample == "subpixel":
+        dec["convt2"] = _fuse_subpixel(dict(dec["convt2"]), C, st2)
+        dec["convt1"] = _fuse_subpixel(dict(dec["convt1"]), C, st1)
+    p["erb_dec"] = dec
+
+    dfd = dict(p["df_dec"])
+    dfd["df_convp"] = _fuse_conv(dict(dfd["df_convp"]), C)
+    p["df_dec"] = dfd
+    return p
+
+
+def _pack_bidir(p_fw: dict, p_bw: dict):
+    """Stack two GRU parameter sets direction-blockdiag, gate-major.
+
+    Returns ``(wi2 [2I, 6H], wh2 [2H, 6H], b2 [2, 6H])``; the 6H column
+    axis is ``[r_f r_b z_f z_b n_f n_b]``, the row axis ``[fw | bw]`` with
+    zero cross-direction blocks.
+    """
+    H = p_fw["wh"].shape[0]
+
+    def pack(wf, wb):
+        rows = wf.shape[0]
+        out = wf.new_zeros((2 * rows, 6 * H))
+        for g in range(3):                       # r, z, n gate blocks
+            out[:rows, (2 * g) * H:(2 * g + 1) * H] = wf[:, g * H:(g + 1) * H]
+            out[rows:, (2 * g + 1) * H:(2 * g + 2) * H] = wb[:, g * H:(g + 1) * H]
+        return out
+
+    def packb(bf, bb):
+        out = bf.new_zeros((6 * H,))
+        for g in range(3):
+            out[(2 * g) * H:(2 * g + 1) * H] = bf[g * H:(g + 1) * H]
+            out[(2 * g + 1) * H:(2 * g + 2) * H] = bb[g * H:(g + 1) * H]
+        return out
+
+    wi2 = pack(p_fw["wi"], p_bw["wi"])
+    wh2 = pack(p_fw["wh"], p_bw["wh"])
+    b2 = torch.stack([packb(p_fw["bi"], p_bw["bi"]),
+                      packb(p_fw["bh"], p_bw["bh"])])
+    return wi2, wh2, b2
+
+
+def pack_dprnn_bidir(params: Params, cfg: ModelConfig) -> Params:
+    """Add pre-packed intra-GRU weights (``intra['packed']``) to every
+    DPRNN block; the originals stay beside them."""
+    p = dict(params)
+    enc = dict(p["enc"])
+    for branch in ("dprnn_erb", "dprnn_df"):
+        blocks = []
+        for bp in enc[branch]:
+            bp = dict(bp)
+            intra = dict(bp["intra"])
+            wi2, wh2, b2 = _pack_bidir(intra["fw"], intra["bw"])
+            intra["packed"] = {"wi2": wi2, "wh2": wh2, "b2": b2}
+            bp["intra"] = intra
+            blocks.append(bp)
+        enc[branch] = blocks
+    p["enc"] = enc
+    return p
+
+
+def prepare_inference_params(params: Params, cfg: ModelConfig) -> Params:
+    """Dense-fuse the separable convs, pre-pack the DPRNN intra weights."""
+    params = fuse_separable(params, cfg)
+    if cfg.dprnn_blocks:
+        params = pack_dprnn_bidir(params, cfg)
+    return params

@@ -1,0 +1,268 @@
+"""Neural-net primitives in plain PyTorch: convs, grouped linears, GRUs,
+norms, EMA recurrences.
+
+Counterpart of ``dpdfnet_tpu.ops.nn``.  Layouts match the JAX package at
+every public function: ``[B, T, F, C]`` for 2-D feature maps, ``[B, T, C]``
+for sequences, conv weights HWIO ``[kt, kf, Cin/groups, Cout]`` (turned
+into PyTorch's OIHW at the call), GRU weights ``wi [I, 3H]``,
+``wh [H, 3H]`` with torch's (r, z, n) gate packing.
+
+``[B, T, F, C]`` permuted to ``[B, C, T, F]`` is exactly PyTorch's
+channels-last memory format, so the convs run on the plane without a copy.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+
+def apply_act(x: Tensor, act: Optional[str]) -> Tensor:
+    if act is None or act == "identity":
+        return x
+    if act == "relu":
+        return torch.relu(x)
+    if act == "sigmoid":
+        return torch.sigmoid(x)
+    if act == "tanh":
+        return torch.tanh(x)
+    raise ValueError(f"unknown activation {act!r}")
+
+
+# --------------------------------------------------------------------------- #
+# Convolution blocks
+# --------------------------------------------------------------------------- #
+
+def _conv2d(x: Tensor, w_hwio: Tensor, *, stride: int, fpad: Tuple[int, int],
+            groups: int, fdilate: int = 1) -> Tensor:
+    """NHWC conv over ``x [B, T, F, Cin]`` with an HWIO weight; time is
+    unpadded (the caller extends it causally), frequency padded ``fpad``.
+    ``fdilate > 1`` inserts zeros between input bins (a fractionally
+    strided conv, JAX's ``lhs_dilation``)."""
+    xc = x.permute(0, 3, 1, 2)                                   # [B,C,T,F]
+    if fdilate > 1:
+        B, C, T, Fb = xc.shape
+        xd = xc.new_zeros((B, C, T, (Fb - 1) * fdilate + 1))
+        xd[..., ::fdilate] = xc
+        xc = xd
+    if fpad != (0, 0):
+        xc = F.pad(xc, (fpad[0], fpad[1]))
+    w = w_hwio.permute(3, 2, 0, 1)                               # OIHW
+    if x.is_cuda:
+        xc = xc.contiguous(memory_format=torch.channels_last)
+        w = w.contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(xc, w.to(x.dtype), stride=(1, stride), groups=groups)
+    return y.permute(0, 2, 3, 1)                                 # [B,T,F,C]
+
+
+def conv_block(
+    p: dict,
+    x: Tensor,
+    *,
+    kt: int,
+    kf: int,
+    fstride: int = 1,
+    act: Optional[str] = "relu",
+    time_tail: Optional[Tensor] = None,
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """Causal Conv2d + optional pointwise + BN(eval) + activation.
+
+    Groups are inferred from the weight shape (``Cin // w.shape[2]``), so
+    the separable (depthwise + ``pw``) and the fused dense trees run through
+    the same code.  ``time_tail`` is the carried ``[B, kt-1, F, Cin]``
+    context (zeros == offline causal zero-pad).  Returns ``(y, new_tail)``.
+    """
+    new_tail = None
+    if kt > 1:
+        if time_tail is None:
+            time_tail = x.new_zeros((x.shape[0], kt - 1) + tuple(x.shape[2:]))
+        x = torch.cat([time_tail.to(x.dtype), x], dim=1)
+        new_tail = x[:, -(kt - 1):]
+    w = p["w"]
+    groups = x.shape[-1] // w.shape[2]
+    if (kt == 1 and kf == 1 and fstride == 1 and w.shape[2] == 1
+            and w.shape[3] == x.shape[-1]):
+        # 1x1 depthwise conv: a per-channel scale, bit-identical to the conv
+        y = x * w[0, 0, 0, :].to(x.dtype)
+        return _conv_epilogue(p, y, act), new_tail
+    y = _conv2d(x, w, stride=fstride, fpad=(kf // 2, kf // 2), groups=groups)
+    return _conv_epilogue(p, y, act), new_tail
+
+
+def _conv_epilogue(p: dict, y: Tensor, act: Optional[str]) -> Tensor:
+    """bias -> optional pointwise -> BN(eval) -> activation."""
+    if p.get("b") is not None:
+        y = y + p["b"].to(y.dtype)
+    if p.get("pw") is not None:
+        y = y @ p["pw"]["w"].to(y.dtype)
+    if p.get("bn") is not None:
+        y = y * p["bn"]["scale"].to(y.dtype) + p["bn"]["shift"].to(y.dtype)
+    return apply_act(y, act)
+
+
+def conv_transpose_block(p: dict, x: Tensor, *, kf: int, fstride: int,
+                         act: Optional[str] = "relu") -> Tensor:
+    """ConvTranspose over frequency (kernel time size 1, padding ``kf//2``,
+    output_padding ``kf//2``) as a conv over the zero-dilated input with
+    the pre-flipped kernel ``p['w']`` — JAX's ``lhs_dilation`` form."""
+    fpad = kf // 2
+    groups = x.shape[-1] // p["w"].shape[2]
+    y = _conv2d(x, p["w"], stride=1, fpad=(kf - 1 - fpad, kf - 1),
+                groups=groups, fdilate=fstride)
+    return _conv_epilogue(p, y, act)
+
+
+def subpixel_block(p: dict, x: Tensor, *, kf: int, fstride: int,
+                   act: Optional[str] = "relu") -> Tensor:
+    """Sub-pixel frequency upsampling (kernel time size 1).
+
+    ``p['w']`` packs output channel ``c*fstride + i`` (sub-conv ``i``'s
+    channel ``c``); a fused ``p['w_fm']`` packs ``i*Cout + c``, which makes
+    the channel->frequency interleave a plain reshape.
+    """
+    fpad = kf // 2
+    freq_major = "w_fm" in p
+    w = p["w_fm"] if freq_major else p["w"]
+    groups = x.shape[-1] // w.shape[2]
+    y = _conv2d(x, w, stride=1, fpad=(fpad, fpad), groups=groups)
+    if p.get("b") is not None:
+        y = y + p["b"].to(y.dtype)
+    B, T, f, sc = y.shape
+    c = sc // fstride
+    if freq_major:
+        y = y.reshape(B, T, f * fstride, c)
+    else:
+        y = y.reshape(B, T, f, c, fstride).transpose(-1, -2).reshape(B, T, f * fstride, c)
+    if p.get("pw") is not None:
+        y = y @ p["pw"]["w"].to(y.dtype)
+    if p.get("bn") is not None:
+        y = y * p["bn"]["scale"].to(y.dtype) + p["bn"]["shift"].to(y.dtype)
+    return apply_act(y, act)
+
+
+# --------------------------------------------------------------------------- #
+# Linears and norms
+# --------------------------------------------------------------------------- #
+
+def grouped_linear(p: dict, x: Tensor, act: Optional[str] = None) -> Tensor:
+    """Block-diagonal linear: ``p['w']: [G, I/G, O/G]``, ``p['b']: [O]``."""
+    g, ig, og = p["w"].shape
+    lead = x.shape[:-1]
+    xg = x.reshape(-1, g, ig).transpose(0, 1)                    # [G, M, ig]
+    y = torch.bmm(xg, p["w"].to(x.dtype)).transpose(0, 1)        # [M, G, og]
+    y = y.reshape(lead + (g * og,)) + p["b"].to(x.dtype)
+    return apply_act(y, act)
+
+
+def linear(p: dict, x: Tensor, act: Optional[str] = None) -> Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if p.get("b") is not None:
+        y = y + p["b"].to(x.dtype)
+    return apply_act(y, act)
+
+
+def layer_norm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """torch.nn.LayerNorm over the last axis (biased variance)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["g"].to(x.dtype) + p["b"].to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# GRU
+# --------------------------------------------------------------------------- #
+
+def gru_cell(p: dict, xp: Tensor, h: Tensor) -> Tensor:
+    """One GRU step given ``xp = x@wi + bi``: ``[..., 3H], [..., H] -> [..., H]``.
+    ``bh_n`` sits inside the ``r *`` product (linear-before-reset)."""
+    hh = h @ p["wh"].to(h.dtype) + p["bh"].to(h.dtype)
+    H = h.shape[-1]
+    r = torch.sigmoid(xp[..., :H] + hh[..., :H])
+    z = torch.sigmoid(xp[..., H:2 * H] + hh[..., H:2 * H])
+    n = torch.tanh(xp[..., 2 * H:] + r * hh[..., 2 * H:])
+    return (1.0 - z) * n + z * h
+
+
+def gru_seq(p: dict, x: Tensor, h0: Optional[Tensor] = None,
+            reverse: bool = False) -> Tuple[Tensor, Tensor]:
+    """GRU over the time axis of ``x: [B, T, I]``; returns
+    ``(ys [B, T, H], h_last [B, H])``.  Goes through the ``gru_scan``
+    kernel wrapper, which launches the CUDA kernel for CUDA tensors and
+    runs its plain version for CPU tensors."""
+    from . import gru_kernels
+
+    B = x.shape[0]
+    H = p["wh"].shape[0]
+    if h0 is None:
+        h0 = x.new_zeros((B, H))
+    return gru_kernels.gru_scan(x, h0, p["wi"], p["bi"], p["wh"], p["bh"],
+                                reverse=reverse)
+
+
+def gru_bidir(p_fw: dict, p_bw: dict, x: Tensor) -> Tensor:
+    """Bidirectional GRU from zero state, output ``[fw, bw]`` concatenated
+    (plain path; the DPRNN intra stage runs the fused kernel instead)."""
+    from . import gru_kernels
+
+    y_fw, _ = gru_kernels.gru_scan_plain(x, None, p_fw["wi"], p_fw["bi"],
+                                         p_fw["wh"], p_fw["bh"])
+    y_bw, _ = gru_kernels.gru_scan_plain(x, None, p_bw["wi"], p_bw["bi"],
+                                         p_bw["wh"], p_bw["bh"], reverse=True)
+    return torch.cat([y_fw, y_bw], dim=-1)
+
+
+def grouped_gru_seq(ps: list, x: Tensor, h0s: Optional[list] = None,
+                    shuffle_out: bool = False) -> Tuple[Tensor, List[Tensor]]:
+    """Independent GRUs over channel groups (reference GroupedGRULayer);
+    optional group-major -> interleaved channel shuffle of the output."""
+    g = len(ps)
+    xs = torch.chunk(x, g, dim=-1)
+    if h0s is None:
+        h0s = [None] * g
+    ys, hs = [], []
+    for p, xg, h0 in zip(ps, xs, h0s):
+        y, h = gru_seq(p, xg.contiguous(), h0=h0)
+        ys.append(y)
+        hs.append(h)
+    out = torch.cat(ys, dim=-1)
+    if shuffle_out:
+        *lead, C = out.shape
+        out = out.reshape(tuple(lead) + (C // g, g)).transpose(-1, -2).reshape(
+            tuple(lead) + (C,))
+    return out, hs
+
+
+# --------------------------------------------------------------------------- #
+# EMA linear recurrence
+# --------------------------------------------------------------------------- #
+
+def ema_scan(x: Tensor, init: Tensor, alpha: float) -> Tensor:
+    """Sequential ``m_t = alpha*m_{t-1} + (1-alpha)*x_t`` over ``x [B, T, F]``
+    with ``m_{-1} = init`` (``[F]`` or ``[B, F]``); returns every ``m_t``.
+    The op sequence per frame is the same for every chunking."""
+    m = init.to(x.dtype).expand(x.shape[0], x.shape[-1])
+    out = []
+    for t in range(x.shape[1]):
+        m = alpha * m + (1.0 - alpha) * x[:, t]
+        out.append(m)
+    return torch.stack(out, dim=1)
+
+
+def ema_scan_assoc(x: Tensor, init: Tensor, alpha: float) -> Tensor:
+    """Log-depth (Hillis-Steele) associative form of :func:`ema_scan`;
+    agrees with it to float rounding (~1e-7 relative)."""
+    a = torch.full_like(x, alpha)
+    b = (1.0 - alpha) * x
+    T = x.shape[1]
+    d = 1
+    while d < T:
+        a_prev, b_prev = a[:, :-d], b[:, :-d]
+        b = torch.cat([b[:, :d], a[:, d:] * b_prev + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a_prev * a[:, d:]], dim=1)
+        d *= 2
+    init = init.to(x.dtype).expand(x.shape[0], x.shape[-1])
+    return a * init[:, None, :] + b

@@ -1,0 +1,174 @@
+"""Offline enhancement engine (counterpart of ``dpdfnet_tpu.runtime.engine``).
+
+The offline pipeline runs on the engine's device:
+
+1. pad ``win_len`` zeros (the reference alignment);
+2. STFT as one DFT GEMM, scaled by ``wnorm``;
+3. ``forward_spec`` over 112-frame segments with the state carried from
+   segment to segment (live activations bounded by one segment);
+4. the attenuation-limit blend with the 4-frame-shifted noisy spectrum;
+5. iSTFT GEMM, then the ``2*win_len`` alignment (2-frame lookahead +
+   2-frame DF delay).
+
+Utterance lengths are bucketed on a geometric ladder so a corpus of varied
+lengths sees a handful of shapes.  ``highest`` and ``high`` both run in
+float32 with TF32 off (kernels in f32 FMA, cuBLAS/cuDNN in full f32).
+The mesh, the stepped/progress path, streaming and serving are later
+slices.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import audio as audio_lib
+from ..config import ModelConfig
+from ..models import state as state_lib
+from ..models.dpdfnet import forward_spec
+from ..ops import stft as stft_ops
+from ..ops.windows import vorbis_window
+from ..utils.device import DeviceLike, resolve_device
+from ..utils.tree import tree_map
+
+QUALITY_TIERS = {
+    # name -> matmul precision; every tier of this slice computes in f32
+    "highest": "highest",
+    "high": "high",
+    "fast": "default",
+    "turbo": "default",
+}
+
+_BF16_TODO = ("the bf16 'fast'/'turbo' tiers are not ported yet "
+              "(ROADMAP.md queue 1, 'fast/turbo bf16 tiers')")
+
+
+def engine_from_quality(cfg, params, quality: str = "high", **kwargs):
+    """Build an Engine from a named quality tier (see QUALITY_TIERS)."""
+    if quality not in QUALITY_TIERS:
+        raise ValueError(f"Unknown quality {quality!r}; choose from "
+                         f"{sorted(QUALITY_TIERS)}")
+    return Engine(cfg, params, precision=QUALITY_TIERS[quality], **kwargs)
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """TF32 off for cuBLAS and cuDNN (cuDNN convs default to TF32)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+class Engine:
+    """Holds params on one device for one model configuration."""
+
+    def __init__(self, cfg: ModelConfig, params, *, precision: str = "high",
+                 seg_frames: int = 112, bucket_s: float = 1.0, fuse: bool = True,
+                 device: DeviceLike = None):
+        if precision not in ("highest", "high"):
+            raise NotImplementedError(f"precision {precision!r}: {_BF16_TODO}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.precision = precision
+        params = tree_map(lambda _, x: torch.as_tensor(x, dtype=torch.float32,
+                                                       device=self.device), params)
+        if fuse:
+            from ..models.fuse import prepare_inference_params
+
+            params = prepare_inference_params(params, cfg)
+        self.params = params
+        self.seg_frames = int(seg_frames)
+        self.bucket_samples = max(cfg.hop, int(round(bucket_s * cfg.sample_rate)))
+        window = vorbis_window(cfg.win_len)
+        self._window = torch.as_tensor(window, device=self.device)
+        self._dft = torch.as_tensor(stft_ops.dft_matrices(cfg.win_len, window),
+                                    device=self.device)
+        self._idft = torch.as_tensor(stft_ops.idft_matrices(cfg.win_len, window),
+                                     device=self.device)
+
+    def bucket_len(self, S: int) -> int:
+        """Padded length for ``S`` samples: x1.5 geometric ladder of
+        ``bucket_s`` multiples, clearing ``S`` by at least ``win_len`` (the
+        front end pads win_len, the back end drops 2*win_len)."""
+        need = max(S + self.cfg.win_len, 1)
+        S_pad = self.bucket_samples
+        while S_pad < need:
+            S_pad = -(-(S_pad * 3 // 2) // self.bucket_samples) * self.bucket_samples
+        return S_pad
+
+    @torch.inference_mode()
+    def _offline(self, wav: torch.Tensor, alpha: float) -> torch.Tensor:
+        cfg = self.cfg
+        b = wav.shape[0]
+        x = torch.nn.functional.pad(wav, (0, cfg.win_len))
+        spec = stft_ops.stft_matmul(x, self._window, cfg.hop, center=True, dft=self._dft)
+        spec = spec * cfg.wnorm
+        st = state_lib.init_state(cfg, batch=b, device=self.device)
+        T = spec.shape[1]
+        seg = self.seg_frames
+        if T <= seg:
+            out, _, _ = forward_spec(self.params, cfg, spec, st)
+        else:
+            n_seg = -(-T // seg)
+            spec_p = torch.nn.functional.pad(spec, (0, 0, 0, 0, 0, n_seg * seg - T))
+            outs = []
+            for i in range(n_seg):
+                o, st, _ = forward_spec(self.params, cfg,
+                                        spec_p[:, i * seg:(i + 1) * seg].contiguous(), st)
+                outs.append(o)
+            out = torch.cat(outs, dim=1)[:, :T]
+        # attenuation limit: blend the 4-frame-shifted noisy spec; alpha == 0
+        # passes the enhanced spec through
+        k = audio_lib.ATTN_LIMIT_NOISY_FRAME_OFFSET
+        aligned = torch.nn.functional.pad(spec, (0, 0, 0, 0, k, 0))[:, :-k]
+        out = alpha * aligned + (1.0 - alpha) * out
+        y = stft_ops.istft_matmul(out / cfg.wnorm, self._window, cfg.hop, center=True,
+                                  idft=self._idft)
+        return y[:, 2 * cfg.win_len:]
+
+    def enhance_waveforms(self, wavs: np.ndarray, attn_limit_db: Optional[float] = None,
+                          lengths: Optional[np.ndarray] = None,
+                          progress_callback=None) -> np.ndarray:
+        """Enhance a batch of waveforms at the model sample rate.
+
+        Args:
+            wavs: ``[S]`` or ``[B, S]`` float32 at ``cfg.sample_rate``.
+            attn_limit_db: optional attenuation limit (dB).
+            lengths: optional per-utterance valid lengths (defaults to S);
+                output past each length is zeroed.
+            progress_callback: not supported in this slice.
+
+        Returns:
+            Enhanced float32 audio (numpy) with the same shape as ``wavs``.
+        """
+        if progress_callback is not None:
+            raise NotImplementedError(
+                "progress reporting (the segment-stepped offline path) is not "
+                "ported yet (ROADMAP.md queue 1, '_run_offline_stepped')")
+        squeeze = np.ndim(wavs) == 1
+        x = np.atleast_2d(np.asarray(wavs, dtype=np.float32))
+        B, S = x.shape
+        value = audio_lib.validate_attn_limit_db(attn_limit_db)
+        alpha = 0.0 if value is None else float(np.float32(10.0 ** (-value / 20.0)))
+
+        S_pad = self.bucket_len(S)
+        xp = np.zeros((B, S_pad), np.float32)
+        xp[:, :S] = x
+        with _full_f32():
+            y = self._offline(torch.from_numpy(xp).to(self.device), alpha)
+        y = y.cpu().numpy()
+
+        out = np.zeros_like(x)
+        n = min(S, y.shape[1])
+        out[:, :n] = y[:B, :n]
+        if lengths is not None:
+            for i, ln in enumerate(np.asarray(lengths).reshape(-1)):
+                out[i, int(ln):] = 0.0
+        return out[0] if squeeze else out

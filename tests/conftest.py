@@ -62,3 +62,8 @@ def add_reference_paths() -> None:
     for p in (REFERENCE_ROOT,):
         if p not in sys.path:
             sys.path.insert(0, p)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels); skipped without one")

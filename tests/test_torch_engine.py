@@ -1,0 +1,77 @@
+"""The port's offline engine against the JAX package's.
+
+Weights: the JAX package's ``init_params`` + ``contract_params``, carried
+across with ``params_from_jax``; inputs from numpy seeds.  The JAX engine
+runs on the CPU at ``precision="highest"``, the port's on ``device="cpu"``
+(every kernel wrapper takes its plain version).
+
+Tolerance: 1e-4 max-abs on the waveform.  The JAX engine also runs the
+48 kHz plane folded (``fold_hr_tail``), and the DFT / iDFT GEMMs over
+960-sample frames and the overlap-add accumulate float32 rounding; the
+network's own deviation is pinned at 3e-5 by ``test_torch_model.py``.
+"""
+
+import numpy as np
+import pytest
+import jax
+import torch
+
+from dpdfnet_tpu.config import get_config as jax_get_config
+from dpdfnet_tpu.models import params as jax_params
+from dpdfnet_tpu.runtime.engine import Engine as JaxEngine
+
+from dpdfnet_tpu_torch.config import get_config
+from dpdfnet_tpu_torch.runtime.engine import Engine, engine_from_quality
+from dpdfnet_tpu_torch.utils.serialization import params_from_jax
+
+torch.set_num_threads(1)
+CONFIGS = ["dpdfnet2", "dpdfnet8_48khz_hr"]
+
+
+def _jax_params_np(name, seed=3):
+    cfg = jax_get_config(name)
+    p = jax_params.contract_params(jax_params.init_params(cfg, seed=seed))
+    return jax.tree_util.tree_map(np.asarray, p)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_engine_enhance_waveforms_matches_jax(name):
+    cfg_j, cfg = jax_get_config(name), get_config(name)
+    p_np = _jax_params_np(name)
+    rng = np.random.default_rng(11)
+    S = cfg.sample_rate // 2                                     # 0.5 s
+    t = np.arange(S) / cfg.sample_rate
+    wavs = np.stack([0.3 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.normal(size=S),
+                     0.1 * rng.normal(size=S)]).astype(np.float32)
+    lengths = np.array([S, S - 3000])
+
+    ref = JaxEngine(cfg_j, p_np, precision="highest").enhance_waveforms(
+        wavs, lengths=lengths)
+    got = Engine(cfg, params_from_jax(p_np, device="cpu"), precision="highest",
+                 device="cpu").enhance_waveforms(wavs, lengths=lengths)
+    assert got.shape == wavs.shape and np.isfinite(got).all()
+    assert np.all(got[1, S - 3000:] == 0.0)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_engine_segments_match_single_span():
+    """The segment loop with carried state equals one long forward."""
+    cfg = get_config("dpdfnet2")
+    params = params_from_jax(_jax_params_np("dpdfnet2"), device="cpu")
+    rng = np.random.default_rng(12)
+    wav = (0.1 * rng.normal(size=(1, 8000))).astype(np.float32)
+    one = Engine(cfg, params, device="cpu").enhance_waveforms(wav)
+    seg = Engine(cfg, params, seg_frames=16, device="cpu").enhance_waveforms(wav)
+    np.testing.assert_allclose(seg, one, atol=1e-5)
+
+
+def test_engine_rejects_unported_tiers():
+    cfg = get_config("dpdfnet2")
+    params = params_from_jax(_jax_params_np("dpdfnet2"), device="cpu")
+    for q in ("fast", "turbo"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            engine_from_quality(cfg, params, q, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(cfg, params, device="cpu").enhance_waveforms(
+            np.zeros(1600, np.float32), progress_callback=lambda *a: None)
+    assert engine_from_quality(cfg, params, "high", device="cpu").precision == "high"

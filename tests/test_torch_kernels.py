@@ -1,0 +1,151 @@
+"""The port's kernel modules against the JAX Pallas kernels.
+
+Each wrapper of ``dpdfnet_tpu_torch.ops.gru_kernels`` runs its plain
+PyTorch version for CPU tensors; here that is held against the JAX Pallas
+kernel in interpret mode at ``precision="highest"`` (as
+``tests/test_pallas_gru.py`` runs it), on the same numpy inputs.
+
+Tolerance: atol 1e-5 in float32.  The two sides differ only in summation
+order and in the gate sigmoid (the Pallas kernels use
+``0.5 * (tanh(x/2) + 1)``, ~6e-8 from ``torch.sigmoid``), which stays
+orders of magnitude below 1e-5 over these short recurrences.
+
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+each against its plain version at the flagship shapes, and
+``tests/test_torch_cuda.py`` does the same at small shapes.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from dpdfnet_tpu.ops import nn as jax_nn
+from dpdfnet_tpu.ops import pallas_gru
+from dpdfnet_tpu_torch.models.fuse import _pack_bidir
+from dpdfnet_tpu_torch.ops import gru_kernels
+from dpdfnet_tpu_torch.ops import nn as tnn
+
+torch.set_num_threads(1)
+ATOL = 1e-5
+
+
+def _gru_np(rng, I, H):
+    return {
+        "wi": rng.normal(size=(I, 3 * H)).astype(np.float32) * 0.3,
+        "bi": rng.normal(size=(3 * H,)).astype(np.float32) * 0.1,
+        "wh": rng.normal(size=(H, 3 * H)).astype(np.float32) * 0.3,
+        "bh": rng.normal(size=(3 * H,)).astype(np.float32) * 0.1,
+    }
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _tp(p):
+    return {k: _t(v) for k, v in p.items()}
+
+
+def _jp(p):
+    return {k: jnp.asarray(v) for k, v in p.items()}
+
+
+def _epi_np(rng, cin, C):
+    return (rng.normal(size=(cin, C)).astype(np.float32) * 0.3,
+            rng.normal(size=(C,)).astype(np.float32) * 0.1,
+            rng.normal(size=(C,)).astype(np.float32) * 0.5 + 1.0,
+            rng.normal(size=(C,)).astype(np.float32) * 0.1)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("N,T,I,H", [(11, 13, 16, 16), (20, 5, 32, 16), (16, 8, 16, 32)])
+def test_gru_scan_plain_matches_pallas(reverse, N, T, I, H):
+    rng = np.random.default_rng(0)
+    p = _gru_np(rng, I, H)
+    x = rng.normal(size=(N, T, I)).astype(np.float32)
+    h0 = rng.normal(size=(N, H)).astype(np.float32) * 0.2
+
+    ys_ref, hl_ref = pallas_gru.gru_scan_tm(
+        jnp.swapaxes(jnp.asarray(x), 0, 1), jnp.asarray(h0), *(jnp.asarray(p[k]) for k in
+                                                               ("wi", "bi", "wh", "bh")),
+        reverse=reverse, precision="highest", interpret=True)
+    tp = _tp(p)
+    ys, hl = gru_kernels.gru_scan(_t(x), _t(h0), tp["wi"], tp["bi"], tp["wh"], tp["bh"],
+                                  reverse=reverse)
+    assert ys.shape == (N, T, H) and hl.shape == (N, H)
+    np.testing.assert_allclose(ys.numpy(), np.swapaxes(np.asarray(ys_ref), 0, 1), atol=ATOL)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(hl_ref), atol=ATOL)
+
+
+def test_gru_bidir_plain_matches_jax():
+    """The plain bidirectional GRU (the unpacked intra recurrence)."""
+    rng = np.random.default_rng(2)
+    p_fw, p_bw = _gru_np(rng, 16, 8), _gru_np(rng, 16, 8)
+    x = rng.normal(size=(11, 7, 16)).astype(np.float32)
+    ref = jax_nn.gru_bidir(_jp(p_fw), _jp(p_bw), jnp.asarray(x))
+    got = tnn.gru_bidir(_tp(p_fw), _tp(p_bw), _t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("N,Fq,C", [(20, 13, 8), (11, 5, 16), (17, 8, 16)])
+def test_dprnn_intra_plain_matches_pallas(N, Fq, C):
+    rng = np.random.default_rng(3)
+    p_fw, p_bw = _gru_np(rng, C, C), _gru_np(rng, C, C)
+    wfc, bfc, g, bln = _epi_np(rng, 2 * C, C)
+    x = rng.normal(size=(N, Fq, C)).astype(np.float32)
+
+    wi2j, wh2j, b2j = pallas_gru._pack_bidir(_jp(p_fw), _jp(p_bw), jnp.float32)
+    ref = pallas_gru.dprnn_intra_block(
+        jnp.asarray(x), wi2j, wh2j, b2j, jnp.asarray(wfc), jnp.asarray(bfc),
+        jnp.asarray(g), jnp.asarray(bln), precision="highest", interpret=True)
+
+    wi2, wh2, b2 = _pack_bidir(_tp(p_fw), _tp(p_bw))
+    np.testing.assert_array_equal(wi2.numpy(), np.asarray(wi2j))
+    np.testing.assert_array_equal(b2.numpy(), np.asarray(b2j))
+    got = gru_kernels.dprnn_intra_block(_t(x), wi2, wh2, b2, _t(wfc), _t(bfc), _t(g), _t(bln))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("B,T,Fq,C", [(2, 13, 7, 8), (3, 6, 5, 16), (1, 9, 11, 16)])
+def test_dprnn_inter_plain_matches_pallas(B, T, Fq, C):
+    """Port plane [B, T, Fq, C] vs the TPU's time-major [T, B*Fq, C] rows,
+    from a nonzero carried hidden; B*Fq is never a tile multiple here."""
+    rng = np.random.default_rng(4)
+    p = _gru_np(rng, C, C)
+    wfc, bfc, g, bln = _epi_np(rng, C, C)
+    x = rng.normal(size=(B, T, Fq, C)).astype(np.float32)
+    h0 = rng.normal(size=(B, Fq, C)).astype(np.float32) * 0.2
+
+    x_tm = np.transpose(x, (1, 0, 2, 3)).reshape(T, B * Fq, C)
+    ref, hl_ref = pallas_gru.dprnn_inter_block(
+        jnp.asarray(x_tm), jnp.asarray(h0.reshape(B * Fq, C)),
+        *(jnp.asarray(p[k]) for k in ("wi", "bi", "wh", "bh")),
+        jnp.asarray(wfc), jnp.asarray(bfc), jnp.asarray(g), jnp.asarray(bln),
+        precision="highest", interpret=True)
+    tp = _tp(p)
+    out, hl = gru_kernels.dprnn_inter_block(
+        _t(x), _t(h0), tp["wi"], tp["bi"], tp["wh"], tp["bh"],
+        _t(wfc), _t(bfc), _t(g), _t(bln))
+    ref4 = np.transpose(np.asarray(ref).reshape(T, B, Fq, C), (1, 0, 2, 3))
+    np.testing.assert_allclose(out.numpy(), ref4, atol=ATOL)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(hl_ref).reshape(B, Fq, C), atol=ATOL)
+
+
+def test_launch_counters_count_only_kernel_launches():
+    """CPU tensors take the plain version: no launch is counted."""
+    gru_kernels.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    p = _tp(_gru_np(rng, 8, 8))
+    gru_kernels.gru_scan(torch.zeros(2, 3, 8), torch.zeros(2, 8), p["wi"], p["bi"],
+                         p["wh"], p["bh"])
+    assert gru_kernels.launch_counts() == {
+        "dprnn_intra_block": 0, "dprnn_inter_block": 0, "gru_scan": 0}
+
+
+def test_wrappers_reject_non_cpu_non_cuda_devices():
+    """A tensor that is neither on the CPU nor on a CUDA device gets no
+    plain fallback: the wrapper raises."""
+    x = torch.zeros(2, 3, 8, device="meta")
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        gru_kernels.gru_scan(x, torch.zeros(2, 8, device="meta"), x, x, x, x)
