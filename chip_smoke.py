@@ -17,8 +17,21 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    ``lengths``, on the card and on the CPU with the same weights; checks
    finiteness, the card-vs-CPU deviation and the kernels' launch counts;
 4. throughput: B=64 x 4 s through ``enhance_waveforms``, median of 3 timed
-   calls after a warm-up: xRT, ms per 112-frame segment, peak memory;
-5. one JSON line listing the kernels, then the final JSON status line.
+   calls after a warm-up: xRT, ms per 112-frame segment, peak memory; the
+   same with the DPRNN stack kernel (``DPDFNET_TPU_STACK=1``);
+5. streaming, card vs CPU: ``process_frames`` with 4 streams x 40 hops in
+   exact and throughput modes, with the per-stage DPRNN kernels and with
+   the stack kernel: deviation from the CPU engine, launches per hop, and
+   exact mode bit-identical across three chunkings;
+6. ``StreamEnhancer`` on the card (odd chunk sizes, save/load resume,
+   flush) and ``MultiStreamEnhancer`` (8 slots, mixed cadences, each slot
+   against a lone stream);
+7. ``Engine(fuse=False)`` offline (the ``gru_bidir`` path), card vs CPU,
+   with its launch counts;
+8. streaming throughput on the card: exact mode with 64 streams x 200
+   hops, one call per hop, per-stage against stack (ms per hop, streams at
+   real time), and throughput mode at 8 hops per call;
+9. one JSON line listing the kernels, then the final JSON status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
 ``dpdfnet_tpu_torch`` package beside it.
@@ -26,7 +39,9 @@ Needs one CUDA device; exits non-zero without one, and without the
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -43,7 +58,9 @@ KERNEL_TOL = 1e-4
 # Card engine vs CPU engine on the waveform: 16 DPRNN blocks and 5 GRU
 # layers per segment, carried over 3-4 segments, then the iSTFT GEMM;
 # every reduction differs in order between cuDNN/cuBLAS/kernels and the
-# CPU, so the bound is looser than a single kernel's.
+# CPU, so the bound is looser than a single kernel's.  The same bound holds
+# streaming (40 hops of carried state) and a pool slot against a lone
+# stream (batch 8 against batch 1).
 ENGINE_TOL = 5e-4
 
 PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
@@ -55,6 +72,30 @@ PALLAS = "dpdfnet_tpu/ops/pallas_gru.py"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def stack_env(on: bool):
+    """``DPDFNET_TPU_STACK`` for the block: read where an engine packs its
+    weights and where each DPRNN stack is dispatched."""
+    saved = os.environ.get("DPDFNET_TPU_STACK")
+    os.environ["DPDFNET_TPU_STACK"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["DPDFNET_TPU_STACK"]
+        else:
+            os.environ["DPDFNET_TPU_STACK"] = saved
+
+
+def expect_counts(what: str, counts: dict, want: dict) -> None:
+    """Every kernel in ``want`` launched exactly that many times (> 0), every
+    other kernel not at all."""
+    for k, v in counts.items():
+        if v != want.get(k, 0) or (k in want and v <= 0):
+            raise AssertionError(f"{what}: kernel {k} launched {v} times, expected "
+                                 f"{want.get(k, 0)} ({json.dumps(counts)})")
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -112,7 +153,10 @@ def check(name: str, got, ref) -> float:
 
 
 def kernel_phase(params, cfg, gk):
-    """Each kernel against its plain version at the flagship shapes, B=8."""
+    """Each kernel against its plain version at the flagship shapes: B=8
+    offline; the stack also at its streaming shape (T=1, B=64)."""
+    from dpdfnet_tpu_torch.models.fuse import pack_stack
+
     B, T, C, H = 8, 112, cfg.conv_ch, cfg.gru_dim
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
@@ -205,8 +249,247 @@ def kernel_phase(params, cfg, gk):
         log(f"kernel gru_scan x[{B},{T},{I}] H={H} reverse={reverse}: max_abs {err:.3e} "
             f"(tol {KERNEL_TOL:.0e}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+
+    # ---- gru_bidir: [B*T, Fq=48, C] rows from zero state ----
+    Fq = cfg.dprnn_df_feat
+    x = randn(B * T, Fq, C)
+    ba = (pk["wi2"], pk["wh2"], pk["b2"])
+    err = check("gru_bidir", gk.gru_bidir(x, *ba), gk.gru_bidir_plain(x, *ba))
+    ms = cuda_ms(lambda: gk.gru_bidir(x, *ba))
+    plain_ms = cuda_ms(lambda: gk.gru_bidir_plain(x, *ba), 3)
+    lib = gru_module(intra["fw"]["wi"], intra["fw"]["bi"], intra["fw"]["wh"],
+                     intra["fw"]["bh"], bidir=intra["bw"])
+    lib_ms = cuda_ms(lambda: lib(x))
+    n = B * T * Fq
+    b_ms, b_by = bound(24 * C * C * n, 3 * C * 4 * n + w_bytes(ba))
+    rows[("gru_bidir", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                   bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel gru_bidir x[{B * T},{Fq},{C}]: max_abs {err:.3e} (tol {KERNEL_TOL:.0e}) "
+        f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (cuDNN bidir GRU) "
+        f"bound_ms {b_ms:.4f} ({b_by})")
+
+    # ---- dprnn_stack: the streaming shape and the offline shape ----
+    K = cfg.dprnn_blocks
+    for branch, Fq in (("dprnn_erb", cfg.dprnn_erb_feat), ("dprnn_df", cfg.dprnn_df_feat)):
+        stacked = pack_stack(params["enc"][branch])
+        for Bs, Ts, label in ((64, 1, "stream"), (B, T, "offline")):
+            x = randn(Bs, Ts, Fq, C)
+            h0 = randn(K, Bs, Fq, C, scale=0.5)
+            err = check(f"dprnn_stack {label} Fq={Fq}", gk.dprnn_stack(x, h0, stacked),
+                        gk.dprnn_stack_plain(x, h0, stacked))
+            ms = cuda_ms(lambda: gk.dprnn_stack(x, h0, stacked), 10 if Ts == 1 else 3)
+            plain_ms = cuda_ms(lambda: gk.dprnn_stack_plain(x, h0, stacked), 3 if Ts == 1 else 1)
+            n = Bs * Ts * Fq * K
+            b_ms, b_by = bound(42 * C * C * n, 2 * (x.numel() + h0.numel()) * 4
+                               + w_bytes(stacked.values()))
+            rows[("dprnn_stack", label, Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                                    library_ms=None, bound_ms=b_ms,
+                                                    bound_by=b_by)
+            log(f"kernel dprnn_stack {label} x[{Bs},{Ts},{Fq},{C}] K={K}: max_abs {err:.3e} "
+                f"(tol {KERNEL_TOL:.0e}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms none "
+                f"(no single PyTorch call runs a DPRNN stack) bound_ms {b_ms:.4f} ({b_by})")
     torch.cuda.synchronize()
     return rows
+
+
+def stream_frames(rng, B, T, win):
+    """[B, T, win] sample frames cut from continuous noisy tones, hop win/2."""
+    hop = win // 2
+    n = (T - 1) * hop + win
+    t = np.arange(n) / 48000.0
+    sig = np.stack([0.2 * np.sin(2 * np.pi * (200 + 70 * b) * t) + 0.05 * rng.standard_normal(n)
+                    for b in range(B)]).astype(np.float32)
+    idx = np.arange(T)[:, None] * hop + np.arange(win)[None, :]
+    return sig[:, idx]
+
+
+def stream_spans(T):
+    """Throughput mode's forward_spec calls for T frames: the largest
+    power-of-two bucket (up to 128) that fits, repeatedly."""
+    spans, pos = [], 0
+    while pos < T:
+        step = max(b for b in (1, 2, 4, 8, 16, 32, 64, 128) if b <= T - pos)
+        spans.append(step)
+        pos += step
+    return spans
+
+
+def run_chunked(eng, frames, cuts, mode="exact"):
+    st, ys, pos = eng.init_stream_state(batch=frames.shape[0]), [], 0
+    for n in cuts:
+        y, st = eng.process_frames(frames[:, pos:pos + n], st, mode=mode)
+        ys.append(y)
+        pos += n
+    return np.concatenate(ys, axis=1)
+
+
+def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
+    """process_frames card vs CPU, launches per hop, chunk invariance."""
+    B, T = 4, 40
+    frames = stream_frames(rng, B, T, cfg.win_len)
+    launches = {}
+    for mode in ("exact", "throughput"):
+        calls = T if mode == "exact" else len(stream_spans(T))
+        t0 = time.perf_counter()
+        ref, _ = cpu_eng.process_frames(frames, cpu_eng.init_stream_state(batch=B), mode=mode)
+        t_cpu = time.perf_counter() - t0
+        for name, e, on in (("per-stage", eng, False), ("stack", eng_stack, True)):
+            with stack_env(on):
+                torch.cuda.synchronize()
+                gk.reset_launch_counts()
+                y, _ = e.process_frames(frames, e.init_stream_state(batch=B), mode=mode)
+                torch.cuda.synchronize()
+                counts = gk.launch_counts()
+            per_call = ({"dprnn_stack": 2} if on else
+                        {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+                         "dprnn_inter_block": 2 * cfg.dprnn_blocks})
+            per_call["gru_scan"] = 5
+            expect_counts(f"streaming {mode} {name}", counts,
+                          {k: v * calls for k, v in per_call.items()})
+            if mode == "exact":
+                launches[name] = counts
+            if not np.isfinite(y).all():
+                raise AssertionError(f"streaming {mode} {name}: output not finite")
+            err = float(np.abs(y - ref).max())
+            log(f"streaming {mode} {name} B={B} x {T} hops: card vs CPU max_abs {err:.3e} "
+                f"(tol {ENGINE_TOL:.0e}); launches {json.dumps(counts)} = per forward_spec "
+                f"call {json.dumps(per_call)} x {calls} calls (CPU run {t_cpu:.1f} s)")
+            if not err <= ENGINE_TOL:
+                raise AssertionError(f"streaming {mode} {name} deviates from the CPU by {err:.3e}")
+            if mode == "exact":
+                with stack_env(on):
+                    for cuts in ([1] * T, [3, 5] * (T // 8)):
+                        other = run_chunked(e, frames, cuts)
+                        if not np.array_equal(other, y):
+                            raise AssertionError(
+                                f"exact streaming {name}: chunking {cuts[:4]}... differs from "
+                                f"all-at-once by {float(np.abs(other - y).max()):.3e}")
+                log(f"exact streaming {name}: bit-identical for chunkings all-at-once, "
+                    f"1+1+..., 3+5+...")
+    return launches
+
+
+def enhancer_phase(cfg, eng, rng):
+    """StreamEnhancer and MultiStreamEnhancer on the card."""
+    from dpdfnet_tpu_torch import MultiStreamEnhancer, StreamEnhancer
+
+    sr, hop = cfg.sample_rate, cfg.hop
+    x = (0.1 * rng.standard_normal(sr)).astype(np.float32)                  # 1 s
+    sizes = [331, 97, 1203, 7, 3 * hop + 1, 4999]
+
+    def chunked(se, sig):
+        outs, pos, i = [], 0, 0
+        while pos < len(sig):
+            outs.append(se.process(sig[pos:pos + sizes[i % len(sizes)]]))
+            pos += sizes[i % len(sizes)]
+            i += 1
+        return outs
+
+    se = StreamEnhancer(engine=eng)
+    a = np.concatenate(chunked(se, x[: sr // 2]))
+    snap = se.save_state()
+    b = np.concatenate(chunked(se, x[sr // 2:]))
+    tail = se.flush()
+    se2 = StreamEnhancer(engine=eng)
+    se2.load_state(snap)
+    b2 = np.concatenate(chunked(se2, x[sr // 2:]))
+    if not np.array_equal(b, b2):
+        raise AssertionError("StreamEnhancer: save_state -> load_state does not resume bit-exact")
+    if not 0 < tail.size <= hop:
+        raise AssertionError(f"StreamEnhancer.flush returned {tail.size} samples (hop {hop})")
+    whole = np.concatenate([a, b, tail])
+    if whole.shape != x.shape or not np.isfinite(whole).all():
+        raise AssertionError(f"StreamEnhancer output {whole.shape}, finite "
+                             f"{np.isfinite(whole).all()}")
+    log(f"StreamEnhancer: chunks {sizes}, {whole.size} samples out for {x.size} in, "
+        f"save/load resume bit-exact, flush {tail.size} samples (<= hop {hop})")
+
+    pool = MultiStreamEnhancer(capacity=8, engine=eng)
+    sids = [pool.open() for _ in range(8)]
+    xs = [(0.1 * rng.standard_normal(sr // 2)).astype(np.float32) for _ in sids]
+    cadence = [hop, 2 * hop, 3 * hop + 17, 5 * hop, 999, hop // 2, 7 * hop, 4001]
+    outs = {sid: [] for sid in sids}
+    pos = {sid: 0 for sid in sids}
+    while any(pos[s] < len(xs[s]) for s in sids):
+        feed = {}
+        for i, sid in enumerate(sids):
+            if pos[sid] < len(xs[sid]):
+                feed[sid] = xs[sid][pos[sid]:pos[sid] + cadence[i]]
+                pos[sid] += cadence[i]
+        for sid, y in pool.process_many(feed).items():
+            outs[sid].append(y)
+    worst = 0.0
+    for sid in sids:
+        got = np.concatenate(outs[sid] + [pool.flush(sid)])
+        lone = StreamEnhancer(engine=eng)
+        ref = np.concatenate([lone.process(xs[sid]), lone.flush()])
+        if got.shape != ref.shape:
+            raise AssertionError(f"pool slot {sid}: {got.shape} samples vs lone {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+    log(f"MultiStreamEnhancer: 8 slots, cadences {cadence} samples per call: each slot vs a "
+        f"lone StreamEnhancer max_abs {worst:.3e} (tol {ENGINE_TOL:.0e})")
+    if not worst <= ENGINE_TOL:
+        raise AssertionError(f"pool slots deviate from lone streams by {worst:.3e}")
+
+
+def unfused_phase(cfg, params, cpu_params, gk, rng):
+    """Engine(fuse=False): the raw-params route through gru_bidir."""
+    from dpdfnet_tpu_torch import Engine
+
+    sr = cfg.sample_rate
+    lengths = np.array([int(0.6 * sr), int(1.0 * sr), int(1.4 * sr)])
+    S = int(lengths.max())
+    wavs = np.zeros((3, S), np.float32)
+    for i, ln in enumerate(lengths):
+        wavs[i, :ln] = 0.1 * rng.standard_normal(ln)
+    eng = Engine(cfg, params, fuse=False, device="cuda")
+    eng.enhance_waveforms(wavs[:, : sr // 4])                                # warm-up
+    torch.cuda.synchronize()
+    gk.reset_launch_counts()
+    y = eng.enhance_waveforms(wavs, lengths=lengths)
+    torch.cuda.synchronize()
+    counts = gk.launch_counts()
+    n_seg = segments(eng, S)
+    ref = Engine(cfg, cpu_params, fuse=False, device="cpu").enhance_waveforms(wavs, lengths=lengths)
+    err = float(np.abs(y - ref).max())
+    per_seg = {"gru_bidir": 2 * cfg.dprnn_blocks, "gru_scan": 5 + 2 * cfg.dprnn_blocks}
+    log(f"engine fuse=False B=3 (0.6/1.0/1.4 s): card vs CPU max_abs {err:.3e} "
+        f"(tol {ENGINE_TOL:.0e}); launches ({n_seg} segments) {json.dumps(counts)}, "
+        f"expected per segment {json.dumps(per_seg)}")
+    if not np.isfinite(y).all() or not err <= ENGINE_TOL:
+        raise AssertionError(f"fuse=False engine deviates from the CPU by {err:.3e}")
+    expect_counts("engine fuse=False", counts, {k: v * n_seg for k, v in per_seg.items()})
+    return counts
+
+
+def stream_throughput(cfg, engines, smi, rng):
+    """Exact mode, 64 streams x 200 hops, one call per hop; throughput mode
+    at 8 hops per call.  Order per-stage, stack, stack, per-stage."""
+    B, T = 64, 200
+    hop_s = cfg.hop / cfg.sample_rate
+    frames = stream_frames(rng, B, T, cfg.win_len)
+    res = {}
+    for name in ("per-stage", "stack", "stack", "per-stage"):
+        e, on = engines[name]
+        with stack_env(on):
+            for mode, per_call in (("exact", 1), ("throughput", 8)):
+                st = e.init_stream_state(batch=B)
+                for i in range(0, 16, per_call):                            # warm-up
+                    _, st = e.process_frames(frames[:, i:i + per_call], st, mode=mode)
+                st = e.init_stream_state(batch=B)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(0, T, per_call):
+                    y, st = e.process_frames(frames[:, i:i + per_call], st, mode=mode)
+                torch.cuda.synchronize()
+                ms_hop = (time.perf_counter() - t0) * 1e3 / T
+                if not np.isfinite(y).all():
+                    raise AssertionError(f"stream throughput {name} {mode}: not finite")
+                res.setdefault((name, mode), []).append(ms_hop)
+                log(f"streaming {mode} {name}: {B} streams x {T} hops, {per_call} hop(s) per "
+                    f"call: {ms_hop:.3f} ms per hop, streams at real time "
+                    f"{B * hop_s * 1e3 / ms_hop:.1f} | {smi}")
+    return res
 
 
 def main() -> int:
@@ -242,6 +525,7 @@ def main() -> int:
 
     cfg = get_config(MODEL)
     params = contract_params(init_params(cfg, seed=0, device="cuda"))
+    cpu_params = tree_map(lambda _, x: x.cpu(), params)
 
     # ---- phase 2: kernels vs plain versions ----
     kernel_rows = kernel_phase(prepare_inference_params(params, cfg), cfg, gk)
@@ -256,7 +540,8 @@ def main() -> int:
     for i, ln in enumerate(lengths):
         tone = 0.2 * np.sin(2 * np.pi * (220 + 110 * i) * t[:ln])
         wavs[i, :ln] = tone + 0.05 * rng.standard_normal(ln)
-    eng = Engine(cfg, params, device="cuda")
+    with stack_env(False):
+        eng = Engine(cfg, params, device="cuda")
     eng.enhance_waveforms(wavs[:, : sr // 2])              # warm-up (cuDNN plans)
     torch.cuda.synchronize()
     gk.reset_launch_counts()
@@ -264,9 +549,9 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = gk.launch_counts()
     n_seg = segments(eng, S)
-    cpu_params = tree_map(lambda _, x: x.cpu(), params)
     t_cpu = time.perf_counter()
-    y_cpu = Engine(cfg, cpu_params, device="cpu").enhance_waveforms(wavs, lengths=lengths)
+    cpu_eng = Engine(cfg, cpu_params, device="cpu")
+    y_cpu = cpu_eng.enhance_waveforms(wavs, lengths=lengths)
     t_cpu = time.perf_counter() - t_cpu
     if not np.isfinite(y_gpu).all():
         raise AssertionError("engine output is not finite")
@@ -282,55 +567,78 @@ def main() -> int:
                "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5}
     log(f"launches on the main path ({n_seg} segments): {json.dumps(counts)}; "
         f"expected per segment {json.dumps(per_seg)}")
-    for k, v in counts.items():
-        if v <= 0 or v != n_seg * per_seg[k]:
-            raise AssertionError(f"kernel {k} launched {v} times on the main path, "
-                                 f"expected {n_seg * per_seg[k]}")
+    expect_counts("offline main path", counts, {k: n_seg * v for k, v in per_seg.items()})
 
-    # ---- phase 4: throughput ----
+    # ---- phase 4: offline throughput, per-stage and stack ----
+    with stack_env(True):
+        eng_stack = Engine(cfg, params, device="cuda")
     B, secs = 64, 4.0
     big = (0.1 * rng.standard_normal((B, int(secs * sr)))).astype(np.float32)
-    eng.enhance_waveforms(big)                                  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        out = eng.enhance_waveforms(big)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    if not np.isfinite(out).all():
-        raise AssertionError("throughput output is not finite")
-    wall = statistics.median(times)
-    segs = segments(eng, big.shape[1])
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"throughput {MODEL} B={B} x {secs} s, f32: xRT {B * secs / wall:.1f}, "
-        f"median {wall * 1e3:.1f} ms per call (runs {[round(t * 1e3, 1) for t in times]}), "
-        f"{wall * 1e3 / segs:.2f} ms per {eng.seg_frames}-frame segment ({segs} segments), "
-        f"peak memory {peak:.2f} GiB | {smi}")
+    xrt = {}
+    for name, e, on in (("per-stage", eng, False), ("stack", eng_stack, True)):
+        with stack_env(on):
+            e.enhance_waveforms(big)                                    # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = e.enhance_waveforms(big)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        if not np.isfinite(out).all():
+            raise AssertionError(f"throughput output ({name}) is not finite")
+        wall = statistics.median(times)
+        segs = segments(e, big.shape[1])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        xrt[name] = B * secs / wall
+        log(f"throughput {MODEL} {name} B={B} x {secs} s, f32: xRT {xrt[name]:.1f}, "
+            f"median {wall * 1e3:.1f} ms per call (runs {[round(t * 1e3, 1) for t in times]}), "
+            f"{wall * 1e3 / segs:.2f} ms per {e.seg_frames}-frame segment ({segs} segments), "
+            f"peak memory {peak:.2f} GiB | {smi}")
 
-    # ---- phase 5: kernel list ----
-    def entry(name, key, source, replaces):
+    # ---- phase 5: streaming, card vs CPU ----
+    stream_counts = streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng)
+
+    # ---- phase 6: StreamEnhancer and MultiStreamEnhancer ----
+    with stack_env(False):
+        enhancer_phase(cfg, eng, rng)
+
+    # ---- phase 7: Engine(fuse=False) ----
+    unfused_counts = unfused_phase(cfg, params, cpu_params, gk, rng)
+
+    # ---- phase 8: streaming throughput ----
+    stream_throughput(cfg, {"per-stage": (eng, False), "stack": (eng_stack, True)}, smi, rng)
+
+    # ---- phase 9: kernel list ----
+    def entry(name, key, source, replaces, launches):
         r = kernel_rows[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[name], "max_abs_err": r["err"], "ms": r["ms"],
+                "launches": launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
     df = cfg.dprnn_df_feat
+    csrc = "dpdfnet_tpu_torch/csrc"
     kernels = [
-        entry("dprnn_intra_block", ("dprnn_intra_block", df),
-              "dpdfnet_tpu_torch/csrc/dprnn_intra.cu", f"{PALLAS}:598"),
-        entry("dprnn_inter_block", ("dprnn_inter_block", df),
-              "dpdfnet_tpu_torch/csrc/dprnn_inter.cu", f"{PALLAS}:226"),
-        entry("gru_scan", ("gru_scan", False),
-              "dpdfnet_tpu_torch/csrc/gru_scan.cu", f"{PALLAS}:433"),
+        entry("dprnn_intra_block", ("dprnn_intra_block", df), f"{csrc}/dprnn_intra.cu",
+              f"{PALLAS}:598", counts["dprnn_intra_block"]),
+        entry("dprnn_inter_block", ("dprnn_inter_block", df), f"{csrc}/dprnn_inter.cu",
+              f"{PALLAS}:226", counts["dprnn_inter_block"]),
+        entry("gru_scan", ("gru_scan", False), f"{csrc}/gru_scan.cu", f"{PALLAS}:433",
+              counts["gru_scan"]),
+        entry("gru_bidir", ("gru_bidir", df), f"{csrc}/gru_bidir.cu", f"{PALLAS}:462",
+              unfused_counts["gru_bidir"]),
+        entry("dprnn_stack", ("dprnn_stack", "stream", df), f"{csrc}/dprnn_stack.cu",
+              f"{PALLAS}:1633", stream_counts["stack"]["dprnn_stack"]),
     ]
-    for name in ("dprnn_intra_block", "dprnn_inter_block"):
-        k = next(e for e in kernels if e["name"] == name)
-        k["max_abs_err"] = max(kernel_rows[(name, f)]["err"]
-                               for f in (cfg.dprnn_erb_feat, df))
-    kernels[2]["max_abs_err"] = max(kernel_rows[("gru_scan", r)]["err"] for r in (False, True))
+    errs = {"dprnn_intra_block": [("dprnn_intra_block", f) for f in (cfg.dprnn_erb_feat, df)],
+            "dprnn_inter_block": [("dprnn_inter_block", f) for f in (cfg.dprnn_erb_feat, df)],
+            "gru_scan": [("gru_scan", r) for r in (False, True)],
+            "gru_bidir": [("gru_bidir", df)],
+            "dprnn_stack": [k for k in kernel_rows if k[0] == "dprnn_stack"]}
+    for k in kernels:
+        k["max_abs_err"] = max(kernel_rows[key]["err"] for key in errs[k["name"]])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

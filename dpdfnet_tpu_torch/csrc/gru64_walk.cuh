@@ -1,4 +1,4 @@
-// Shared C = 64 GRU walk for the DPRNN kernels (dprnn_inter.cu, dprnn_intra.cu).
+// Shared C = 64 GRU walk for dprnn_inter.cu, dprnn_intra.cu and gru_bidir.cu.
 //
 // One thread block owns R = GROUPS * RPT independent rows and walks S steps
 // of a GRU with input size == hidden size == 64 inside the block.  The 256
@@ -36,6 +36,8 @@ enum Mode {
   MODE_LN_RESIDUAL = 0,
   // part = h . Wfc_d, no bias: one direction's half of the intra fc
   MODE_FC_PART = 1,
+  // out = h: the hidden itself (a plain GRU layer; no Wfc is read)
+  MODE_YS = 2,
 };
 
 struct Rows {
@@ -111,7 +113,9 @@ __device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, in
     swi[i] = w.wi[src];
     swh[i] = w.wh[src];
   }
-  for (int i = tid; i < C * C; i += THREADS) swfc[i] = ep.wfc[i];
+  if constexpr (MODE != MODE_YS) {
+    for (int i = tid; i < C * C; i += THREADS) swfc[i] = ep.wfc[i];
+  }
   for (int i = tid; i < G3; i += THREADS) {
     const int src = (i / C) * w.gstride + w.col0 + i % C;
     sbi[i] = w.bi[src];
@@ -186,60 +190,68 @@ __device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, in
     for (int j = 0; j < RPT; ++j) sh[(grp + GROUPS * j) * C + u] = hnew[j];
     __syncthreads();
 
-    // epilogue: y = h . Wfc for this unit
-    float y[RPT];
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) y[j] = 0.0f;
-    for (int k = 0; k < C; k += 4) {
-      float4 hv[RPT];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j)
-        hv[j] = *reinterpret_cast<const float4*>(&sh[(grp + GROUPS * j) * C + k]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float wf = swfc[(k + kk) * C + u];
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) y[j] = fmaf((&hv[j].x)[kk], wf, y[j]);
-      }
-    }
-    if (MODE == MODE_FC_PART) {
+    if constexpr (MODE == MODE_YS) {
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int64_t n = row0 + grp + GROUPS * j;
-        if (n < N) ep.out[rows.off(n, t) + u] = y[j];
+        if (n < N) ep.out[rows.off(n, t) + u] = hnew[j];
       }
     } else {
-      // LayerNorm over the 64 units of each row: two warps per row group
-      float d[RPT];
+      // epilogue: y = h . Wfc for this unit
+      float y[RPT];
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        y[j] += fcb;
-        const float sm = warp_sum(y[j]);
-        if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sm;
-      }
-      __syncthreads();
+      for (int j = 0; j < RPT; ++j) y[j] = 0.0f;
+      for (int k = 0; k < C; k += 4) {
+        float4 hv[RPT];
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int r = grp + GROUPS * j;
-        const float mu = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
-        d[j] = y[j] - mu;
-      }
-      __syncthreads();
+        for (int j = 0; j < RPT; ++j)
+          hv[j] = *reinterpret_cast<const float4*>(&sh[(grp + GROUPS * j) * C + k]);
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const float sq = warp_sum(d[j] * d[j]);
-        if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sq;
-      }
-      __syncthreads();
+        for (int kk = 0; kk < 4; ++kk) {
+          const float wf = swfc[(k + kk) * C + u];
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int r = grp + GROUPS * j;
-        const float var = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
-        const float yn = d[j] * (1.0f / sqrtf(var + ep.eps));
-        const int64_t n = row0 + r;
-        if (n < N) ep.out[rows.off(n, t) + u] = sx[r * C + u] + (yn * gain + shift);
+          for (int j = 0; j < RPT; ++j) y[j] = fmaf((&hv[j].x)[kk], wf, y[j]);
+        }
       }
-    }
+      if (MODE == MODE_FC_PART) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const int64_t n = row0 + grp + GROUPS * j;
+          if (n < N) ep.out[rows.off(n, t) + u] = y[j];
+        }
+      } else {
+        // LayerNorm over the 64 units of each row: two warps per row group
+        float d[RPT];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          y[j] += fcb;
+          const float sm = warp_sum(y[j]);
+          if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sm;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const int r = grp + GROUPS * j;
+          const float mu = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
+          d[j] = y[j] - mu;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const float sq = warp_sum(d[j] * d[j]);
+          if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sq;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const int r = grp + GROUPS * j;
+          const float var = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
+          const float yn = d[j] * (1.0f / sqrtf(var + ep.eps));
+          const int64_t n = row0 + r;
+          if (n < N) ep.out[rows.off(n, t) + u] = sx[r * C + u] + (yn * gain + shift);
+        }
+      }
+    }  // MODE != MODE_YS
     __syncthreads();                       // sx / sred reused next step
   }
 

@@ -6,9 +6,10 @@ on ``spec: [B, T, F, 2]`` (wnorm-scaled STFT frames) with explicit carried
 state.  Output frame ``t`` is the enhanced input frame ``t-2`` (the 2-frame
 lookahead realised as delay lines, which are time shifts here).
 
-The DPRNN intra and inter stages and every GRU layer go through the
-kernel wrappers of ``ops.gru_kernels``: CUDA kernels for CUDA tensors,
-their plain versions for CPU tensors.  Convs, GEMMs and elementwise work
+The DPRNN stages (or, with ``DPDFNET_TPU_STACK``, each whole DPRNN
+stack) and every GRU layer go through the kernel wrappers of
+``ops.gru_kernels``: CUDA kernels for CUDA tensors, their plain versions
+for CPU tensors.  Convs, GEMMs and elementwise work
 are plain PyTorch.
 """
 
@@ -21,7 +22,6 @@ import torch
 from ..config import ModelConfig
 from ..ops import gru_kernels
 from ..ops import nn as onn
-from .fuse import _pack_bidir
 
 Tensor = torch.Tensor
 Params = Dict
@@ -63,31 +63,50 @@ def _features(params: Params, cfg: ModelConfig, spec: Tensor, state: State
 def _dprnn_block(p: Params, x: Tensor, h_inter: Tensor) -> Tuple[Tensor, Tensor]:
     """Dual-path block on ``x [B,T,Fq,C]``; ``h_inter [B,Fq,C]`` is the
     time-GRU carry.  Intra: bidirectional GRU along frequency + fc + LN +
-    residual (one kernel).  Inter: GRU along time + fc + LN + residual."""
+    residual.  Inter: GRU along time + fc + LN + residual.
+
+    Packed params (``pack_dprnn_bidir``) run each stage as one fused kernel.
+    Raw params take the JAX package's route for them
+    (``dpdfnet_tpu.models.dpdfnet._dprnn_block``): ``gru_bidir``, then
+    linear + LayerNorm + residual; ``gru_seq`` along time, then linear +
+    LayerNorm + residual."""
     B, T, Fq, C = x.shape
     intra, inter = p["intra"], p["inter"]
     packed = intra.get("packed")
-    if packed is None:
-        wi2, wh2, b2 = _pack_bidir(intra["fw"], intra["bw"])
-    else:
-        wi2, wh2, b2 = packed["wi2"], packed["wh2"], packed["b2"]
-    x = gru_kernels.dprnn_intra_block(
-        x.reshape(B * T, Fq, C), wi2, wh2, b2,
-        intra["fc"]["w"], intra["fc"]["b"], intra["ln"]["g"], intra["ln"]["b"],
-    ).reshape(B, T, Fq, C)
-    g = inter["gru"]
-    return gru_kernels.dprnn_inter_block(
-        x, h_inter.to(x.dtype).contiguous(), g["wi"], g["bi"], g["wh"], g["bh"],
-        inter["fc"]["w"], inter["fc"]["b"], inter["ln"]["g"], inter["ln"]["b"])
+    if packed is not None:
+        x = gru_kernels.dprnn_intra_block(
+            x.reshape(B * T, Fq, C), packed["wi2"], packed["wh2"], packed["b2"],
+            intra["fc"]["w"], intra["fc"]["b"], intra["ln"]["g"], intra["ln"]["b"],
+        ).reshape(B, T, Fq, C)
+        g = inter["gru"]
+        return gru_kernels.dprnn_inter_block(
+            x, h_inter.to(x.dtype).contiguous(), g["wi"], g["bi"], g["wh"], g["bh"],
+            inter["fc"]["w"], inter["fc"]["b"], inter["ln"]["g"], inter["ln"]["b"])
+    yi = onn.gru_bidir(intra["fw"], intra["bw"], x.reshape(B * T, Fq, C))
+    yi = onn.layer_norm(intra["ln"], onn.linear(intra["fc"], yi))
+    x = x + yi.reshape(B, T, Fq, C)
+    xt = x.transpose(1, 2).reshape(B * Fq, T, C)
+    yt, h_new = onn.gru_seq(inter["gru"], xt.contiguous(),
+                            h0=h_inter.to(x.dtype).reshape(B * Fq, C).contiguous())
+    yt = onn.layer_norm(inter["ln"], onn.linear(inter["fc"], yt))
+    y = x + yt.reshape(B, Fq, T, C).transpose(1, 2)
+    return y, h_new.reshape(B, Fq, C)
 
 
-def _dprnn(p_blocks: List[Params], x: Tensor, hs: List[Tensor]
-           ) -> Tuple[Tensor, List[Tensor]]:
+def _dprnn(p_blocks: List[Params], x: Tensor, hs: List[Tensor],
+           stacked: Optional[Params] = None) -> Tuple[Tensor, List[Tensor]]:
+    """The DPRNN stack.  With the branch's ``pack_stack`` bundle and
+    ``gru_kernels.stack_enabled()``, one ``dprnn_stack`` call runs every
+    block (``dpdfnet_tpu.models.dpdfnet._dprnn``); otherwise block by block."""
     if len(p_blocks) != len(hs):
         raise ValueError(
             f"state carries {len(hs)} DPRNN block hiddens but the model has "
             f"{len(p_blocks)} blocks — state from a different configuration?")
     x = x.contiguous()
+    if p_blocks and stacked is not None and gru_kernels.stack_enabled():
+        out, h_last = gru_kernels.dprnn_stack(
+            x, torch.stack([h.to(x.dtype) for h in hs]), stacked)
+        return out, list(h_last)
     new_hs: List[Tensor] = []
     for p, h in zip(p_blocks, hs):
         x, h_new = _dprnn_block(p, x, h)
@@ -169,12 +188,14 @@ def _encoder(params: Params, cfg: ModelConfig, feat_erb: Tensor, feat_spec: Tens
     e1, _ = onn.conv_block(p["erb_conv1"], e0, kt=1, kf=kfc, fstride=s1, act="relu")
     e2, _ = onn.conv_block(p["erb_conv2"], e1, kt=1, kf=kfc, fstride=s2, act="relu")
     e3, _ = onn.conv_block(p["erb_conv3"], e2, kt=1, kf=kfc, fstride=s3, act="relu")
-    e3d, new_dprnn_erb = _dprnn(p["dprnn_erb"], e3, state["dprnn_erb"])
+    e3d, new_dprnn_erb = _dprnn(p["dprnn_erb"], e3, state["dprnn_erb"],
+                                stacked=p.get("dprnn_erb_stacked"))
 
     c0, new_df_tail = onn.conv_block(p["df_conv0"], feat_spec, kt=kt, kf=kf,
                                      act="relu", time_tail=state["df_conv0_tail"])
     c1, _ = onn.conv_block(p["df_conv1"], c0, kt=1, kf=kfc, fstride=2, act="relu")
-    c1d, new_dprnn_df = _dprnn(p["dprnn_df"], c1, state["dprnn_df"])
+    c1d, new_dprnn_df = _dprnn(p["dprnn_df"], c1, state["dprnn_df"],
+                               stacked=p.get("dprnn_df_stacked"))
 
     B, T = feat_erb.shape[:2]
     cemb = onn.grouped_linear(p["df_fc_emb"], c1d.reshape(B, T, -1), act="relu")

@@ -4,7 +4,9 @@
 - ``fuse_separable``: (depthwise/grouped conv -> 1x1 pointwise) is one
   linear map, so it collapses into a single dense conv kernel.
 - ``pack_dprnn_bidir``: the DPRNN intra GRUs' weights packed
-  direction-blockdiag, gate-major, as the intra kernel takes them.
+  direction-blockdiag, gate-major, as the intra kernel takes them, and
+  (with ``DPDFNET_TPU_STACK`` set) each branch's ``pack_stack`` bundle for
+  the stack kernel.
 
 The JAX package's ``fold_hr_tail`` (the 48 kHz 480-bin plane re-expressed
 as ``[160, 3C]``) is a TPU layout choice and is not ported; the forward
@@ -18,6 +20,8 @@ from typing import Dict
 import torch
 
 from ..config import ModelConfig
+from ..ops import gru_kernels
+from ..ops.gru_kernels import _pack_bidir
 
 Params = Dict
 
@@ -97,40 +101,40 @@ def fuse_separable(params: Params, cfg: ModelConfig) -> Params:
     return p
 
 
-def _pack_bidir(p_fw: dict, p_bw: dict):
-    """Stack two GRU parameter sets direction-blockdiag, gate-major.
+def pack_stack(blocks: list) -> Params:
+    """Stack K DPRNN block parameter dicts for ``gru_kernels.dprnn_stack``
+    (``pallas_gru.pack_stack``: the same keys; biases and LayerNorm vectors
+    as ``[K, 1, C]`` rows).  Each block needs ``intra.packed``."""
+    def stk(get):
+        return torch.stack([get(b).to(torch.float32) for b in blocks]).contiguous()
 
-    Returns ``(wi2 [2I, 6H], wh2 [2H, 6H], b2 [2, 6H])``; the 6H column
-    axis is ``[r_f r_b z_f z_b n_f n_b]``, the row axis ``[fw | bw]`` with
-    zero cross-direction blocks.
-    """
-    H = p_fw["wh"].shape[0]
+    def row(get):
+        return torch.stack([get(b).to(torch.float32).reshape(1, -1) for b in blocks])
 
-    def pack(wf, wb):
-        rows = wf.shape[0]
-        out = wf.new_zeros((2 * rows, 6 * H))
-        for g in range(3):                       # r, z, n gate blocks
-            out[:rows, (2 * g) * H:(2 * g + 1) * H] = wf[:, g * H:(g + 1) * H]
-            out[rows:, (2 * g + 1) * H:(2 * g + 2) * H] = wb[:, g * H:(g + 1) * H]
-        return out
-
-    def packb(bf, bb):
-        out = bf.new_zeros((6 * H,))
-        for g in range(3):
-            out[(2 * g) * H:(2 * g + 1) * H] = bf[g * H:(g + 1) * H]
-            out[(2 * g + 1) * H:(2 * g + 2) * H] = bb[g * H:(g + 1) * H]
-        return out
-
-    wi2 = pack(p_fw["wi"], p_bw["wi"])
-    wh2 = pack(p_fw["wh"], p_bw["wh"])
-    b2 = torch.stack([packb(p_fw["bi"], p_bw["bi"]),
-                      packb(p_fw["bh"], p_bw["bh"])])
-    return wi2, wh2, b2
+    return {
+        "wi2": stk(lambda b: b["intra"]["packed"]["wi2"]),
+        "wh2": stk(lambda b: b["intra"]["packed"]["wh2"]),
+        "b2": stk(lambda b: b["intra"]["packed"]["b2"]),
+        "wfc_i": stk(lambda b: b["intra"]["fc"]["w"]),
+        "bfc_i": row(lambda b: b["intra"]["fc"]["b"]),
+        "g_i": row(lambda b: b["intra"]["ln"]["g"]),
+        "bln_i": row(lambda b: b["intra"]["ln"]["b"]),
+        "wi_t": stk(lambda b: b["inter"]["gru"]["wi"]),
+        "wh_t": stk(lambda b: b["inter"]["gru"]["wh"]),
+        "b2_t": stk(lambda b: torch.stack([b["inter"]["gru"]["bi"], b["inter"]["gru"]["bh"]])),
+        "wfc_t": stk(lambda b: b["inter"]["fc"]["w"]),
+        "bfc_t": row(lambda b: b["inter"]["fc"]["b"]),
+        "g_t": row(lambda b: b["inter"]["ln"]["g"]),
+        "bln_t": row(lambda b: b["inter"]["ln"]["b"]),
+    }
 
 
 def pack_dprnn_bidir(params: Params, cfg: ModelConfig) -> Params:
     """Add pre-packed intra-GRU weights (``intra['packed']``) to every
-    DPRNN block; the originals stay beside them."""
+    DPRNN block; the originals stay beside them.  When
+    ``gru_kernels.stack_enabled()`` (read here, at pack time) each branch
+    also gets its ``pack_stack`` bundle, ``enc[branch + '_stacked']``, as
+    ``dpdfnet_tpu.models.fuse.pack_dprnn_bidir`` builds it."""
     p = dict(params)
     enc = dict(p["enc"])
     for branch in ("dprnn_erb", "dprnn_df"):
@@ -143,6 +147,8 @@ def pack_dprnn_bidir(params: Params, cfg: ModelConfig) -> Params:
             bp["intra"] = intra
             blocks.append(bp)
         enc[branch] = blocks
+        if blocks and gru_kernels.stack_enabled():
+            enc[branch + "_stacked"] = pack_stack(blocks)
     p["enc"] = enc
     return p
 

@@ -27,6 +27,8 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES: Dict[str, tuple] = {
     "dprnn_inter": ("dprnn_inter.cu", ("gru64_walk.cuh",)),
     "dprnn_intra": ("dprnn_intra.cu", ("gru64_walk.cuh",)),
+    "dprnn_stack": ("dprnn_stack.cu", ("gru64_walk.cuh",)),
+    "gru_bidir": ("gru_bidir.cu", ("gru64_walk.cuh",)),
     "gru_scan": ("gru_scan.cu", ()),
 }
 

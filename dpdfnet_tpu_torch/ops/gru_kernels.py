@@ -1,4 +1,5 @@
-"""The port's sequential kernels: DPRNN intra, DPRNN inter, GRU scan.
+"""The port's sequential kernels: DPRNN intra, DPRNN inter, GRU scan,
+bidirectional GRU and the whole DPRNN stack.
 
 Counterpart of ``dpdfnet_tpu.ops.pallas_gru``.  Each wrapper sits beside
 its plain PyTorch version:
@@ -16,14 +17,16 @@ the main path went through the kernels (``launch_counts`` /
 
 Layouts follow the port's planes, not the TPU's time-major ones: the
 kernels read ``[B, T, Fq, C]`` through strides.  Weight argument lists are
-the JAX wrappers': packed ``wi2, wh2, b2`` for intra, ``wi, bi, wh, bh,
-wfc, bfc, g, bln`` for inter.  The CUDA kernels compute in float32 and
-take DPRNN planes with ``C == 64`` (every shipped configuration).
+the JAX wrappers': packed ``wi2, wh2, b2`` for intra and the bidirectional
+GRU, ``wi, bi, wh, bh, wfc, bfc, g, bln`` for inter, the ``pack_stack``
+dict for the stack.  The CUDA kernels compute in float32 and take DPRNN
+planes with ``C == 64`` (every shipped configuration).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -63,26 +66,66 @@ def gru_scan_plain(x: Tensor, h0: Optional[Tensor], wi: Tensor, bi: Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def _pack_bidir(p_fw: dict, p_bw: dict):
+    """Stack two GRU parameter sets direction-blockdiag, gate-major.
+
+    Returns ``(wi2 [2I, 6H], wh2 [2H, 6H], b2 [2, 6H])``; the 6H column
+    axis is ``[r_f r_b z_f z_b n_f n_b]``, the row axis ``[fw | bw]`` with
+    zero cross-direction blocks (``pallas_gru._pack_bidir``).
+    """
+    H = p_fw["wh"].shape[0]
+
+    def pack(wf, wb):
+        rows = wf.shape[0]
+        out = wf.new_zeros((2 * rows, 6 * H))
+        for g in range(3):                       # r, z, n gate blocks
+            out[:rows, (2 * g) * H:(2 * g + 1) * H] = wf[:, g * H:(g + 1) * H]
+            out[rows:, (2 * g + 1) * H:(2 * g + 2) * H] = wb[:, g * H:(g + 1) * H]
+        return out
+
+    def packb(bf, bb):
+        out = bf.new_zeros((6 * H,))
+        for g in range(3):
+            out[(2 * g) * H:(2 * g + 1) * H] = bf[g * H:(g + 1) * H]
+            out[(2 * g + 1) * H:(2 * g + 2) * H] = bb[g * H:(g + 1) * H]
+        return out
+
+    wi2 = pack(p_fw["wi"], p_bw["wi"])
+    wh2 = pack(p_fw["wh"], p_bw["wh"])
+    b2 = torch.stack([packb(p_fw["bi"], p_bw["bi"]),
+                      packb(p_fw["bh"], p_bw["bh"])])
+    return wi2, wh2, b2
+
+
+def gru_bidir_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+    """Bidirectional GRU along L of ``x [N, L, I]`` from zero state with the
+    packed direction-blockdiag weights (``_pack_bidir``); both directions
+    advance in one walk.  Returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``."""
+    N, L, _ = x.shape
+    H = wh2.shape[0] // 2
+    H2 = 2 * H
+    h = x.new_zeros((N, H2))
+    ys_f, ys_b = [None] * L, [None] * L
+    for s in range(L):
+        x2 = torch.cat([x[:, s], x[:, L - 1 - s]], dim=-1)
+        xp = x2 @ wi2 + b2[0]
+        hh = h @ wh2 + b2[1]
+        r = torch.sigmoid(xp[:, :H2] + hh[:, :H2])
+        z = torch.sigmoid(xp[:, H2:2 * H2] + hh[:, H2:2 * H2])
+        n = torch.tanh(xp[:, 2 * H2:] + r * hh[:, 2 * H2:])
+        h = (1.0 - z) * n + z * h
+        ys_f[s] = h[:, :H]
+        ys_b[L - 1 - s] = h[:, H:]
+    return torch.stack(ys_f, 1), torch.stack(ys_b, 1)
+
+
 def dprnn_intra_block_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
                             wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor
                             ) -> Tensor:
     """``x + LN(fc(bidirGRU_along_Fq(x)))`` over ``x [N, Fq, C]`` with the
-    packed direction-blockdiag weights (``models.fuse._pack_bidir``)."""
-    N, Fq, C = x.shape
-    C2 = 2 * C
-    h = x.new_zeros((N, C2))
-    ys_f, ys_b = [None] * Fq, [None] * Fq
-    for s in range(Fq):
-        x2 = torch.cat([x[:, s], x[:, Fq - 1 - s]], dim=-1)
-        xp = x2 @ wi2 + b2[0]
-        hh = h @ wh2 + b2[1]
-        r = torch.sigmoid(xp[:, :C2] + hh[:, :C2])
-        z = torch.sigmoid(xp[:, C2:2 * C2] + hh[:, C2:2 * C2])
-        n = torch.tanh(xp[:, 2 * C2:] + r * hh[:, 2 * C2:])
-        h = (1.0 - z) * n + z * h
-        ys_f[s] = h[:, :C]
-        ys_b[Fq - 1 - s] = h[:, C:]
-    ys = torch.cat([torch.stack(ys_f, 1), torch.stack(ys_b, 1)], dim=-1)
+    packed direction-blockdiag weights (``_pack_bidir``)."""
+    ys = torch.cat(gru_bidir_plain(x, wi2, wh2, b2), dim=-1)
     return x + _ln(ys @ wfc + bfc, g, bln)
 
 
@@ -99,6 +142,41 @@ def dprnn_inter_block_plain(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor,
     return x + y.reshape(B, Fq, T, C).transpose(1, 2), hl.reshape(B, Fq, C)
 
 
+def dprnn_stack_plain(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
+                      ) -> Tuple[Tensor, Tensor]:
+    """K DPRNN blocks over ``x [B, T, Fq, C]`` one frame at a time
+    (``_stack_kernel``'s order): per t, for each block k, the intra stage
+    (bidirectional GRU along Fq from zero + fc + LN + residual), then one
+    inter GRU step on ``h[k]`` + fc + LN + residual.  ``h0 [K, B, Fq, C]``;
+    returns ``(out [B, T, Fq, C], h_last [K, B, Fq, C])``."""
+    B, T, Fq, C = x.shape
+    K = h0.shape[0]
+    w = stacked
+    hs = [h0[k].to(x.dtype) for k in range(K)]
+    outs = []
+    for t in range(T):
+        cur = x[:, t]                                           # [B, Fq, C]
+        for k in range(K):
+            cur = dprnn_intra_block_plain(
+                cur, w["wi2"][k], w["wh2"][k], w["b2"][k], w["wfc_i"][k],
+                w["bfc_i"][k, 0], w["g_i"][k, 0], w["bln_i"][k, 0])
+            xp = cur @ w["wi_t"][k] + w["b2_t"][k, 0]
+            hs[k] = gru_cell({"wh": w["wh_t"][k], "bh": w["b2_t"][k, 1]}, xp, hs[k])
+            cur = cur + _ln(hs[k] @ w["wfc_t"][k] + w["bfc_t"][k, 0],
+                            w["g_t"][k, 0], w["bln_t"][k, 0])
+        outs.append(cur)
+    return torch.stack(outs, dim=1), torch.stack(hs)
+
+
+def stack_enabled() -> bool:
+    """Run each DPRNN stack as one ``dprnn_stack`` launch?
+    (``DPDFNET_TPU_STACK=0/1``, default off: the same variable and default
+    as ``pallas_gru.stack_enabled``.)  Read where the weights are packed
+    (``models.fuse.pack_dprnn_bidir``) and where the stack is dispatched
+    (``models.dpdfnet._dprnn``): set it before building the engine."""
+    return os.environ.get("DPDFNET_TPU_STACK", "0") not in ("0", "false", "False")
+
+
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
@@ -108,8 +186,21 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "dprnn_inter_launch": [_P] * 12 + [_I] * 4 + [_P],
     "dprnn_intra_launch": [_P] * 10 + [ctypes.c_longlong, _I, _I, _P],
+    "dprnn_stack_launch": [_P] * 18 + [_I] * 4 + [_P],
+    "gru_bidir_launch": [_P] * 6 + [ctypes.c_longlong, _I, _I, _P],
     "gru_scan_launch": [_P] * 9 + [_I] * 6 + [_P],
 }
+_STACK_FQ_MAX = 50          # csrc/dprnn_stack.cu: the block's shared memory
+
+
+def _stack_shapes(K: int, C: int) -> Dict[str, tuple]:
+    """``pack_stack``'s keys, in the order the stack kernel takes them, with
+    their shapes for K blocks of width C."""
+    row = (K, 1, C)
+    return {"wi2": (K, 2 * C, 6 * C), "wh2": (K, 2 * C, 6 * C), "b2": (K, 2, 6 * C),
+            "wfc_i": (K, 2 * C, C), "bfc_i": row, "g_i": row, "bln_i": row,
+            "wi_t": (K, C, 3 * C), "wh_t": (K, C, 3 * C), "b2_t": (K, 2, 3 * C),
+            "wfc_t": (K, C, C), "bfc_t": row, "g_t": row, "bln_t": row}
 
 
 def _fn(lib_name: str, fn_name: str):
@@ -206,6 +297,60 @@ def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
     return out, h_last
 
 
+def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
+              ) -> Tuple[Tensor, Tensor]:
+    """Bidirectional GRU along L of ``x [N, L, I]`` from zero state with
+    packed weights; returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``.
+    Replaces ``pallas_gru.gru_bidir_tm``."""
+    if x.device.type == "cpu":
+        return gru_bidir_plain(x, wi2, wh2, b2)
+    dev = _require_cuda("gru_bidir", x=x, wi2=wi2, wh2=wh2, b2=b2)
+    N, L, C = x.shape
+    if C != 64 or N == 0 or L == 0 or tuple(wi2.shape) != (2 * C, 6 * C) \
+            or tuple(wh2.shape) != (2 * C, 6 * C) or tuple(b2.shape) != (2, 6 * C):
+        raise ValueError(f"gru_bidir: kernel takes I == H == 64 with packed weights and "
+                         f"N, L > 0; got x {tuple(x.shape)}, wh2 {tuple(wh2.shape)}")
+    ys_fw = torch.empty_like(x)
+    ys_bw = torch.empty_like(x)
+    rc = _fn("gru_bidir", "gru_bidir_launch")(
+        x.data_ptr(), ys_fw.data_ptr(), ys_bw.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
+        b2.data_ptr(), N, L, _walk_rows_per_block(N, 2, dev), _stream())
+    _check_rc(rc, "gru_bidir")
+    gru_bidir.launches += 1
+    return ys_fw, ys_bw
+
+
+def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
+                ) -> Tuple[Tensor, Tensor]:
+    """The whole DPRNN stack over ``x [B, T, Fq, C]`` from the carried
+    ``h0 [K, B, Fq, C]`` with ``pack_stack`` weights, in one launch.
+    Returns ``(out [B, T, Fq, C], h_last [K, B, Fq, C])``.  Replaces
+    ``pallas_gru.dprnn_stack``."""
+    if x.device.type == "cpu":
+        return dprnn_stack_plain(x, h0, stacked)
+    B, T, Fq, C = x.shape
+    K = h0.shape[0]
+    shapes = _stack_shapes(K, C)
+    ws = {k: stacked[k] for k in shapes}
+    _require_cuda("dprnn_stack", x=x, h0=h0, **ws)
+    bad = [k for k, shape in shapes.items() if tuple(ws[k].shape) != shape]
+    if C != 64 or not 1 <= Fq <= _STACK_FQ_MAX or B == 0 or T == 0 or K == 0 \
+            or tuple(h0.shape) != (K, B, Fq, C) or bad:
+        raise ValueError(f"dprnn_stack: kernel takes C == 64, 1 <= Fq <= {_STACK_FQ_MAX}, "
+                         f"B, T, K > 0 and pack_stack weights; got x {tuple(x.shape)}, "
+                         f"h0 {tuple(h0.shape)}, misshapen {bad}")
+    if any(t.data_ptr() % 16 for t in (x, h0, *ws.values())):
+        raise ValueError("dprnn_stack: the kernel reads 16-byte aligned tensors")
+    out = torch.empty_like(x)
+    h_last = torch.empty_like(h0)
+    rc = _fn("dprnn_stack", "dprnn_stack_launch")(
+        x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
+        *(w.data_ptr() for w in ws.values()), B, T, Fq, K, _stream())
+    _check_rc(rc, "dprnn_stack")
+    dprnn_stack.launches += 1
+    return out, h_last
+
+
 def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tensor,
              *, reverse: bool = False) -> Tuple[Tensor, Tensor]:
     """GRU over ``x [N, T, I]`` (batch-major) from ``h0 [N, H]``, forward
@@ -238,6 +383,8 @@ KERNEL_WRAPPERS = {
     "dprnn_intra_block": dprnn_intra_block,
     "dprnn_inter_block": dprnn_inter_block,
     "gru_scan": gru_scan,
+    "gru_bidir": gru_bidir,
+    "dprnn_stack": dprnn_stack,
 }
 for _w in KERNEL_WRAPPERS.values():
     _w.launches = 0

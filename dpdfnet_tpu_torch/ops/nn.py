@@ -203,16 +203,21 @@ def gru_seq(p: dict, x: Tensor, h0: Optional[Tensor] = None,
                                 reverse=reverse)
 
 
-def gru_bidir(p_fw: dict, p_bw: dict, x: Tensor) -> Tensor:
-    """Bidirectional GRU from zero state, output ``[fw, bw]`` concatenated
-    (plain path; the DPRNN intra stage runs the fused kernel instead)."""
+def gru_bidir(p_fw: dict, p_bw: dict, x: Tensor,
+              packed: Optional[dict] = None) -> Tensor:
+    """Bidirectional GRU from zero state along the time axis of
+    ``x [B, T, I]``, output ``[fw, bw]`` concatenated.  Goes through the
+    ``gru_bidir`` kernel wrapper with the direction-blockdiag weights:
+    ``packed`` (``models.fuse.pack_dprnn_bidir``) when given, else packed
+    here, as ``dpdfnet_tpu.ops.nn.gru_bidir`` does."""
     from . import gru_kernels
 
-    y_fw, _ = gru_kernels.gru_scan_plain(x, None, p_fw["wi"], p_fw["bi"],
-                                         p_fw["wh"], p_fw["bh"])
-    y_bw, _ = gru_kernels.gru_scan_plain(x, None, p_bw["wi"], p_bw["bi"],
-                                         p_bw["wh"], p_bw["bh"], reverse=True)
-    return torch.cat([y_fw, y_bw], dim=-1)
+    if packed is None:
+        wi2, wh2, b2 = gru_kernels._pack_bidir(p_fw, p_bw)
+    else:
+        wi2, wh2, b2 = packed["wi2"], packed["wh2"], packed["b2"]
+    ys_fw, ys_bw = gru_kernels.gru_bidir(x.contiguous(), wi2, wh2, b2)
+    return torch.cat([ys_fw, ys_bw], dim=-1)
 
 
 def grouped_gru_seq(ps: list, x: Tensor, h0s: Optional[list] = None,

@@ -13,13 +13,17 @@ The offline pipeline runs on the engine's device:
 Utterance lengths are bucketed on a geometric ladder so a corpus of varied
 lengths sees a handful of shapes.  ``highest`` and ``high`` both run in
 float32 with TF32 off (kernels in f32 FMA, cuBLAS/cuDNN in full f32).
-The mesh, the stepped/progress path, streaming and serving are later
-slices.
+
+The streaming path (``init_stream_state`` / ``process_frames``) takes
+sample frames ``[B, T, win]`` and returns windowed time frames ready for
+overlap-add, with the state kept on the engine's device between calls.
+The mesh and the stepped/progress path are later slices.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional
 
 import numpy as np
@@ -41,6 +45,19 @@ QUALITY_TIERS = {
     "fast": "default",
     "turbo": "default",
 }
+
+# frames per forward_spec call in throughput mode: the JAX package's
+# power-of-two ladder, so both packages split a chunk the same way
+_STREAM_T_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _stream_dft_gemm() -> bool:
+    """Streaming front/back DFT as the offline path's DFT / iDFT GEMMs
+    instead of ``torch.fft.rfft`` / ``irfft`` (``DPDFNET_TPU_STREAM_DFT_GEMM=1``,
+    default off, as in the JAX package).  Either way the op sequence per
+    frame does not depend on the chunking."""
+    return os.environ.get("DPDFNET_TPU_STREAM_DFT_GEMM", "0") not in ("0", "false", "False")
+
 
 _BF16_TODO = ("the bf16 'fast'/'turbo' tiers are not ported yet "
               "(ROADMAP.md queue 1, 'fast/turbo bf16 tiers')")
@@ -132,6 +149,86 @@ class Engine:
         y = stft_ops.istft_matmul(out / cfg.wnorm, self._window, cfg.hop, center=True,
                                   idft=self._idft)
         return y[:, 2 * cfg.win_len:]
+
+    # ------------------------------------------------------------------ #
+    # Streaming path (sample frames in, overlap-add-ready frames out)
+    # ------------------------------------------------------------------ #
+
+    def _stream_ends(self):
+        """(front, back): sample frames ``[B, T, win]`` -> wnorm-scaled spec
+        ``[B, T, F, 2]``, and network output spec -> windowed time frames
+        ``[B, T, win]``.  The rfft pair by default; the DFT / iDFT GEMMs
+        (windows and irfft scaling inside the matrices) under
+        ``DPDFNET_TPU_STREAM_DFT_GEMM``."""
+        cfg = self.cfg
+        window, wnorm, F = self._window, cfg.wnorm, cfg.win_len // 2 + 1
+        if _stream_dft_gemm():
+            def front(frames):
+                out = frames @ self._dft
+                return torch.stack([out[..., :F], out[..., F:]], dim=-1) * wnorm
+
+            def back(out):
+                out = out / wnorm
+                return torch.cat([out[..., 0], out[..., 1]], dim=-1) @ self._idft
+        else:
+            def front(frames):
+                spec = torch.fft.rfft(frames * window, dim=-1)
+                return torch.stack([spec.real, spec.imag], dim=-1) * wnorm
+
+            def back(out):
+                out = out / wnorm
+                y = torch.fft.irfft(torch.complex(out[..., 0], out[..., 1]),
+                                    n=cfg.win_len, dim=-1)
+                return y * window
+        return front, back
+
+    def init_stream_state(self, batch: int = 1):
+        """Fresh state for ``batch`` streams on the engine's device.  Every
+        leaf is float32: the ported tiers compute in f32, so the JAX
+        package's f32 DPRNN hiddens under bf16 planes have no counterpart
+        until the bf16 tiers land."""
+        return state_lib.init_state(self.cfg, batch=batch, device=self.device)
+
+    def process_frames(self, frames: np.ndarray, st, mode: str = "exact"):
+        """Process ``[B, T, win_len]`` sample frames; returns windowed time
+        frames ``[B, T, win_len]`` (numpy) ready for overlap-add, and the
+        new state (on the device).  One host-to-device copy of the frames
+        and one device-to-host copy of the output per call.
+
+        ``mode``:
+            ``"exact"`` (default): front end, ``forward_spec`` and back end
+            once per frame at T == 1, so the op sequence per frame is the
+            same for every chunking and the output is bit-identical however
+            the stream is cut.
+            ``"throughput"``: one ``forward_spec`` per bucket of the
+            power-of-two ladder (the JAX package's split, chunk for chunk);
+            the same math, with float reduction orders that depend on the
+            chunking (about 1e-5 from exact).
+        """
+        frames = np.asarray(frames, dtype=np.float32)
+        B, T, _ = frames.shape
+        if mode not in ("exact", "throughput"):
+            raise ValueError(f"unknown streaming mode {mode!r}")
+        if T == 0:
+            return np.zeros((B, 0, self.cfg.win_len), np.float32), st
+        front, back = self._stream_ends()
+        outs = []
+        with _full_f32(), torch.no_grad():
+            x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+            if mode == "exact":
+                spans = [(t, 1) for t in range(T)]
+            else:
+                spans, pos = [], 0
+                while pos < T:
+                    step = max(b for b in _STREAM_T_BUCKETS if b <= T - pos)
+                    spans.append((pos, step))
+                    pos += step
+            for pos, step in spans:
+                out, st, _ = forward_spec(self.params, self.cfg,
+                                          front(x[:, pos:pos + step]), st)
+                outs.append(back(out))
+            y = torch.cat(outs, dim=1).cpu().numpy()
+        return y, st
 
     def enhance_waveforms(self, wavs: np.ndarray, attn_limit_db: Optional[float] = None,
                           lengths: Optional[np.ndarray] = None,

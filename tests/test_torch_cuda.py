@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from dpdfnet_tpu_torch.models.fuse import _pack_bidir
+from dpdfnet_tpu_torch.models.fuse import _pack_bidir, pack_stack
 from dpdfnet_tpu_torch.ops import gru_kernels
 
 TOL = 1e-4
@@ -84,3 +84,72 @@ def test_cuda_gru_scan_matches_plain(dev, reverse, N, T, I, H):
                                                 reverse=reverse)
     assert (ys - ys_ref).abs().max().item() < TOL
     assert (hl - hl_ref).abs().max().item() < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L", [(30, 40), (7, 48), (200, 8)])
+def test_cuda_gru_bidir_matches_plain(dev, N, L):
+    rng = np.random.default_rng(9)
+    C = 64
+    w = _pack_bidir(_gru(rng, C, C, dev), _gru(rng, C, C, dev))
+    x = _rand(rng, (N, L, C), dev)
+    got = gru_kernels.gru_bidir(x, *w)
+    ref = gru_kernels.gru_bidir_plain(x, *w)
+    for a, b in zip(got, ref):
+        assert (a - b).abs().max().item() < TOL
+
+
+def _stacked(rng, K, C, dev):
+    blocks = []
+    for _ in range(K):
+        fw, bw = _gru(rng, C, C, dev), _gru(rng, C, C, dev)
+        wi2, wh2, b2 = _pack_bidir(fw, bw)
+        blocks.append({
+            "intra": {"packed": {"wi2": wi2, "wh2": wh2, "b2": b2},
+                      "fc": {"w": _rand(rng, (2 * C, C), dev, 0.3), "b": _rand(rng, (C,), dev, 0.1)},
+                      "ln": {"g": 1.0 + _rand(rng, (C,), dev, 0.5), "b": _rand(rng, (C,), dev, 0.1)}},
+            "inter": {"gru": _gru(rng, C, C, dev),
+                      "fc": {"w": _rand(rng, (C, C), dev, 0.3), "b": _rand(rng, (C,), dev, 0.1)},
+                      "ln": {"g": 1.0 + _rand(rng, (C,), dev, 0.5), "b": _rand(rng, (C,), dev, 0.1)}},
+        })
+    return pack_stack(blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Fq,K", [(3, 1, 48, 2), (2, 4, 40, 3), (5, 2, 8, 2), (1, 3, 13, 1)])
+def test_cuda_dprnn_stack_matches_plain(dev, B, T, Fq, K):
+    rng = np.random.default_rng(10)
+    C = 64
+    stacked = _stacked(rng, K, C, dev)
+    x = _rand(rng, (B, T, Fq, C), dev)
+    h0 = _rand(rng, (K, B, Fq, C), dev, 0.2)
+    out, hl = gru_kernels.dprnn_stack(x, h0, stacked)
+    ref, hl_ref = gru_kernels.dprnn_stack_plain(x, h0, stacked)
+    assert (out - ref).abs().max().item() < TOL
+    assert (hl - hl_ref).abs().max().item() < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", ["0", "1"])
+def test_cuda_exact_streaming_is_bit_invariant_to_chunking(dev, monkeypatch, stack):
+    """Exact mode on the card: the same frames cut three ways give the same
+    bits, with the per-stage DPRNN kernels and with the stack kernel."""
+    from dpdfnet_tpu_torch import Engine, get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+
+    monkeypatch.setenv("DPDFNET_TPU_STACK", stack)
+    cfg = get_config("dpdfnet2")
+    eng = Engine(cfg, contract_params(init_params(cfg, seed=0, device=dev)), device=dev)
+    assert ("dprnn_df_stacked" in eng.params["enc"]) == (stack == "1")
+    frames = (0.1 * np.random.default_rng(11).normal(size=(3, 9, cfg.win_len))).astype(np.float32)
+    outs = []
+    for cuts in ([9], [1] * 9, [2, 4, 3]):
+        st, ys, pos = eng.init_stream_state(batch=3), [], 0
+        for n in cuts:
+            y, st = eng.process_frames(frames[:, pos:pos + n], st)
+            ys.append(y)
+            pos += n
+        outs.append(np.concatenate(ys, axis=1))
+    assert np.isfinite(outs[0]).all()
+    for y in outs[1:]:
+        np.testing.assert_array_equal(y, outs[0])

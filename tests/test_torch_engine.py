@@ -75,3 +75,20 @@ def test_engine_rejects_unported_tiers():
         Engine(cfg, params, device="cpu").enhance_waveforms(
             np.zeros(1600, np.float32), progress_callback=lambda *a: None)
     assert engine_from_quality(cfg, params, "high", device="cpu").precision == "high"
+
+
+def test_engine_unfused_matches_jax_unfused():
+    """``Engine(fuse=False)``: raw params, so each DPRNN block takes the
+    unpacked route (``gru_bidir`` + linear + LN, ``gru_seq`` + linear + LN)
+    in both packages.  dpdfnet2, two 0.4 s utterances, atol 1e-4 as above."""
+    name = "dpdfnet2"
+    cfg_j, cfg = jax_get_config(name), get_config(name)
+    p_np = _jax_params_np(name)
+    rng = np.random.default_rng(13)
+    wavs = (0.1 * rng.normal(size=(2, 6400))).astype(np.float32)
+    ref = JaxEngine(cfg_j, p_np, precision="highest", fuse=False).enhance_waveforms(wavs)
+    eng = Engine(cfg, params_from_jax(p_np, device="cpu"), precision="highest",
+                 fuse=False, device="cpu")
+    assert "packed" not in eng.params["enc"]["dprnn_df"][0]["intra"]
+    got = eng.enhance_waveforms(wavs)
+    np.testing.assert_allclose(got, ref, atol=1e-4)

@@ -17,6 +17,7 @@ each against its plain version at the flagship shapes, and
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -139,8 +140,10 @@ def test_launch_counters_count_only_kernel_launches():
     p = _tp(_gru_np(rng, 8, 8))
     gru_kernels.gru_scan(torch.zeros(2, 3, 8), torch.zeros(2, 8), p["wi"], p["bi"],
                          p["wh"], p["bh"])
+    gru_kernels.gru_bidir(torch.zeros(2, 3, 8), *_pack_bidir(p, p))
     assert gru_kernels.launch_counts() == {
-        "dprnn_intra_block": 0, "dprnn_inter_block": 0, "gru_scan": 0}
+        "dprnn_intra_block": 0, "dprnn_inter_block": 0, "gru_scan": 0,
+        "gru_bidir": 0, "dprnn_stack": 0}
 
 
 def test_wrappers_reject_non_cpu_non_cuda_devices():
@@ -149,3 +152,121 @@ def test_wrappers_reject_non_cpu_non_cuda_devices():
     x = torch.zeros(2, 3, 8, device="meta")
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         gru_kernels.gru_scan(x, torch.zeros(2, 8, device="meta"), x, x, x, x)
+
+
+@pytest.mark.parametrize("N,T,I,H", [(40, 13, 8, 8), (16, 24, 16, 8), (11, 7, 8, 8)])
+def test_gru_bidir_plain_matches_pallas(N, T, I, H):
+    """The bidirectional GRU's plain version against ``gru_bidir_tm`` at
+    the shapes of ``tests/test_pallas_gru.py``; the port's layout is
+    batch-major ``[N, L, I]``, the TPU's time-major."""
+    rng = np.random.default_rng(2)
+    p_fw, p_bw = _gru_np(rng, I, H), _gru_np(rng, I, H)
+    x = rng.normal(size=(N, T, I)).astype(np.float32)
+
+    wi2j, wh2j, b2j = pallas_gru._pack_bidir(_jp(p_fw), _jp(p_bw), jnp.float32)
+    ys_f, ys_b = pallas_gru.gru_bidir_tm(jnp.swapaxes(jnp.asarray(x), 0, 1), wi2j, wh2j, b2j,
+                                         precision="highest", interpret=True)
+    got_f, got_b = gru_kernels.gru_bidir(_t(x), *_pack_bidir(_tp(p_fw), _tp(p_bw)))
+    assert got_f.shape == (N, T, H) and got_b.shape == (N, T, H)
+    np.testing.assert_allclose(got_f.numpy(), np.swapaxes(np.asarray(ys_f), 0, 1), atol=ATOL)
+    np.testing.assert_allclose(got_b.numpy(), np.swapaxes(np.asarray(ys_b), 0, 1), atol=ATOL)
+
+
+def _stack_blocks_np(rng, K, C):
+    """K DPRNN block parameter dicts (numpy) in the JAX test's layout."""
+    blocks = []
+    for _ in range(K):
+        wfc_i, bfc_i, g_i, bln_i = _epi_np(rng, 2 * C, C)
+        wfc_t, bfc_t, g_t, bln_t = _epi_np(rng, C, C)
+        blocks.append({
+            "intra": {"fw": _gru_np(rng, C, C), "bw": _gru_np(rng, C, C),
+                      "fc": {"w": wfc_i, "b": bfc_i}, "ln": {"g": g_i, "b": bln_i}},
+            "inter": {"gru": _gru_np(rng, C, C),
+                      "fc": {"w": wfc_t, "b": bfc_t}, "ln": {"g": g_t, "b": bln_t}},
+        })
+    return blocks
+
+
+@pytest.mark.parametrize("B,T,Fq,C,K,kmax",
+                         [(2, 5, 13, 8, 3, 2),     # K split on the TPU side
+                          (3, 4, 16, 16, 2, 4)])   # single TPU call
+def test_dprnn_stack_plain_matches_pallas(B, T, Fq, C, K, kmax):
+    """``dprnn_stack_plain`` against ``pallas_gru.dprnn_stack`` at both
+    parametrisations of ``tests/test_pallas_gru.py``; planes batch-major
+    here, time-major there, from random carried hiddens.  atol 2e-5: the
+    JAX package's own bound for the stack (K blocks of two recurrences)."""
+    from dpdfnet_tpu_torch.models.fuse import pack_stack
+    from dpdfnet_tpu_torch.utils.serialization import params_from_jax
+
+    rng = np.random.default_rng(6)
+    blocks_np = _stack_blocks_np(rng, K, C)
+    x = rng.normal(size=(B, T, Fq, C)).astype(np.float32)
+    hs = rng.normal(size=(K, B, Fq, C)).astype(np.float32) * 0.2
+
+    blocks_j = jax.tree_util.tree_map(jnp.asarray, blocks_np)
+    for b in blocks_j:
+        b["intra"]["packed"] = dict(zip(("wi2", "wh2", "b2"), pallas_gru._pack_bidir(
+            b["intra"]["fw"], b["intra"]["bw"], jnp.float32)))
+    out_j, hl_j = pallas_gru.dprnn_stack(
+        jnp.swapaxes(jnp.asarray(x), 0, 1), jnp.asarray(hs), pallas_gru.pack_stack(blocks_j),
+        precision="highest", interpret=True, k_max=kmax)
+
+    blocks_t = params_from_jax(blocks_np, device="cpu")
+    for b in blocks_t:
+        b["intra"]["packed"] = dict(zip(("wi2", "wh2", "b2"), _pack_bidir(
+            b["intra"]["fw"], b["intra"]["bw"])))
+    stacked = pack_stack(blocks_t)
+    stacked_j = pallas_gru.pack_stack(blocks_j)
+    assert stacked.keys() == stacked_j.keys()
+    for k in stacked:
+        np.testing.assert_array_equal(stacked[k].numpy(), np.asarray(stacked_j[k]), err_msg=k)
+    out, hl = gru_kernels.dprnn_stack(_t(x), _t(hs), stacked)
+    np.testing.assert_allclose(out.numpy(), np.swapaxes(np.asarray(out_j), 0, 1), atol=2e-5)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(hl_j), atol=2e-5)
+
+
+def test_stacked_forward_spec_matches_jax(monkeypatch):
+    """``forward_spec`` with each DPRNN stack as one ``dprnn_stack`` call
+    against the JAX forward with its stack kernel (``DPDFNET_TPU_STACK``,
+    Pallas in interpret mode, as ``tests/test_pallas_gru.py`` runs it):
+    outputs and every state leaf, atol 3e-5."""
+    from dpdfnet_tpu.config import get_config as jax_get_config
+    from dpdfnet_tpu.models.dpdfnet import forward_spec as jax_forward_spec
+    from dpdfnet_tpu.models.fuse import fuse_separable, pack_dprnn_bidir
+    from dpdfnet_tpu.models.params import init_params as jax_init_params
+    from dpdfnet_tpu.models.state import init_state as jax_init_state
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models.dpdfnet import forward_spec
+    from dpdfnet_tpu_torch.models.fuse import prepare_inference_params
+    from dpdfnet_tpu_torch.models.state import init_state
+    from dpdfnet_tpu_torch.utils.serialization import params_from_jax
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves
+
+    monkeypatch.setenv("DPDFNET_TPU_STACK", "1")
+    monkeypatch.setenv("DPDFNET_TPU_PALLAS", "1")
+    monkeypatch.setenv("DPDFNET_TPU_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(5)
+    cfg_j, cfg = jax_get_config("dpdfnet2"), get_config("dpdfnet2")
+    p_np = jax.tree_util.tree_map(np.asarray, jax_init_params(cfg_j, seed=3))
+    spec = rng.normal(size=(2, 6, cfg.freq_bins, 2)).astype(np.float32)
+
+    fused_j = pack_dprnn_bidir(fuse_separable(p_np, cfg_j), cfg_j)
+    assert "dprnn_df_stacked" in fused_j["enc"]
+    with jax.default_matmul_precision("highest"):
+        out_j, st_j, _ = jax_forward_spec(fused_j, cfg_j, jnp.asarray(spec),
+                                          jax_init_state(cfg_j, batch=2))
+
+    params = prepare_inference_params(params_from_jax(p_np, device="cpu"), cfg)
+    assert "dprnn_erb_stacked" in params["enc"] and "dprnn_df_stacked" in params["enc"]
+    calls = []
+    real = gru_kernels.dprnn_stack_plain
+    monkeypatch.setattr(gru_kernels, "dprnn_stack_plain",
+                        lambda *a: calls.append(1) or real(*a))
+    with torch.no_grad():
+        out_t, st_t, _ = forward_spec(params, cfg, torch.from_numpy(spec),
+                                      init_state(cfg, batch=2, device="cpu"))
+    assert len(calls) == 2                        # one call per DPRNN branch
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=3e-5)
+    lj = {k: np.asarray(v) for k, v in tree_leaves(st_j)}
+    for k, v in tree_leaves(st_t):
+        np.testing.assert_allclose(v.numpy(), lj[k], atol=3e-5, err_msg=k)
