@@ -31,7 +31,18 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
 8. streaming throughput on the card: exact mode with 64 streams x 200
    hops, one call per hop, per-stage against stack (ms per hop, streams at
    real time), and throughput mode at 8 hops per call;
-9. one JSON line listing the kernels, then the final JSON status line.
+9. the v2 DPRNN stage kernels reached from their wrappers, as the JAX
+   package reaches intra v2: every DPRNN block of both branches as intra
+   v2 then inter v2 on an offline plane, against the v1 kernels;
+10. the quality tiers: ``tier_deviation`` of ``fast`` and ``turbo`` against
+   ``highest`` (with and without ``DPDFNET_TPU_PALLAS_V2``), launches per
+   segment of the ``fast``, ``turbo`` and ``turbo`` + V2 paths, exact
+   ``turbo`` streaming bit-identical across chunkings, ``turbo`` (± V2) on
+   the card against ``turbo`` on the CPU (offline, and exact streaming with
+   its state), ``StreamEnhancer`` /
+   ``MultiStreamEnhancer`` on a ``turbo`` engine, offline xRT per tier and
+   exact / throughput ms per hop for ``highest`` against ``turbo``;
+11. one JSON line listing the kernels, then the final JSON status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
 ``dpdfnet_tpu_torch`` package beside it.
@@ -62,6 +73,32 @@ KERNEL_TOL = 1e-4
 # streaming (40 hops of carried state) and a pool slot against a lone
 # stream (batch 8 against batch 1).
 ENGINE_TOL = 5e-4
+# A bfloat16 plane is rounded once on each side; a ~1e-7 float32 difference
+# can flip that rounding, so bf16-plane modes get KERNEL_TOL plus one bf16
+# ulp of the plain value.  Intra v2 with bfloat16 input projections (its
+# default) is held to KERNEL_TOL on inputs whose products x . wi_cat are
+# exact in float32 in any summation order (``on_grid``), so the kernel and
+# torch.matmul round the same xp values.
+# fast / turbo against highest on the waveform (tier_deviation, contracted
+# weights, speech-shaped input whose enhanced output has an rms of about
+# 1e-4): max-abs 5e-4, 2.5x the JAX package's 2.0e-4 tier envelope, and
+# rel_rms (rms of the difference over the rms of highest's output) 0.1,
+# 3x the 3.3e-2 measured on the card; muted or sign-flipped output is at 1.
+TIER_TOL = 5e-4
+TIER_REL_RMS = 0.1
+# turbo on the card against turbo on the CPU.  Exact streaming (rfft front,
+# bf16 network): bf16 rounds at other points in cuBLAS / cuDNN than on the
+# CPU, as between the port and the JAX package on the CPU (there at most
+# 8.5e-4 rel_rms on the output and 3.1e-2 on a state leaf): output rel_rms
+# 1e-2, every state leaf at the CPU leaf's dtype and within rel_rms 0.1
+# (measured 1.0e-3 and 5.7e-3).  Offline, the card also runs the STFT /
+# iSTFT GEMMs in TF32 (the CPU has no TF32), so the two differ by about as
+# much as the tier differs from highest: TIER_TOL and TIER_REL_RMS
+# (measured 2.2e-5 and 6.0e-2).  A dropped DPRNN block leaves its carried
+# hidden at rel_rms 1; a turbo run that skips its bf16 casts changes the
+# state's dtypes.
+TURBO_STREAM_REL_RMS = 1e-2
+TURBO_STATE_REL_RMS = 0.1
 
 PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
@@ -74,19 +111,29 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+STACK = "DPDFNET_TPU_STACK"      # read where weights are packed and at each call
+V2 = "DPDFNET_TPU_PALLAS_V2"     # the same, under the fast / turbo tiers
+
+
 @contextlib.contextmanager
-def stack_env(on: bool):
-    """``DPDFNET_TPU_STACK`` for the block: read where an engine packs its
-    weights and where each DPRNN stack is dispatched."""
-    saved = os.environ.get("DPDFNET_TPU_STACK")
-    os.environ["DPDFNET_TPU_STACK"] = "1" if on else "0"
+def set_env(name: str, on: bool):
+    """``name`` set to 1 or 0 for the block."""
+    saved = os.environ.get(name)
+    os.environ[name] = "1" if on else "0"
     try:
         yield
     finally:
         if saved is None:
-            del os.environ["DPDFNET_TPU_STACK"]
+            del os.environ[name]
         else:
-            os.environ["DPDFNET_TPU_STACK"] = saved
+            os.environ[name] = saved
+
+
+def rel_rms(got, ref) -> float:
+    """rms of ``got - ref`` over the rms of ``ref``."""
+    d = np.asarray(got, np.float64) - np.asarray(ref, np.float64)
+    return float(np.sqrt(np.mean(d * d) / max(np.mean(np.square(np.asarray(ref, np.float64))),
+                                              1e-30)))
 
 
 def expect_counts(what: str, counts: dict, want: dict) -> None:
@@ -152,6 +199,30 @@ def check(name: str, got, ref) -> float:
     return err
 
 
+def check_bf16(name: str, got, ref) -> float:
+    """A bf16-plane mode against its plain version: returns the max-abs
+    error; fails where it exceeds KERNEL_TOL plus one bf16 ulp of the plain
+    value (``gru_kernels.err_beyond_bf16_ulp``; float32 outputs, such as
+    h_last, get no ulp)."""
+    from dpdfnet_tpu_torch.ops.gru_kernels import err_beyond_bf16_ulp
+
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    err = 0.0
+    for a, b in zip(got, ref):
+        d = (a.float() - b.float()).abs().max().item()
+        if not err_beyond_bf16_ulp(a, b) <= KERNEL_TOL:
+            raise AssertionError(f"{name}: max-abs {d:.3e} vs plain exceeds "
+                                 f"{KERNEL_TOL:.0e} + one bf16 ulp")
+        err = max(err, d)
+    return err
+
+
+def on_grid(t, step: float, lim: float):
+    """``t`` rounded to multiples of ``step`` and clamped to [-lim, lim]."""
+    return (torch.round(t / step) * step).clamp(-lim, lim)
+
+
 def kernel_phase(params, cfg, gk):
     """Each kernel against its plain version at the flagship shapes: B=8
     offline; the stack also at its streaming shape (T=1, B=64)."""
@@ -174,6 +245,34 @@ def kernel_phase(params, cfg, gk):
           inter["ln"]["g"], inter["ln"]["b"])
     w_bytes = lambda ts: 4 * sum(t.numel() for t in ts)
 
+    lib_intra_gru = gru_module(intra["fw"]["wi"], intra["fw"]["bi"], intra["fw"]["wh"],
+                               intra["fw"]["bh"], bidir=intra["bw"])
+    lib_inter_gru = gru_module(gw["wi"], gw["bi"], gw["wh"], gw["bh"])
+
+    def lib_intra(x):
+        """cuDNN bidirectional GRU + linear + LayerNorm + residual."""
+        ys, _ = lib_intra_gru(x)
+        return x + torch.nn.functional.layer_norm(
+            torch.nn.functional.linear(ys, intra["fc"]["w"].T, intra["fc"]["b"]),
+            (C,), intra["ln"]["g"], intra["ln"]["b"], 1e-5)
+
+    def lib_inter(x, h0):
+        """cuDNN GRU along T + linear + LayerNorm + residual."""
+        Bx, Tx, Fx, _ = x.shape
+        xt = x.transpose(1, 2).reshape(Bx * Fx, Tx, C)
+        ys, hl = lib_inter_gru(xt, h0.reshape(1, Bx * Fx, C))
+        y = torch.nn.functional.layer_norm(
+            torch.nn.functional.linear(ys, inter["fc"]["w"].T, inter["fc"]["b"]),
+            (C,), inter["ln"]["g"], inter["ln"]["b"], 1e-5)
+        return x + y.reshape(Bx, Fx, Tx, C).transpose(1, 2), hl
+
+    # the v2 weights, as pack_dprnn_bidir builds them under DPDFNET_TPU_PALLAS_V2
+    wi_cat, wh_big = gk.pack_intra_v2(pk["wi2"], pk["wh2"], intra["fc"]["w"])
+    iva = (wi_cat, wh_big, pk["b2"], intra["fc"]["b"], intra["ln"]["g"], intra["ln"]["b"])
+    whfc = torch.cat([gw["wh"], inter["fc"]["w"]], dim=1)
+    eva = (whfc, gw["bh"], inter["fc"]["b"], inter["ln"]["g"], inter["ln"]["b"])
+    bf16 = torch.bfloat16
+
     for Fq in (cfg.dprnn_erb_feat, cfg.dprnn_df_feat):
         # ---- intra: [B*T, Fq, C] ----
         x = randn(B * T, Fq, C)
@@ -181,17 +280,8 @@ def kernel_phase(params, cfg, gk):
                     gk.dprnn_intra_block_plain(x, *ia))
         ms = cuda_ms(lambda: gk.dprnn_intra_block(x, *ia))
         plain_ms = cuda_ms(lambda: gk.dprnn_intra_block_plain(x, *ia), 3)
-        lib = gru_module(intra["fw"]["wi"], intra["fw"]["bi"], intra["fw"]["wh"],
-                         intra["fw"]["bh"], bidir=intra["bw"])
-
-        def lib_intra():
-            ys, _ = lib(x)
-            return x + torch.nn.functional.layer_norm(
-                torch.nn.functional.linear(ys, intra["fc"]["w"].T, intra["fc"]["b"]),
-                (C,), intra["ln"]["g"], intra["ln"]["b"], 1e-5)
-
-        lib_err = (lib_intra() - gk.dprnn_intra_block_plain(x, *ia)).abs().max().item()
-        lib_ms = cuda_ms(lib_intra)
+        lib_err = (lib_intra(x) - gk.dprnn_intra_block_plain(x, *ia)).abs().max().item()
+        lib_ms = cuda_ms(lambda: lib_intra(x))
         n = B * T * Fq
         b_ms, b_by = bound(28 * C * C * n, 2 * C * 4 * n + w_bytes(ia))
         rows[("dprnn_intra_block", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
@@ -200,6 +290,49 @@ def kernel_phase(params, cfg, gk):
             f"(tol {KERNEL_TOL:.0e}; cuDNN yardstick differs by {lib_err:.1e}) "
             f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
             f"bound_ms {b_ms:.4f} ({b_by})")
+        if Fq == cfg.dprnn_df_feat:
+            xb = x.to(bf16)
+            err_b = check_bf16("dprnn_intra_block bf16 plane", gk.dprnn_intra_block(xb, *ia),
+                               gk.dprnn_intra_block_plain(xb, *ia))
+            ms_b = cuda_ms(lambda: gk.dprnn_intra_block(xb, *ia))
+            log(f"kernel dprnn_intra_block bf16 plane x[{B * T},{Fq},{C}]: max_abs {err_b:.3e} "
+                f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {ms_b:.4f} (f32 plane {ms:.4f})")
+            rows[("bf16", "dprnn_intra_block")] = dict(err=err_b, ms=ms_b)
+
+        # ---- intra v2: the same plane, projections hoisted ----
+        err = check(f"dprnn_intra_block_v2 f32 xp Fq={Fq}",
+                    gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False),
+                    gk.dprnn_intra_block_v2_plain(x, *iva, xp_bf16=False))
+        # bf16 xp on exact-sum inputs: x on a 2^-5 grid in [-1.875, 1.875],
+        # wi_cat and b2 on a 2^-10 grid in [-0.5, 0.5], so every partial sum
+        # of x . wi_cat + b2[0] is a multiple of 2^-15 below 2^6 (exact in
+        # float32 in any order) and both sides round the same xp to bf16
+        xg = on_grid(x, 2.0 ** -5, 1.875)
+        ivg = (on_grid(wi_cat, 2.0 ** -10, 0.5), wh_big, on_grid(pk["b2"], 2.0 ** -10, 0.5),
+               *iva[3:])
+        ref_xb = gk.dprnn_intra_block_v2_plain(xg, *ivg)
+        err_xb = check(f"dprnn_intra_block_v2 bf16 xp Fq={Fq}",
+                       gk.dprnn_intra_block_v2(xg, *ivg), ref_xb)
+        moved = (ref_xb - gk.dprnn_intra_block_v2_plain(xg, *ivg, xp_bf16=False)
+                 ).abs().max().item()
+        if not moved > 10 * KERNEL_TOL:
+            raise AssertionError(f"dprnn_intra_block_v2 Fq={Fq}: rounding xp to bf16 moves "
+                                 f"the plain output by only {moved:.3e}; the bf16-xp check "
+                                 f"cannot tell the modes apart")
+        v1_err = (gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False)
+                  - gk.dprnn_intra_block(x, *ia)).abs().max().item()
+        ms = cuda_ms(lambda: gk.dprnn_intra_block_v2(x, *iva))
+        ms_f = cuda_ms(lambda: gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False))
+        plain_ms = cuda_ms(lambda: gk.dprnn_intra_block_v2_plain(x, *iva), 3)
+        lib_ms = cuda_ms(lambda: lib_intra(x))
+        b_ms, b_by = bound(28 * C * C * n, 2 * C * 4 * n + w_bytes(iva))
+        rows[("dprnn_intra_block_v2", Fq)] = dict(err=max(err, err_xb), ms=ms, plain_ms=plain_ms,
+                                                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"kernel dprnn_intra_block_v2 x[{B * T},{Fq},{C}]: max_abs {err:.3e} with f32 xp "
+            f"(tol {KERNEL_TOL:.0e}), {err_xb:.3e} with bf16 xp on exact-sum inputs (tol "
+            f"{KERNEL_TOL:.0e}; the rounding itself moves the output by {moved:.3e}), "
+            f"vs the v1 kernel {v1_err:.3e}; ms {ms:.4f} (bf16 xp; f32 xp {ms_f:.4f}) "
+            f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
 
         # ---- inter: [B, T, Fq, C] with a random carried h0 ----
         x = randn(B, T, Fq, C)
@@ -208,24 +341,45 @@ def kernel_phase(params, cfg, gk):
                     gk.dprnn_inter_block_plain(x, h0, *ea))
         ms = cuda_ms(lambda: gk.dprnn_inter_block(x, h0, *ea))
         plain_ms = cuda_ms(lambda: gk.dprnn_inter_block_plain(x, h0, *ea), 3)
-        lib = gru_module(gw["wi"], gw["bi"], gw["wh"], gw["bh"])
-
-        def lib_inter():
-            xt = x.transpose(1, 2).reshape(B * Fq, T, C)
-            ys, hl = lib(xt, h0.reshape(1, B * Fq, C))
-            y = torch.nn.functional.layer_norm(
-                torch.nn.functional.linear(ys, inter["fc"]["w"].T, inter["fc"]["b"]),
-                (C,), inter["ln"]["g"], inter["ln"]["b"], 1e-5)
-            return x + y.reshape(B, Fq, T, C).transpose(1, 2), hl
-
-        lib_ms = cuda_ms(lib_inter)
+        lib_ms = cuda_ms(lambda: lib_inter(x, h0))
         n = B * Fq * T
-        b_ms, b_by = bound(14 * C * C * n, 2 * C * 4 * n + 2 * B * Fq * C * 4 + w_bytes(ea))
+        hb = 2 * B * Fq * C * 4
+        b_ms, b_by = bound(14 * C * C * n, 2 * C * 4 * n + hb + w_bytes(ea))
         rows[("dprnn_inter_block", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel dprnn_inter_block x[{B},{T},{Fq},{C}] h0 random: max_abs {err:.3e} "
             f"(tol {KERNEL_TOL:.0e}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        inter_ms = ms
+        if Fq == cfg.dprnn_df_feat:
+            xb = x.to(bf16)
+            err_b = check_bf16("dprnn_inter_block bf16 plane", gk.dprnn_inter_block(xb, h0, *ea),
+                               gk.dprnn_inter_block_plain(xb, h0, *ea))
+            ms_b = cuda_ms(lambda: gk.dprnn_inter_block(xb, h0, *ea))
+            log(f"kernel dprnn_inter_block bf16 plane x[{B},{T},{Fq},{C}]: max_abs {err_b:.3e} "
+                f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {ms_b:.4f} (f32 plane {ms:.4f})")
+            rows[("bf16", "dprnn_inter_block")] = dict(err=err_b, ms=ms_b)
+
+        # ---- inter v2: the same plane, xp = x . Wi + bi in bf16 given ----
+        def xp_of(x):
+            return (x @ gw["wi"] + gw["bi"]).to(bf16)
+
+        xp = xp_of(x)
+        err = check(f"dprnn_inter_block_v2 Fq={Fq}", gk.dprnn_inter_block_v2(xp, x, h0, *eva),
+                    gk.dprnn_inter_block_v2_plain(xp, x, h0, *eva))
+        ms = cuda_ms(lambda: gk.dprnn_inter_block_v2(xp, x, h0, *eva))
+        ms_gemm = cuda_ms(lambda: gk.dprnn_inter_block_v2(xp_of(x), x, h0, *eva))
+        plain_ms = cuda_ms(lambda: gk.dprnn_inter_block_v2_plain(xp, x, h0, *eva), 3)
+        lib_ms = cuda_ms(lambda: lib_inter(x, h0))
+        b_ms, b_by = bound(8 * C * C * n, (3 * C * 2 + 2 * C * 4) * n + hb + w_bytes(eva))
+        bg_ms, bg_by = bound(14 * C * C * n, 2 * C * 4 * n + hb + w_bytes(ea))
+        rows[("dprnn_inter_block_v2", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        log(f"kernel dprnn_inter_block_v2 x[{B},{T},{Fq},{C}] xp bf16, h0 random: max_abs "
+            f"{err:.3e} (tol {KERNEL_TOL:.0e}) ms {ms:.4f} alone, {ms_gemm:.4f} with its xp "
+            f"GEMM (v1 inter {inter_ms:.4f}) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+            f"(cuDNN GRU + linear + LN) bound_ms {b_ms:.4f} ({b_by}; with the GEMM "
+            f"{bg_ms:.4f}, {bg_by})")
 
     # ---- gru_scan: [B, T, I=H] from h0, forward and reverse ----
     gp = params["erb_dec"]["emb_gru"]["grus"][0]
@@ -249,6 +403,14 @@ def kernel_phase(params, cfg, gk):
         log(f"kernel gru_scan x[{B},{T},{I}] H={H} reverse={reverse}: max_abs {err:.3e} "
             f"(tol {KERNEL_TOL:.0e}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
             f"library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+    xb = x.to(bf16)
+    err_b = check_bf16("gru_scan bf16 plane", gk.gru_scan(xb, h0, *ga),
+                       gk.gru_scan_plain(xb, h0, *ga))
+    ms_b = cuda_ms(lambda: gk.gru_scan(xb, h0, *ga))
+    log(f"kernel gru_scan bf16 plane x[{B},{T},{I}]: max_abs {err_b:.3e} "
+        f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {ms_b:.4f} (f32 plane "
+        f"{rows[('gru_scan', False)]['ms']:.4f})")
+    rows[("bf16", "gru_scan")] = dict(err=err_b, ms=ms_b)
 
     # ---- gru_bidir: [B*T, Fq=48, C] rows from zero state ----
     Fq = cfg.dprnn_df_feat
@@ -334,7 +496,7 @@ def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
         ref, _ = cpu_eng.process_frames(frames, cpu_eng.init_stream_state(batch=B), mode=mode)
         t_cpu = time.perf_counter() - t0
         for name, e, on in (("per-stage", eng, False), ("stack", eng_stack, True)):
-            with stack_env(on):
+            with set_env(STACK, on):
                 torch.cuda.synchronize()
                 gk.reset_launch_counts()
                 y, _ = e.process_frames(frames, e.init_stream_state(batch=B), mode=mode)
@@ -357,7 +519,7 @@ def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
             if not err <= ENGINE_TOL:
                 raise AssertionError(f"streaming {mode} {name} deviates from the CPU by {err:.3e}")
             if mode == "exact":
-                with stack_env(on):
+                with set_env(STACK, on):
                     for cuts in ([1] * T, [3, 5] * (T // 8)):
                         other = run_chunked(e, frames, cuts)
                         if not np.array_equal(other, y):
@@ -462,16 +624,17 @@ def unfused_phase(cfg, params, cpu_params, gk, rng):
     return counts
 
 
-def stream_throughput(cfg, engines, smi, rng):
+def stream_throughput(cfg, engines, order, smi, rng):
     """Exact mode, 64 streams x 200 hops, one call per hop; throughput mode
-    at 8 hops per call.  Order per-stage, stack, stack, per-stage."""
+    at 8 hops per call.  ``engines``: name -> (engine, stack on), run in
+    ``order`` (A, B, B, A pairs the two within one call)."""
     B, T = 64, 200
     hop_s = cfg.hop / cfg.sample_rate
     frames = stream_frames(rng, B, T, cfg.win_len)
     res = {}
-    for name in ("per-stage", "stack", "stack", "per-stage"):
+    for name in order:
         e, on = engines[name]
-        with stack_env(on):
+        with set_env(STACK, on):
             for mode, per_call in (("exact", 1), ("throughput", 8)):
                 st = e.init_stream_state(batch=B)
                 for i in range(0, 16, per_call):                            # warm-up
@@ -490,6 +653,229 @@ def stream_throughput(cfg, engines, smi, rng):
                     f"call: {ms_hop:.3f} ms per hop, streams at real time "
                     f"{B * hop_s * 1e3 / ms_hop:.1f} | {smi}")
     return res
+
+
+def v2_wrapper_phase(params, cfg, gk):
+    """The v2 stage kernels reached from their wrappers: every DPRNN block
+    of both branches as ``dprnn_intra_block_v2`` then ``dprnn_inter_block_v2``
+    on an offline plane x[8, 112, Fq, 64] from zero hiddens, against the v1
+    kernels on the same plane.  With float32 projections the two chains are
+    one function in another summation order (ENGINE_TOL over 8 blocks);
+    with bfloat16 projections (the v2 defaults) the deviation is reported.
+    Returns the launches of the float32 chain."""
+    B, T, C = 8, 112, cfg.conv_ch
+    g = torch.Generator(device="cuda").manual_seed(2)
+    counts = {}
+
+    def chain(blocks, x, v2, xp_bf16):
+        Fq = x.shape[2]
+        h0 = torch.zeros(B, Fq, C, device="cuda")
+        for blk in blocks:
+            intra, inter = blk["intra"], blk["inter"]
+            pk, gw = intra["packed"], inter["gru"]
+            epi_i = (intra["fc"]["b"], intra["ln"]["g"], intra["ln"]["b"])
+            epi_t = (inter["fc"]["b"], inter["ln"]["g"], inter["ln"]["b"])
+            rows = x.reshape(B * T, Fq, C)
+            if v2:
+                wi_cat, wh_big = gk.pack_intra_v2(pk["wi2"], pk["wh2"], intra["fc"]["w"])
+                x = gk.dprnn_intra_block_v2(rows, wi_cat, wh_big, pk["b2"], *epi_i,
+                                            xp_bf16=xp_bf16).reshape(B, T, Fq, C)
+                xp = x @ gw["wi"] + gw["bi"]
+                whfc = torch.cat([gw["wh"], inter["fc"]["w"]], dim=1)
+                x, _ = gk.dprnn_inter_block_v2(xp.to(torch.bfloat16) if xp_bf16 else xp, x,
+                                               h0, whfc, gw["bh"], *epi_t)
+            else:
+                x = gk.dprnn_intra_block(rows, pk["wi2"], pk["wh2"], pk["b2"],
+                                         intra["fc"]["w"], *epi_i).reshape(B, T, Fq, C)
+                x, _ = gk.dprnn_inter_block(x, h0, gw["wi"], gw["bi"], gw["wh"], gw["bh"],
+                                            inter["fc"]["w"], *epi_t)
+        return x
+
+    for branch, Fq in (("dprnn_erb", cfg.dprnn_erb_feat), ("dprnn_df", cfg.dprnn_df_feat)):
+        blocks = params["enc"][branch]
+        x = torch.randn((B, T, Fq, C), generator=g, device="cuda")
+        ref = chain(blocks, x, False, False)
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        y = chain(blocks, x, True, False)
+        torch.cuda.synchronize()
+        for k, v in gk.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        y_bf = chain(blocks, x, True, True)
+        err = float((y - ref).abs().max())
+        err_bf = float((y_bf - ref).abs().max())
+        log(f"v2 stage kernels from their wrappers, {branch} ({len(blocks)} blocks) "
+            f"x[{B},{T},{Fq},{C}]: f32 xp vs the v1 kernels max_abs {err:.3e} "
+            f"(tol {ENGINE_TOL:.0e}); bf16 xp (the v2 defaults) vs v1 {err_bf:.3e}")
+        if not (err <= ENGINE_TOL and torch.isfinite(y_bf).all()):
+            raise AssertionError(f"v2 chain {branch} deviates from the v1 kernels by {err:.3e}")
+    K = cfg.dprnn_blocks
+    expect_counts("v2 stage kernels from their wrappers", counts,
+                  {"dprnn_intra_block_v2": 2 * K, "dprnn_inter_block_v2": 2 * K})
+    return counts
+
+
+def tier_phase(cfg, params, cpu_params, gk, smi, rng, wavs, lengths):
+    """The quality tiers on the card.  Returns the launches of the
+    ``turbo`` + V2 offline path."""
+    from dpdfnet_tpu_torch.quality import speechlike_test_signal, tier_deviation
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves
+
+    K = cfg.dprnn_blocks
+    # ---- deviation from highest (contracted weights, speech-like input) ----
+    for v2 in (False, True):
+        with set_env(STACK, False), set_env(V2, v2):
+            dev = tier_deviation(MODEL, params=params, contract=None, device="cuda",
+                                 tiers=("high", "fast", "turbo"))
+        for tier in ("high", "fast", "turbo"):
+            d = dev[tier]
+            log(f"tier_deviation {MODEL} {tier}{' +V2' if v2 else ''} vs highest (B=2 x 4 s): "
+                f"max_abs {d['max_abs']:.3e} (tol {TIER_TOL:.0e}), rel_rms {d['rel_rms']:.3e} "
+                f"(tol {TIER_REL_RMS:g}; highest's output rms {dev['_ref_rms']:.3e}), "
+                f"{d['rms_vs_input_db']:.1f} dB vs input")
+            if not (d["max_abs"] <= TIER_TOL and d["rel_rms"] <= TIER_REL_RMS):
+                raise AssertionError(f"tier {tier} (V2 {v2}) deviates from highest by "
+                                     f"{d['max_abs']:.3e} max-abs, {d['rel_rms']:.3e} rel_rms")
+
+    # ---- engines ----
+    engines = {}
+    for name, q, v2 in (("highest", "highest", False), ("fast", "fast", False),
+                        ("turbo", "turbo", False), ("turbo+V2", "turbo", True)):
+        with set_env(STACK, False), set_env(V2, v2):
+            engines[name] = (engine_from_quality(cfg, params, q, device="cuda"), v2)
+
+    # ---- launches per segment on each tier's offline path ----
+    S = int(lengths.max())
+    per_seg = {"dprnn_intra_block": 2 * K, "dprnn_inter_block": 2 * K, "gru_scan": 5}
+    per_seg_v2 = {"dprnn_intra_block": 2 * K, "dprnn_inter_block_v2": 2 * K, "gru_scan": 5}
+    ys, v2_counts = {}, None
+    for name in ("highest", "fast", "turbo", "turbo+V2"):
+        e, v2 = engines[name]
+        with set_env(STACK, False), set_env(V2, v2):
+            e.enhance_waveforms(wavs[:, : cfg.sample_rate // 2])             # warm-up
+            torch.cuda.synchronize()
+            gk.reset_launch_counts()
+            ys[name] = e.enhance_waveforms(wavs, lengths=lengths)
+            torch.cuda.synchronize()
+            counts = gk.launch_counts()
+        n_seg = segments(e, S)
+        want = per_seg_v2 if v2 else per_seg
+        dev = float(np.abs(ys[name] - ys["highest"]).max())
+        log(f"tier {name} offline B=3 (1.3/2.0/3.1 s): launches ({n_seg} segments) "
+            f"{json.dumps(counts)}, expected per segment {json.dumps(want)}; "
+            f"vs highest max_abs {dev:.3e}")
+        if not np.isfinite(ys[name]).all():
+            raise AssertionError(f"tier {name}: output not finite")
+        expect_counts(f"tier {name} offline", counts, {k: n_seg * v for k, v in want.items()})
+        if v2:
+            v2_counts = counts
+
+    # ---- exact turbo streaming: card, bit-identical across chunkings ----
+    B, T = 4, 40
+    frames = stream_frames(rng, B, T, cfg.win_len)
+    for name in ("turbo", "turbo+V2"):
+        e, v2 = engines[name]
+        with set_env(STACK, False), set_env(V2, v2):
+            torch.cuda.synchronize()
+            gk.reset_launch_counts()
+            y = run_chunked(e, frames, [T])
+            torch.cuda.synchronize()
+            counts = gk.launch_counts()
+            expect_counts(f"exact streaming {name}", counts,
+                          {k: T * v for k, v in (per_seg_v2 if v2 else per_seg).items()})
+            for cuts in ([1] * T, [3, 5] * (T // 8)):
+                other = run_chunked(e, frames, cuts)
+                if not np.array_equal(other, y):
+                    raise AssertionError(
+                        f"exact streaming {name}: chunking {cuts[:4]}... differs from "
+                        f"all-at-once by {float(np.abs(other - y).max()):.3e}")
+            y_tp, _ = e.process_frames(frames, e.init_stream_state(batch=B), mode="throughput")
+            st = e.init_stream_state(batch=B)
+        dtypes = sorted({str(v.dtype).replace("torch.", "") for _, v in tree_leaves(st)})
+        y_hi = run_chunked(engines["highest"][0], frames, [T])
+        log(f"exact streaming {name} B={B} x {T} hops: bit-identical for chunkings "
+            f"all-at-once, 1+1+..., 3+5+...; launches per hop "
+            f"{json.dumps({k: v // T for k, v in counts.items() if v})}; state leaves "
+            f"{dtypes}; vs highest max_abs {float(np.abs(y - y_hi).max()):.3e}; throughput "
+            f"mode vs exact {float(np.abs(y_tp - y).max()):.3e}")
+        if not (np.isfinite(y).all() and np.isfinite(y_tp).all()):
+            raise AssertionError(f"streaming {name}: output not finite")
+
+    # ---- turbo on the card against turbo on the CPU, speech-shaped input ----
+    sr, n_hops = cfg.sample_rate, 16
+    sp = speechlike_test_signal(1.0, sr, seed=5, batch=2)
+    sp_frames = sp[:, sr // 4 + np.arange(n_hops)[:, None] * cfg.hop
+                   + np.arange(cfg.win_len)[None, :]]
+    for name in ("turbo", "turbo+V2"):
+        e, v2 = engines[name]
+        with set_env(STACK, False), set_env(V2, v2):
+            cpu = engine_from_quality(cfg, cpu_params, "turbo", device="cpu")
+            y_off, ref_off = e.enhance_waveforms(sp), cpu.enhance_waveforms(sp)
+            y_st, st = e.process_frames(sp_frames, e.init_stream_state(batch=2))
+            ref_st, st_ref = cpu.process_frames(sp_frames, cpu.init_stream_state(batch=2))
+        off_abs, off_rel = float(np.abs(y_off - ref_off).max()), rel_rms(y_off, ref_off)
+        st_rel = rel_rms(y_st, ref_st)
+        leaves_ref = dict(tree_leaves(st_ref))
+        worst_leaf = (0.0, "")
+        for k, v in tree_leaves(st):
+            if v.dtype != leaves_ref[k].dtype:
+                raise AssertionError(f"turbo {name} state leaf {k}: {v.dtype} on the card, "
+                                     f"{leaves_ref[k].dtype} on the CPU")
+            worst_leaf = max(worst_leaf, (rel_rms(v.float().cpu().numpy(),
+                                                  leaves_ref[k].float().numpy()), k))
+        log(f"{name} card vs CPU, speech-shaped input: offline B=2 x 1 s max_abs "
+            f"{off_abs:.3e} (tol {TIER_TOL:.0e}), rel_rms {off_rel:.3e} (tol "
+            f"{TIER_REL_RMS:g}); exact streaming B=2 x {n_hops} hops rel_rms {st_rel:.3e} (tol "
+            f"{TURBO_STREAM_REL_RMS:g}), worst state leaf {worst_leaf[1]} rel_rms "
+            f"{worst_leaf[0]:.3e} (tol {TURBO_STATE_REL_RMS:g}), leaf dtypes equal")
+        if not (off_abs <= TIER_TOL and off_rel <= TIER_REL_RMS and st_rel <= TURBO_STREAM_REL_RMS
+                and worst_leaf[0] <= TURBO_STATE_REL_RMS):
+            raise AssertionError(f"{name} on the card deviates from the CPU engine")
+
+    # ---- StreamEnhancer and MultiStreamEnhancer on a turbo engine ----
+    with set_env(STACK, False), set_env(V2, False):
+        enhancer_phase(cfg, engines["turbo"][0], rng)
+
+    # ---- offline xRT per tier, B=64 x 4 s ----
+    Bb, secs = 64, 4.0
+    big = (0.1 * rng.standard_normal((Bb, int(secs * cfg.sample_rate)))).astype(np.float32)
+    order = ("highest", "fast", "turbo", "turbo+V2", "turbo+V2", "turbo", "fast", "highest")
+    for name in order:
+        e, v2 = engines[name]
+        with set_env(STACK, False), set_env(V2, v2):
+            e.enhance_waveforms(big)                                        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = e.enhance_waveforms(big)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        if not np.isfinite(out).all():
+            raise AssertionError(f"throughput output ({name}) is not finite")
+        wall = statistics.median(times)
+        segs = segments(e, big.shape[1])
+        log(f"throughput {MODEL} tier {name} B={Bb} x {secs} s: xRT {Bb * secs / wall:.1f}, "
+            f"median {wall * 1e3:.1f} ms per call (runs {[round(t * 1e3, 1) for t in times]}), "
+            f"{wall * 1e3 / segs:.2f} ms per segment, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}")
+
+    # ---- per-call weight casts under turbo: every float weight leaf once ----
+    e = engines["turbo"][0]
+    leaves = [v for _, v in tree_leaves(e.params)
+              if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    cast_ms = cuda_ms(lambda: [w.to(torch.bfloat16) for w in leaves])
+    log(f"turbo weight casts: casting all {len(leaves)} float32 weight leaves "
+        f"({sum(w.numel() for w in leaves) * 4 / 2 ** 20:.1f} MiB) to bf16 once takes "
+        f"{cast_ms:.4f} ms of device time (an upper bound of one forward_spec call's casts)")
+
+    # ---- streaming ms per hop, highest against turbo ----
+    stream_throughput(cfg, {"highest": (engines["highest"][0], False),
+                            "turbo": (engines["turbo"][0], False)},
+                      ("highest", "turbo", "turbo", "highest"), smi, rng)
+    return v2_counts
 
 
 def main() -> int:
@@ -540,7 +926,7 @@ def main() -> int:
     for i, ln in enumerate(lengths):
         tone = 0.2 * np.sin(2 * np.pi * (220 + 110 * i) * t[:ln])
         wavs[i, :ln] = tone + 0.05 * rng.standard_normal(ln)
-    with stack_env(False):
+    with set_env(STACK, False):
         eng = Engine(cfg, params, device="cuda")
     eng.enhance_waveforms(wavs[:, : sr // 2])              # warm-up (cuDNN plans)
     torch.cuda.synchronize()
@@ -570,13 +956,13 @@ def main() -> int:
     expect_counts("offline main path", counts, {k: n_seg * v for k, v in per_seg.items()})
 
     # ---- phase 4: offline throughput, per-stage and stack ----
-    with stack_env(True):
+    with set_env(STACK, True):
         eng_stack = Engine(cfg, params, device="cuda")
     B, secs = 64, 4.0
     big = (0.1 * rng.standard_normal((B, int(secs * sr)))).astype(np.float32)
     xrt = {}
     for name, e, on in (("per-stage", eng, False), ("stack", eng_stack, True)):
-        with stack_env(on):
+        with set_env(STACK, on):
             e.enhance_waveforms(big)                                    # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -601,16 +987,23 @@ def main() -> int:
     stream_counts = streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng)
 
     # ---- phase 6: StreamEnhancer and MultiStreamEnhancer ----
-    with stack_env(False):
+    with set_env(STACK, False):
         enhancer_phase(cfg, eng, rng)
 
     # ---- phase 7: Engine(fuse=False) ----
     unfused_counts = unfused_phase(cfg, params, cpu_params, gk, rng)
 
     # ---- phase 8: streaming throughput ----
-    stream_throughput(cfg, {"per-stage": (eng, False), "stack": (eng_stack, True)}, smi, rng)
+    stream_throughput(cfg, {"per-stage": (eng, False), "stack": (eng_stack, True)},
+                      ("per-stage", "stack", "stack", "per-stage"), smi, rng)
 
-    # ---- phase 9: kernel list ----
+    # ---- phase 9: the v2 stage kernels from their wrappers ----
+    v2_counts = v2_wrapper_phase(prepare_inference_params(params, cfg), cfg, gk)
+
+    # ---- phase 10: the quality tiers ----
+    tier_counts = tier_phase(cfg, params, cpu_params, gk, smi, rng, wavs, lengths)
+
+    # ---- phase 11: kernel list ----
     def entry(name, key, source, replaces, launches):
         r = kernel_rows[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -631,12 +1024,21 @@ def main() -> int:
               unfused_counts["gru_bidir"]),
         entry("dprnn_stack", ("dprnn_stack", "stream", df), f"{csrc}/dprnn_stack.cu",
               f"{PALLAS}:1633", stream_counts["stack"]["dprnn_stack"]),
+        entry("dprnn_intra_block_v2", ("dprnn_intra_block_v2", df),
+              f"{csrc}/dprnn_intra_v2.cu", f"{PALLAS}:1934", v2_counts["dprnn_intra_block_v2"]),
+        entry("dprnn_inter_block_v2", ("dprnn_inter_block_v2", df),
+              f"{csrc}/dprnn_inter_v2.cu", f"{PALLAS}:2128",
+              tier_counts["dprnn_inter_block_v2"]),
     ]
     errs = {"dprnn_intra_block": [("dprnn_intra_block", f) for f in (cfg.dprnn_erb_feat, df)],
             "dprnn_inter_block": [("dprnn_inter_block", f) for f in (cfg.dprnn_erb_feat, df)],
             "gru_scan": [("gru_scan", r) for r in (False, True)],
             "gru_bidir": [("gru_bidir", df)],
-            "dprnn_stack": [k for k in kernel_rows if k[0] == "dprnn_stack"]}
+            "dprnn_stack": [k for k in kernel_rows if k[0] == "dprnn_stack"],
+            "dprnn_intra_block_v2": [("dprnn_intra_block_v2", f)
+                                     for f in (cfg.dprnn_erb_feat, df)],
+            "dprnn_inter_block_v2": [("dprnn_inter_block_v2", f)
+                                     for f in (cfg.dprnn_erb_feat, df)]}
     for k in kernels:
         k["max_abs_err"] = max(kernel_rows[key]["err"] for key in errs[k["name"]])
     print(smi)

@@ -21,78 +21,66 @@
 // A second, fully parallel kernel then sums the two partial rows, adds the
 // bias, applies LayerNorm and the residual.  The kernel reads the packed,
 // direction-blockdiag weights (wi2 / wh2 [2C, 6C], b2 [2, 6C]) and skips
-// their zero cross-direction blocks: half the packed FLOPs.
+// their zero cross-direction blocks: half the packed FLOPs.  The plane x /
+// out is float32 or bfloat16 (loads upcast, the store rounds once); the
+// weights, the partials and all arithmetic are float32.
 #include "gru64_walk.cuh"
 
 using namespace dpdf;
 
-template <int RPT>
+template <int RPT, typename TX>
 __global__ void __launch_bounds__(THREADS)
-dprnn_intra_walk_kernel(const float* __restrict__ x, float* __restrict__ part,
+dprnn_intra_walk_kernel(const TX* __restrict__ x, float* __restrict__ part,
                         const float* __restrict__ wi2, const float* __restrict__ wh2,
                         const float* __restrict__ b2, const float* __restrict__ wfc,
                         Rows rows, int64_t N, int Fq) {
   const int d = blockIdx.y;                       // 0 forward, 1 backward
   GruWeights w{wi2, wh2, b2, b2 + 6 * C, 6 * C, d * C, 2 * C, d * C};
-  Epilogue ep{wfc + d * C * C, nullptr, nullptr, nullptr,
-              part + (int64_t)d * N * Fq * C, 0.0f};
+  Epilogue<float> ep{wfc + d * C * C, nullptr, nullptr, nullptr,
+                     part + (int64_t)d * N * Fq * C, 0.0f};
   gru64_walk<RPT, MODE_FC_PART>(x, rows, N, Fq, d == 1, w, ep, nullptr, nullptr);
 }
 
-// One warp per (row, f) element of the plane: y = part0 + part1 + bfc,
-// out = x + LN(y) * g + bln.  Each lane holds two of the 64 channels.
-__global__ void __launch_bounds__(256)
-dprnn_intra_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ part,
-                            const float* __restrict__ bfc, const float* __restrict__ g,
-                            const float* __restrict__ bln, float* __restrict__ out,
-                            int64_t rows_total) {
-  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows_total) return;
-  const float* p0 = part + r * C;
-  const float* p1 = part + rows_total * C + r * C;
-  float y0 = (p0[lane] + p1[lane]) + bfc[lane];
-  float y1 = (p0[lane + 32] + p1[lane + 32]) + bfc[lane + 32];
-  const float mu = warp_sum(y0 + y1) * (1.0f / C);
-  y0 -= mu;
-  y1 -= mu;
-  const float var = warp_sum(y0 * y0 + y1 * y1) * (1.0f / C);
-  const float inv = 1.0f / sqrtf(var + 1e-5f);
-  out[r * C + lane] = x[r * C + lane] + (y0 * inv * g[lane] + bln[lane]);
-  out[r * C + lane + 32] = x[r * C + lane + 32] + (y1 * inv * g[lane + 32] + bln[lane + 32]);
-}
-
-template <int RPT>
-static cudaError_t launch_walk(const float* x, float* part, const float* wi2,
+template <int RPT, typename TX>
+static cudaError_t launch_walk(const TX* x, float* part, const float* wi2,
                                const float* wh2, const float* b2, const float* wfc,
                                Rows rows, int64_t N, int Fq, cudaStream_t stream) {
   constexpr int R = GROUPS * RPT;
   const size_t smem = sizeof(float) * walk_smem_floats<RPT>();
-  cudaError_t err = cudaFuncSetAttribute(dprnn_intra_walk_kernel<RPT>,
+  cudaError_t err = cudaFuncSetAttribute(dprnn_intra_walk_kernel<RPT, TX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((N + R - 1) / R), 2);
-  dprnn_intra_walk_kernel<RPT><<<grid, THREADS, smem, stream>>>(x, part, wi2, wh2, b2,
-                                                                wfc, rows, N, Fq);
+  dprnn_intra_walk_kernel<RPT, TX><<<grid, THREADS, smem, stream>>>(x, part, wi2, wh2, b2,
+                                                                    wfc, rows, N, Fq);
   return cudaGetLastError();
 }
 
-// x, out: [N, Fq, C] contiguous (N = B * T rows of the [B, T, Fq, C] plane);
-// part: scratch [2, N, Fq, C].
-extern "C" int dprnn_intra_launch(const float* x, float* out, float* part,
-                                  const float* wi2, const float* wh2, const float* b2,
-                                  const float* wfc, const float* bfc, const float* g,
-                                  const float* bln, long long N, int Fq,
-                                  int rows_per_block, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename TX>
+static cudaError_t run(const TX* x, TX* out, float* part, const float* wi2, const float* wh2,
+                       const float* b2, const float* wfc, const float* bfc, const float* g,
+                       const float* bln, int64_t N, int Fq, int rows_per_block,
+                       cudaStream_t st) {
   Rows rows{N, 0, (int64_t)Fq * C, C};
   cudaError_t err = rows_per_block == 16
                         ? launch_walk<4>(x, part, wi2, wh2, b2, wfc, rows, N, Fq, st)
                         : launch_walk<2>(x, part, wi2, wh2, b2, wfc, rows, N, Fq, st);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t total = N * Fq;
-  const unsigned blocks = (unsigned)((total + 7) / 8);
-  dprnn_intra_epilogue_kernel<<<blocks, 256, 0, st>>>(x, part, bfc, g, bln, out, total);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_intra_epilogue(x, part, bfc, g, bln, out, N * Fq, st);
+}
+
+// x, out: [N, Fq, C] contiguous (N = B * T rows of the [B, T, Fq, C] plane),
+// float32, or bfloat16 when plane_bf16; part: f32 scratch [2, N, Fq, C].
+extern "C" int dprnn_intra_launch(const void* x, void* out, float* part,
+                                  const float* wi2, const float* wh2, const float* b2,
+                                  const float* wfc, const float* bfc, const float* g,
+                                  const float* bln, long long N, int Fq,
+                                  int rows_per_block, int plane_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plane_bf16)
+    return (int)run(static_cast<const bf16*>(x), static_cast<bf16*>(out), part, wi2, wh2, b2,
+                    wfc, bfc, g, bln, N, Fq, rows_per_block, st);
+  return (int)run(static_cast<const float*>(x), static_cast<float*>(out), part, wi2, wh2, b2,
+                  wfc, bfc, g, bln, N, Fq, rows_per_block, st);
 }

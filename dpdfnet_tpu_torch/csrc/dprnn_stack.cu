@@ -32,7 +32,10 @@
 //   3. fc [2C -> C] + LayerNorm + residual, one warp per frequency row;
 //   4. one inter GRU step + fc + LayerNorm + residual, one warp per row.
 // Every reduction runs in a fixed order that depends on nothing but the
-// row's own data, so a row's result does not depend on B or T.
+// row's own data, so a row's result does not depend on B or T.  x / out are
+// float32 or bfloat16 (each frame's row is upcast into shared memory and
+// rounded once on the way out); h0 / h_last, the weights and all
+// arithmetic are float32.
 #include "gru64_walk.cuh"
 
 using namespace dpdf;
@@ -60,6 +63,34 @@ __device__ __forceinline__ void copy_f4(float* __restrict__ dst, const float* __
     reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
 }
 
+// A plane row of n floats (n % 4 == 0) into shared f32 and back, in float4
+// groups with copy_f4's group-to-thread mapping.
+__device__ __forceinline__ void load_row(float* __restrict__ dst, const float* __restrict__ src,
+                                         int n) {
+  copy_f4(dst, src, n);
+}
+__device__ __forceinline__ void load_row(float* __restrict__ dst, const bf16* __restrict__ src,
+                                         int n) {
+  const __nv_bfloat162* s2 = reinterpret_cast<const __nv_bfloat162*>(src);
+  for (int i = threadIdx.x; i < n / 4; i += ST_THREADS) {
+    const float2 a = __bfloat1622float2(s2[2 * i]), b = __bfloat1622float2(s2[2 * i + 1]);
+    reinterpret_cast<float4*>(dst)[i] = make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+__device__ __forceinline__ void store_row(float* __restrict__ dst, const float* __restrict__ src,
+                                          int n) {
+  copy_f4(dst, src, n);
+}
+__device__ __forceinline__ void store_row(bf16* __restrict__ dst, const float* __restrict__ src,
+                                          int n) {
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+  for (int i = threadIdx.x; i < n / 4; i += ST_THREADS) {
+    const float4 v = reinterpret_cast<const float4*>(src)[i];
+    d2[2 * i] = __floats2bfloat162_rn(v.x, v.y);
+    d2[2 * i + 1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+}
+
 // Direction d's useful [C][G3] block of a packed [2C][6C] weight
 // (gate-major columns [r_f r_b z_f z_b n_f n_b]) -> sw[d][c][g * C + u].
 __device__ __forceinline__ void stage_dirs(float* __restrict__ sw,
@@ -84,9 +115,9 @@ __device__ __forceinline__ void ln_residual(float y0, float y1, float* __restric
 }
 
 // RPW = rows of the frequency axis per warp (ceil(Fq / 8)).
-template <int RPW>
+template <int RPW, typename TX>
 __global__ void __launch_bounds__(ST_THREADS, 1)
-dprnn_stack_kernel(const float* __restrict__ x, float* __restrict__ out,
+dprnn_stack_kernel(const TX* __restrict__ x, TX* __restrict__ out,
                    const float* __restrict__ h0, float* __restrict__ h_last, StackW w,
                    int B, int T, int Fq, int K) {
   extern __shared__ __align__(16) float smem[];
@@ -102,7 +133,7 @@ dprnn_stack_kernel(const float* __restrict__ x, float* __restrict__ out,
   const int64_t carry = (int64_t)B * frame;           // one block's [B, Fq, C]
 
   for (int t = 0; t < T; ++t) {
-    copy_f4(scur, x + ((int64_t)b * T + t) * frame, Fq * C);
+    load_row(scur, x + ((int64_t)b * T + t) * frame, Fq * C);
     for (int k = 0; k < K; ++k) {
       const float* b2 = w.b2 + (int64_t)k * 2 * 6 * C;
       // ---- 1. intra input projections, both directions, all positions ----
@@ -325,54 +356,63 @@ dprnn_stack_kernel(const float* __restrict__ x, float* __restrict__ out,
       }
     }
     __syncthreads();
-    // same float4-to-thread mapping as copy_f4, so the next frame's copy
-    // into scur only overwrites what this thread has already stored
-    float* ot = out + ((int64_t)b * T + t) * frame;
-    for (int i = tid; i < Fq * C / 4; i += ST_THREADS)
-      reinterpret_cast<float4*>(ot)[i] = reinterpret_cast<const float4*>(scur)[i];
+    // same float4-group-to-thread mapping as load_row, so the next frame's
+    // load into scur only overwrites what this thread has already stored
+    store_row(out + ((int64_t)b * T + t) * frame, scur, Fq * C);
   }
 }
 
-template <int RPW>
-cudaError_t launch(const float* x, float* out, const float* h0, float* h_last,
+template <int RPW, typename TX>
+cudaError_t launch(const TX* x, TX* out, const float* h0, float* h_last,
                    const StackW& w, int B, int T, int Fq, int K, cudaStream_t stream) {
   const size_t smem = sizeof(float) * stack_smem_floats(Fq);
-  cudaError_t err = cudaFuncSetAttribute(dprnn_stack_kernel<RPW>,
+  cudaError_t err = cudaFuncSetAttribute(dprnn_stack_kernel<RPW, TX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  dprnn_stack_kernel<RPW><<<B, ST_THREADS, smem, stream>>>(x, out, h0, h_last, w, B, T,
-                                                            Fq, K);
+  dprnn_stack_kernel<RPW, TX><<<B, ST_THREADS, smem, stream>>>(x, out, h0, h_last, w, B, T,
+                                                                Fq, K);
   return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t run(const TX* x, TX* out, const float* h0, float* h_last, const StackW& w, int B,
+                int T, int Fq, int K, cudaStream_t st) {
+  switch ((Fq + WARPS - 1) / WARPS) {
+    case 1: return launch<1>(x, out, h0, h_last, w, B, T, Fq, K, st);
+    case 2: return launch<2>(x, out, h0, h_last, w, B, T, Fq, K, st);
+    case 3: return launch<3>(x, out, h0, h_last, w, B, T, Fq, K, st);
+    case 4: return launch<4>(x, out, h0, h_last, w, B, T, Fq, K, st);
+    case 5: return launch<5>(x, out, h0, h_last, w, B, T, Fq, K, st);
+    case 6: return launch<6>(x, out, h0, h_last, w, B, T, Fq, K, st);
+    case 7:
+      if (Fq <= FQ_MAX) return launch<7>(x, out, h0, h_last, w, B, T, Fq, K, st);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// x, out: [B, T, Fq, C]; h0, h_last: [K, B, Fq, C]; weights as pack_stack
+// x, out: [B, T, Fq, C], float32, or bfloat16 when plane_bf16; h0, h_last:
+// [K, B, Fq, C] float32; weights as pack_stack
 // lays them out (wi2 / wh2 [K, 2C, 6C], b2 [K, 2, 6C], wfc_i [K, 2C, C],
 // bfc_i / g_i / bln_i [K, 1, C], wi_t / wh_t [K, C, 3C], b2_t [K, 2, 3C],
 // wfc_t [K, C, C], bfc_t / g_t / bln_t [K, 1, C]); all contiguous f32.
 // Returns a cudaError_t; 1 (cudaErrorInvalidValue) for Fq outside [1, 50].
-extern "C" int dprnn_stack_launch(const float* x, float* out, const float* h0, float* h_last,
+extern "C" int dprnn_stack_launch(const void* x, void* out, const float* h0, float* h_last,
                                   const float* wi2, const float* wh2, const float* b2,
                                   const float* wfc_i, const float* bfc_i, const float* g_i,
                                   const float* bln_i, const float* wi_t, const float* wh_t,
                                   const float* b2_t, const float* wfc_t, const float* bfc_t,
                                   const float* g_t, const float* bln_t, int B, int T, int Fq,
-                                  int K, void* stream) {
+                                  int K, int plane_bf16, void* stream) {
   const StackW w{wi2, wh2, b2, wfc_i, bfc_i, g_i, bln_i,
                  wi_t, wh_t, b2_t, wfc_t, bfc_t, g_t, bln_t};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((Fq + WARPS - 1) / WARPS) {
-    case 1: return (int)launch<1>(x, out, h0, h_last, w, B, T, Fq, K, st);
-    case 2: return (int)launch<2>(x, out, h0, h_last, w, B, T, Fq, K, st);
-    case 3: return (int)launch<3>(x, out, h0, h_last, w, B, T, Fq, K, st);
-    case 4: return (int)launch<4>(x, out, h0, h_last, w, B, T, Fq, K, st);
-    case 5: return (int)launch<5>(x, out, h0, h_last, w, B, T, Fq, K, st);
-    case 6: return (int)launch<6>(x, out, h0, h_last, w, B, T, Fq, K, st);
-    case 7:
-      if (Fq <= FQ_MAX) return (int)launch<7>(x, out, h0, h_last, w, B, T, Fq, K, st);
-      return (int)cudaErrorInvalidValue;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (plane_bf16)
+    return (int)run(static_cast<const bf16*>(x), static_cast<bf16*>(out), h0, h_last, w, B, T,
+                    Fq, K, st);
+  return (int)run(static_cast<const float*>(x), static_cast<float*>(out), h0, h_last, w, B, T,
+                  Fq, K, st);
 }

@@ -1,5 +1,7 @@
 // Shared C = 64 GRU walk for dprnn_inter.cu, dprnn_intra.cu and gru_bidir.cu.
 //
+// Planes (x, and the out / ys plane) are float32 or bfloat16 (TX / TO):
+// loads upcast, stores round once, every value in between is float32.
 // One thread block owns R = GROUPS * RPT independent rows and walks S steps
 // of a GRU with input size == hidden size == 64 inside the block.  The 256
 // threads are 4 row groups of 64: thread (grp, u) computes hidden unit u of
@@ -21,10 +23,19 @@
 // t(s) = s, or S - 1 - s for a reverse walk.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace dpdf {
+
+using bf16 = __nv_bfloat16;
+
+// plane element <-> float32
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
 
 constexpr int C = 64;                 // channels == hidden size
 constexpr int G3 = 3 * C;             // gate columns r | z | n
@@ -60,12 +71,13 @@ struct GruWeights {
   int ld, row0, gstride, col0;
 };
 
+template <typename TO>
 struct Epilogue {
   const float* wfc;   // [C, C] rows for this walk (HWIO-style [in, out])
   const float* bfc;   // [C] (MODE_LN_RESIDUAL)
   const float* g;     // [C] LayerNorm gain
   const float* bln;   // [C] LayerNorm bias
-  float* out;         // same row addressing as x
+  TO* out;            // same row addressing as x
   float eps;
 };
 
@@ -85,9 +97,9 @@ constexpr int walk_smem_floats() {
 
 // Walk S steps for the block's rows.  h0 == nullptr starts from zeros;
 // h_last == nullptr skips the final hidden.  h0 / h_last are [N, C].
-template <int RPT, int MODE>
-__device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, int S,
-                           bool reverse, GruWeights w, Epilogue ep,
+template <int RPT, int MODE, typename TX, typename TO>
+__device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S,
+                           bool reverse, GruWeights w, Epilogue<TO> ep,
                            const float* __restrict__ h0, float* __restrict__ h_last) {
   constexpr int R = GROUPS * RPT;
   extern __shared__ __align__(16) float smem[];
@@ -140,7 +152,7 @@ __device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, in
     const int64_t t = reverse ? (S - 1 - s) : s;
     for (int i = tid; i < R * C; i += THREADS) {
       const int64_t n = row0 + i / C;
-      sx[i] = (n < N) ? x[rows.off(n, t) + i % C] : 0.0f;
+      sx[i] = (n < N) ? load_f(x + rows.off(n, t) + i % C) : 0.0f;
     }
     __syncthreads();
 
@@ -194,7 +206,7 @@ __device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, in
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int64_t n = row0 + grp + GROUPS * j;
-        if (n < N) ep.out[rows.off(n, t) + u] = hnew[j];
+        if (n < N) store_f(ep.out + rows.off(n, t) + u, hnew[j]);
       }
     } else {
       // epilogue: y = h . Wfc for this unit
@@ -217,7 +229,7 @@ __device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, in
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
           const int64_t n = row0 + grp + GROUPS * j;
-          if (n < N) ep.out[rows.off(n, t) + u] = y[j];
+          if (n < N) store_f(ep.out + rows.off(n, t) + u, y[j]);
         }
       } else {
         // LayerNorm over the 64 units of each row: two warps per row group
@@ -248,7 +260,7 @@ __device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, in
           const float var = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
           const float yn = d[j] * (1.0f / sqrtf(var + ep.eps));
           const int64_t n = row0 + r;
-          if (n < N) ep.out[rows.off(n, t) + u] = sx[r * C + u] + (yn * gain + shift);
+          if (n < N) store_f(ep.out + rows.off(n, t) + u, sx[r * C + u] + (yn * gain + shift));
         }
       }
     }  // MODE != MODE_YS
@@ -262,6 +274,43 @@ __device__ void gru64_walk(const float* __restrict__ x, Rows rows, int64_t N, in
       if (n < N) h_last[n * C + u] = sh[(grp + GROUPS * j) * C + u];
     }
   }
+}
+
+// The DPRNN intra epilogue, one warp per (row, f) element of the plane:
+// y = part0 + part1 + bfc, out = x + LN(y) * g + bln.  part: [2][rows][C]
+// f32 fc partials of the two directions; x, out: [rows][C].  Each lane
+// holds two of the 64 channels.
+template <typename TX>
+__global__ void __launch_bounds__(256)
+dprnn_intra_epilogue_kernel(const TX* __restrict__ x, const float* __restrict__ part,
+                            const float* __restrict__ bfc, const float* __restrict__ g,
+                            const float* __restrict__ bln, TX* __restrict__ out,
+                            int64_t rows_total) {
+  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows_total) return;
+  const float* p0 = part + r * C;
+  const float* p1 = part + rows_total * C + r * C;
+  float y0 = (p0[lane] + p1[lane]) + bfc[lane];
+  float y1 = (p0[lane + 32] + p1[lane + 32]) + bfc[lane + 32];
+  const float mu = warp_sum(y0 + y1) * (1.0f / C);
+  y0 -= mu;
+  y1 -= mu;
+  const float var = warp_sum(y0 * y0 + y1 * y1) * (1.0f / C);
+  const float inv = 1.0f / sqrtf(var + 1e-5f);
+  store_f(out + r * C + lane, load_f(x + r * C + lane) + (y0 * inv * g[lane] + bln[lane]));
+  store_f(out + r * C + lane + 32,
+          load_f(x + r * C + lane + 32) + (y1 * inv * g[lane + 32] + bln[lane + 32]));
+}
+
+template <typename TX>
+cudaError_t launch_intra_epilogue(const TX* x, const float* part, const float* bfc,
+                                  const float* g, const float* bln, TX* out,
+                                  int64_t rows_total, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((rows_total + 7) / 8);
+  dprnn_intra_epilogue_kernel<TX><<<blocks, 256, 0, stream>>>(x, part, bfc, g, bln, out,
+                                                              rows_total);
+  return cudaGetLastError();
 }
 
 }  // namespace dpdf

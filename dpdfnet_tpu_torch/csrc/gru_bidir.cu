@@ -20,46 +20,58 @@
 // separate blocks (grid.y), each holding its 96 KB of Wi / Wh in shared
 // memory.  The packed direction-blockdiag weights (wi2 / wh2 [2C, 6C],
 // b2 [2, 6C]) are read with their zero cross-direction blocks skipped.
+// x and ys are float32 or bfloat16 (loads upcast, stores round once); the
+// weights and all arithmetic are float32.
 #include "gru64_walk.cuh"
 
 using namespace dpdf;
 
-template <int RPT>
+template <int RPT, typename TX>
 __global__ void __launch_bounds__(THREADS)
-gru_bidir_kernel(const float* __restrict__ x, float* __restrict__ ys_fw,
-                 float* __restrict__ ys_bw, const float* __restrict__ wi2,
+gru_bidir_kernel(const TX* __restrict__ x, TX* __restrict__ ys_fw,
+                 TX* __restrict__ ys_bw, const float* __restrict__ wi2,
                  const float* __restrict__ wh2, const float* __restrict__ b2,
                  Rows rows, int64_t N, int L) {
   const int d = blockIdx.y;                       // 0 forward, 1 backward
   GruWeights w{wi2, wh2, b2, b2 + 6 * C, 6 * C, d * C, 2 * C, d * C};
-  Epilogue ep{nullptr, nullptr, nullptr, nullptr, d == 0 ? ys_fw : ys_bw, 0.0f};
+  Epilogue<TX> ep{nullptr, nullptr, nullptr, nullptr, d == 0 ? ys_fw : ys_bw, 0.0f};
   gru64_walk<RPT, MODE_YS>(x, rows, N, L, d == 1, w, ep, nullptr, nullptr);
 }
 
-template <int RPT>
-static cudaError_t launch(const float* x, float* ys_fw, float* ys_bw, const float* wi2,
+template <int RPT, typename TX>
+static cudaError_t launch(const TX* x, TX* ys_fw, TX* ys_bw, const float* wi2,
                           const float* wh2, const float* b2, Rows rows, int64_t N, int L,
                           cudaStream_t stream) {
   constexpr int R = GROUPS * RPT;
   const size_t smem = sizeof(float) * walk_smem_floats<RPT>();
-  cudaError_t err = cudaFuncSetAttribute(gru_bidir_kernel<RPT>,
+  cudaError_t err = cudaFuncSetAttribute(gru_bidir_kernel<RPT, TX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)((N + R - 1) / R), 2);
-  gru_bidir_kernel<RPT><<<grid, THREADS, smem, stream>>>(x, ys_fw, ys_bw, wi2, wh2, b2,
-                                                          rows, N, L);
+  gru_bidir_kernel<RPT, TX><<<grid, THREADS, smem, stream>>>(x, ys_fw, ys_bw, wi2, wh2, b2,
+                                                              rows, N, L);
   return cudaGetLastError();
 }
 
-// x, ys_fw, ys_bw: [N, L, C] contiguous.
-extern "C" int gru_bidir_launch(const float* x, float* ys_fw, float* ys_bw,
-                                const float* wi2, const float* wh2, const float* b2,
-                                long long N, int L, int rows_per_block, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename TX>
+static cudaError_t run(const TX* x, TX* ys_fw, TX* ys_bw, const float* wi2, const float* wh2,
+                       const float* b2, int64_t N, int L, int rows_per_block,
+                       cudaStream_t st) {
   Rows rows{N, 0, (int64_t)L * C, C};
-  cudaError_t err = rows_per_block == 16
-                        ? launch<4>(x, ys_fw, ys_bw, wi2, wh2, b2, rows, N, L, st)
-                        : launch<2>(x, ys_fw, ys_bw, wi2, wh2, b2, rows, N, L, st);
-  return (int)err;
+  return rows_per_block == 16 ? launch<4>(x, ys_fw, ys_bw, wi2, wh2, b2, rows, N, L, st)
+                              : launch<2>(x, ys_fw, ys_bw, wi2, wh2, b2, rows, N, L, st);
+}
+
+// x, ys_fw, ys_bw: [N, L, C] contiguous, float32, or bfloat16 when plane_bf16.
+extern "C" int gru_bidir_launch(const void* x, void* ys_fw, void* ys_bw,
+                                const float* wi2, const float* wh2, const float* b2,
+                                long long N, int L, int rows_per_block, int plane_bf16,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (plane_bf16)
+    return (int)run(static_cast<const bf16*>(x), static_cast<bf16*>(ys_fw),
+                    static_cast<bf16*>(ys_bw), wi2, wh2, b2, N, L, rows_per_block, st);
+  return (int)run(static_cast<const float*>(x), static_cast<float*>(ys_fw),
+                  static_cast<float*>(ys_bw), wi2, wh2, b2, N, L, rows_per_block, st);
 }

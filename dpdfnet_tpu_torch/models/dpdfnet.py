@@ -11,6 +11,15 @@ stack) and every GRU layer go through the kernel wrappers of
 ``ops.gru_kernels``: CUDA kernels for CUDA tensors, their plain versions
 for CPU tensors.  Convs, GEMMs and elementwise work
 are plain PyTorch.
+
+The activations run at ``spec``'s dtype (bfloat16 on the ``turbo`` tier),
+with the JAX package's casts: weights are cast at use, state leaves join
+the planes at the planes' dtype, the carried hiddens enter the kernels in
+float32 and return at the state leaf's dtype.  ``precision`` is the
+tier's matmul precision (``"highest"``, ``"high"`` or ``"default"``), an
+explicit argument where the JAX package reads an ambient context; under
+``"default"`` it enables ``DPDFNET_TPU_PALLAS_V2`` (inter v2 kernel) and
+``DPDFNET_TPU_PLANE_IO=bf16`` (bfloat16 DPRNN planes).
 """
 
 from __future__ import annotations
@@ -60,44 +69,59 @@ def _features(params: Params, cfg: ModelConfig, spec: Tensor, state: State
 # DPRNN
 # --------------------------------------------------------------------------- #
 
-def _dprnn_block(p: Params, x: Tensor, h_inter: Tensor) -> Tuple[Tensor, Tensor]:
+def _dprnn_block(p: Params, x: Tensor, h_inter: Tensor, precision: str = "highest"
+                 ) -> Tuple[Tensor, Tensor]:
     """Dual-path block on ``x [B,T,Fq,C]``; ``h_inter [B,Fq,C]`` is the
     time-GRU carry.  Intra: bidirectional GRU along frequency + fc + LN +
-    residual.  Inter: GRU along time + fc + LN + residual.
+    residual.  Inter: GRU along time + fc + LN + residual.  Returns the
+    new carry in float32.
 
-    Packed params (``pack_dprnn_bidir``) run each stage as one fused kernel.
-    Raw params take the JAX package's route for them
-    (``dpdfnet_tpu.models.dpdfnet._dprnn_block``): ``gru_bidir``, then
-    linear + LayerNorm + residual; ``gru_seq`` along time, then linear +
-    LayerNorm + residual."""
+    Packed params (``pack_dprnn_bidir``) run each stage as one fused kernel;
+    with the v2 weights (``inter['whfc']``) and ``gru_kernels.v2_enabled``,
+    the inter stage is ``dprnn_inter_block_v2`` on ``xp = x . Wi + bi``
+    computed here and stored in bfloat16
+    (``dpdfnet_tpu.models.dpdfnet._dprnn_fused``).  Raw params take the
+    JAX package's route for them (``dpdfnet_tpu.models.dpdfnet._dprnn_block``):
+    ``gru_bidir``, then linear + LayerNorm + residual; ``gru_seq`` along
+    time, then linear + LayerNorm + residual."""
     B, T, Fq, C = x.shape
     intra, inter = p["intra"], p["inter"]
     packed = intra.get("packed")
+    h0 = h_inter.float().contiguous()
     if packed is not None:
         x = gru_kernels.dprnn_intra_block(
             x.reshape(B * T, Fq, C), packed["wi2"], packed["wh2"], packed["b2"],
             intra["fc"]["w"], intra["fc"]["b"], intra["ln"]["g"], intra["ln"]["b"],
         ).reshape(B, T, Fq, C)
         g = inter["gru"]
+        if "whfc" in inter and gru_kernels.v2_enabled(precision):
+            xp = (x @ g["wi"].to(x.dtype) + g["bi"].to(x.dtype)).to(torch.bfloat16)
+            return gru_kernels.dprnn_inter_block_v2(
+                xp, x, h0, inter["whfc"], g["bh"], inter["fc"]["b"], inter["ln"]["g"],
+                inter["ln"]["b"])
         return gru_kernels.dprnn_inter_block(
-            x, h_inter.to(x.dtype).contiguous(), g["wi"], g["bi"], g["wh"], g["bh"],
+            x, h0, g["wi"], g["bi"], g["wh"], g["bh"],
             inter["fc"]["w"], inter["fc"]["b"], inter["ln"]["g"], inter["ln"]["b"])
     yi = onn.gru_bidir(intra["fw"], intra["bw"], x.reshape(B * T, Fq, C))
     yi = onn.layer_norm(intra["ln"], onn.linear(intra["fc"], yi))
     x = x + yi.reshape(B, T, Fq, C)
     xt = x.transpose(1, 2).reshape(B * Fq, T, C)
-    yt, h_new = onn.gru_seq(inter["gru"], xt.contiguous(),
-                            h0=h_inter.to(x.dtype).reshape(B * Fq, C).contiguous())
+    yt, h_new = onn.gru_seq(inter["gru"], xt.contiguous(), h0=h0.reshape(B * Fq, C))
     yt = onn.layer_norm(inter["ln"], onn.linear(inter["fc"], yt))
-    y = x + yt.reshape(B, Fq, T, C).transpose(1, 2)
+    y = x + yt.reshape(B, Fq, T, C).transpose(1, 2).to(x.dtype)
     return y, h_new.reshape(B, Fq, C)
 
 
 def _dprnn(p_blocks: List[Params], x: Tensor, hs: List[Tensor],
-           stacked: Optional[Params] = None) -> Tuple[Tensor, List[Tensor]]:
+           stacked: Optional[Params] = None, precision: str = "highest"
+           ) -> Tuple[Tensor, List[Tensor]]:
     """The DPRNN stack.  With the branch's ``pack_stack`` bundle and
     ``gru_kernels.stack_enabled()``, one ``dprnn_stack`` call runs every
-    block (``dpdfnet_tpu.models.dpdfnet._dprnn``); otherwise block by block."""
+    block (``dpdfnet_tpu.models.dpdfnet._dprnn``); otherwise block by block,
+    with packed params on planes carried in bfloat16 between the kernels
+    under ``gru_kernels.plane_io_bf16(precision)`` (float32 planes whose Fq
+    is a multiple of 8, and not on the v2 path, as ``_dprnn_fused`` does).
+    The new hiddens keep each carried hidden's dtype."""
     if len(p_blocks) != len(hs):
         raise ValueError(
             f"state carries {len(hs)} DPRNN block hiddens but the model has "
@@ -105,13 +129,18 @@ def _dprnn(p_blocks: List[Params], x: Tensor, hs: List[Tensor],
     x = x.contiguous()
     if p_blocks and stacked is not None and gru_kernels.stack_enabled():
         out, h_last = gru_kernels.dprnn_stack(
-            x, torch.stack([h.to(x.dtype) for h in hs]), stacked)
-        return out, list(h_last)
+            x, torch.stack([h.float() for h in hs]), stacked)
+        return out, [hl.to(h.dtype) for hl, h in zip(h_last, hs)]
+    packed = bool(p_blocks) and all(p["intra"].get("packed") is not None for p in p_blocks)
+    io_bf16 = (packed and x.dtype == torch.float32 and x.shape[2] % 8 == 0
+               and not gru_kernels.v2_enabled(precision)
+               and gru_kernels.plane_io_bf16(precision))
+    y = x.to(torch.bfloat16) if io_bf16 else x
     new_hs: List[Tensor] = []
     for p, h in zip(p_blocks, hs):
-        x, h_new = _dprnn_block(p, x, h)
-        new_hs.append(h_new)
-    return x, new_hs
+        y, h_new = _dprnn_block(p, y, h, precision)
+        new_hs.append(h_new.to(h.dtype))
+    return y.to(x.dtype), new_hs
 
 
 # --------------------------------------------------------------------------- #
@@ -137,10 +166,10 @@ def _squeezed_gru(p: Params, x: Tensor, hs: List[Tensor], skip: str = "none",
             h0s = [c.contiguous() for c in torch.chunk(h0, g, dim=-1)]
             h, h_lasts = onn.grouped_gru_seq(gp["groups"], h, h0s=h0s,
                                              shuffle_out=li < n_layers - 1)
-            new_hs.append(torch.cat(h_lasts, dim=-1))
+            new_hs.append(torch.cat(h_lasts, dim=-1).to(h0.dtype))
         else:
-            h, h_last = onn.gru_seq(gp, h.contiguous(), h0=h0.contiguous())
-            new_hs.append(h_last)
+            h, h_last = onn.gru_seq(gp, h.contiguous(), h0=h0)
+            new_hs.append(h_last.to(h0.dtype))
     if skip_position == "inner":
         if skip == "identity":
             h = h + x_in
@@ -167,7 +196,7 @@ def _squeezed_gru(p: Params, x: Tensor, hs: List[Tensor], skip: str = "none",
 # --------------------------------------------------------------------------- #
 
 def _encoder(params: Params, cfg: ModelConfig, feat_erb: Tensor, feat_spec: Tensor,
-             state: State):
+             state: State, precision: str = "highest"):
     """Returns ((e0,e1,e2,e3), emb, c0, lsnr, state_updates)."""
     p = params["enc"]
     kt, kf = cfg.conv_kernel_inp
@@ -189,13 +218,13 @@ def _encoder(params: Params, cfg: ModelConfig, feat_erb: Tensor, feat_spec: Tens
     e2, _ = onn.conv_block(p["erb_conv2"], e1, kt=1, kf=kfc, fstride=s2, act="relu")
     e3, _ = onn.conv_block(p["erb_conv3"], e2, kt=1, kf=kfc, fstride=s3, act="relu")
     e3d, new_dprnn_erb = _dprnn(p["dprnn_erb"], e3, state["dprnn_erb"],
-                                stacked=p.get("dprnn_erb_stacked"))
+                                stacked=p.get("dprnn_erb_stacked"), precision=precision)
 
     c0, new_df_tail = onn.conv_block(p["df_conv0"], feat_spec, kt=kt, kf=kf,
                                      act="relu", time_tail=state["df_conv0_tail"])
     c1, _ = onn.conv_block(p["df_conv1"], c0, kt=1, kf=kfc, fstride=2, act="relu")
     c1d, new_dprnn_df = _dprnn(p["dprnn_df"], c1, state["dprnn_df"],
-                               stacked=p.get("dprnn_df_stacked"))
+                               stacked=p.get("dprnn_df_stacked"), precision=precision)
 
     B, T = feat_erb.shape[:2]
     cemb = onn.grouped_linear(p["df_fc_emb"], c1d.reshape(B, T, -1), act="relu")
@@ -355,12 +384,14 @@ def _mask_and_df(params: Params, cfg: ModelConfig, spec: Tensor, m: Tensor,
 # --------------------------------------------------------------------------- #
 
 def forward_spec(params: Params, cfg: ModelConfig, spec: Tensor, state: State, *,
-                 atten_lim_db: Optional[Tensor] = None) -> Tuple[Tensor, State, Tensor]:
+                 atten_lim_db: Optional[Tensor] = None, precision: str = "highest"
+                 ) -> Tuple[Tensor, State, Tensor]:
     """Enhance ``spec: [B, T, F, 2]``; returns (spec_e, new_state, lsnr [B,T]).
-    ``atten_lim_db`` ([B], 16 kHz configs) floors the ERB gain mask."""
+    ``atten_lim_db`` ([B], 16 kHz configs) floors the ERB gain mask;
+    ``precision`` is the tier's matmul precision (see the module notes)."""
     feat_erb, feat_spec, mu_last, s_last = _features(params, cfg, spec, state)
     (e0, e1, e2, e3), emb, c0, lsnr, enc_up = _encoder(params, cfg, feat_erb,
-                                                        feat_spec, state)
+                                                        feat_spec, state, precision)
     m, new_erb_dec = _erb_decoder(params, cfg, emb, e0, e1, e2, e3, state["erb_dec_gru"])
     coefs, df_up = _df_decoder(params, cfg, emb, c0, state)
     spec_e, mask_up = _mask_and_df(params, cfg, spec, m, coefs, state,

@@ -4,9 +4,10 @@
 - ``fuse_separable``: (depthwise/grouped conv -> 1x1 pointwise) is one
   linear map, so it collapses into a single dense conv kernel.
 - ``pack_dprnn_bidir``: the DPRNN intra GRUs' weights packed
-  direction-blockdiag, gate-major, as the intra kernel takes them, and
-  (with ``DPDFNET_TPU_STACK`` set) each branch's ``pack_stack`` bundle for
-  the stack kernel.
+  direction-blockdiag, gate-major, as the intra kernel takes them; with
+  ``DPDFNET_TPU_PALLAS_V2`` set, the v2 kernels' ``wi_cat`` / ``wh_big``
+  and ``inter['whfc'] = [Wh | Wfc]``; with ``DPDFNET_TPU_STACK`` set, each
+  branch's ``pack_stack`` bundle for the stack kernel.
 
 The JAX package's ``fold_hr_tail`` (the 48 kHz 480-bin plane re-expressed
 as ``[160, 3C]``) is a TPU layout choice and is not ported; the forward
@@ -21,7 +22,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops import gru_kernels
-from ..ops.gru_kernels import _pack_bidir
+from ..ops.gru_kernels import _pack_bidir, pack_intra_v2
 
 Params = Dict
 
@@ -131,10 +132,11 @@ def pack_stack(blocks: list) -> Params:
 
 def pack_dprnn_bidir(params: Params, cfg: ModelConfig) -> Params:
     """Add pre-packed intra-GRU weights (``intra['packed']``) to every
-    DPRNN block; the originals stay beside them.  When
-    ``gru_kernels.stack_enabled()`` (read here, at pack time) each branch
-    also gets its ``pack_stack`` bundle, ``enc[branch + '_stacked']``, as
-    ``dpdfnet_tpu.models.fuse.pack_dprnn_bidir`` builds it."""
+    DPRNN block; the originals stay beside them.  Read here, at pack time,
+    as ``dpdfnet_tpu.models.fuse.pack_dprnn_bidir`` reads them:
+    ``gru_kernels.v2_requested()`` adds ``packed['wi_cat']`` /
+    ``packed['wh_big']`` and ``inter['whfc']``; ``gru_kernels.stack_enabled()``
+    gives each branch its ``pack_stack`` bundle, ``enc[branch + '_stacked']``."""
     p = dict(params)
     enc = dict(p["enc"])
     for branch in ("dprnn_erb", "dprnn_df"):
@@ -145,6 +147,12 @@ def pack_dprnn_bidir(params: Params, cfg: ModelConfig) -> Params:
             wi2, wh2, b2 = _pack_bidir(intra["fw"], intra["bw"])
             intra["packed"] = {"wi2": wi2, "wh2": wh2, "b2": b2}
             bp["intra"] = intra
+            if gru_kernels.v2_requested():
+                wi_cat, wh_big = pack_intra_v2(wi2, wh2, intra["fc"]["w"])
+                intra["packed"].update(wi_cat=wi_cat, wh_big=wh_big)
+                inter = dict(bp["inter"])
+                inter["whfc"] = torch.cat([inter["gru"]["wh"], inter["fc"]["w"]], dim=1)
+                bp["inter"] = inter
             blocks.append(bp)
         enc[branch] = blocks
         if blocks and gru_kernels.stack_enabled():

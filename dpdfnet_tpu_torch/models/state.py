@@ -46,7 +46,9 @@ def _check_layout_assumptions(cfg: ModelConfig) -> None:
 
 def init_state(cfg: ModelConfig, batch: int = 1, dtype=torch.float32,
                device: DeviceLike = None) -> State:
-    """Fresh per-stream state for a batch of independent streams."""
+    """Fresh per-stream state for a batch of independent streams, every
+    leaf at ``dtype`` (the engines keep the DPRNN hiddens in float32 under
+    bf16 compute, ``Engine.init_stream_state``)."""
     _check_layout_assumptions(cfg)
     dev = resolve_device(device)
     C = cfg.conv_ch
@@ -109,12 +111,17 @@ def state_size(cfg: ModelConfig) -> int:
 
 
 def _np(v) -> np.ndarray:
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    """A leaf as numpy; bfloat16 leaves come out as float32 (exact)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
 
 
 def flatten_state(cfg: ModelConfig, state: State, stream: int = 0) -> np.ndarray:
-    """Serialize one stream of the state (tensors on any device, or numpy
-    arrays) into the reference flat layout; returns a numpy vector."""
+    """Serialize one stream of the state (tensors on any device and of any
+    float dtype, or numpy arrays) into the reference flat layout; returns a
+    float32 numpy vector."""
     s = {k: _np(v) if not isinstance(v, list) else [_np(u) for u in v]
          for k, v in state.items()}
     chunks: List[np.ndarray] = []

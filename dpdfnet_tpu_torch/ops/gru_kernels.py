@@ -1,5 +1,6 @@
 """The port's sequential kernels: DPRNN intra, DPRNN inter, GRU scan,
-bidirectional GRU and the whole DPRNN stack.
+bidirectional GRU, the whole DPRNN stack, and the v2 DPRNN intra / inter
+stages with hoisted input projections.
 
 Counterpart of ``dpdfnet_tpu.ops.pallas_gru``.  Each wrapper sits beside
 its plain PyTorch version:
@@ -19,8 +20,16 @@ Layouts follow the port's planes, not the TPU's time-major ones: the
 kernels read ``[B, T, Fq, C]`` through strides.  Weight argument lists are
 the JAX wrappers': packed ``wi2, wh2, b2`` for intra and the bidirectional
 GRU, ``wi, bi, wh, bh, wfc, bfc, g, bln`` for inter, the ``pack_stack``
-dict for the stack.  The CUDA kernels compute in float32 and take DPRNN
-planes with ``C == 64`` (every shipped configuration).
+dict for the stack, ``pack_intra_v2``'s ``wi_cat, wh_big`` (+ ``b2``) for
+intra v2 and ``whfc = [Wh | Wfc]`` for inter v2.  The CUDA kernels take
+DPRNN planes with ``C == 64`` (every shipped configuration).
+
+Planes (``x``, ``out``, ``ys``, and the v2 ``xp``) are float32 or
+bfloat16; weights, biases and the carried ``h0`` / ``h_last`` are float32.
+The math is float32 in every case: the kernels upcast plane loads and
+round each plane store once, and the plain versions compute on the
+upcast plane and round their result once, to the plane's dtype.  A
+wrapper casts nothing around its kernel: other dtypes raise.
 """
 
 from __future__ import annotations
@@ -53,17 +62,17 @@ def gru_scan_plain(x: Tensor, h0: Optional[Tensor], wi: Tensor, bi: Tensor,
                    wh: Tensor, bh: Tensor, reverse: bool = False
                    ) -> Tuple[Tensor, Tensor]:
     """GRU over ``x [N, T, I]`` from ``h0 [N, H]`` (zeros when None);
-    returns ``(ys [N, T, H], h_last [N, H])``."""
+    returns ``(ys [N, T, H]`` at x's dtype, ``h_last [N, H]`` float32)."""
     N, T, _ = x.shape
     H = wh.shape[0]
-    h = x.new_zeros((N, H)) if h0 is None else h0.to(x.dtype)
-    xp = x @ wi + bi                                            # [N, T, 3H]
+    h = x.new_zeros((N, H), dtype=torch.float32) if h0 is None else h0.float()
+    xp = x.float() @ wi + bi                                    # [N, T, 3H]
     ys = [None] * T
     for s in range(T):
         t = T - 1 - s if reverse else s
         h = gru_cell({"wh": wh, "bh": bh}, xp[:, t], h)
         ys[t] = h
-    return torch.stack(ys, dim=1), h
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
 def _pack_bidir(p_fw: dict, p_bw: dict):
@@ -101,7 +110,10 @@ def gru_bidir_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
                     ) -> Tuple[Tensor, Tensor]:
     """Bidirectional GRU along L of ``x [N, L, I]`` from zero state with the
     packed direction-blockdiag weights (``_pack_bidir``); both directions
-    advance in one walk.  Returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``."""
+    advance in one walk.  Returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``
+    at x's dtype."""
+    dtype = x.dtype
+    x = x.float()
     N, L, _ = x.shape
     H = wh2.shape[0] // 2
     H2 = 2 * H
@@ -117,7 +129,7 @@ def gru_bidir_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
         h = (1.0 - z) * n + z * h
         ys_f[s] = h[:, :H]
         ys_b[L - 1 - s] = h[:, H:]
-    return torch.stack(ys_f, 1), torch.stack(ys_b, 1)
+    return torch.stack(ys_f, 1).to(dtype), torch.stack(ys_b, 1).to(dtype)
 
 
 def dprnn_intra_block_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
@@ -125,8 +137,9 @@ def dprnn_intra_block_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
                             ) -> Tensor:
     """``x + LN(fc(bidirGRU_along_Fq(x)))`` over ``x [N, Fq, C]`` with the
     packed direction-blockdiag weights (``_pack_bidir``)."""
-    ys = torch.cat(gru_bidir_plain(x, wi2, wh2, b2), dim=-1)
-    return x + _ln(ys @ wfc + bfc, g, bln)
+    xf = x.float()
+    ys = torch.cat(gru_bidir_plain(xf, wi2, wh2, b2), dim=-1)
+    return (xf + _ln(ys @ wfc + bfc, g, bln)).to(x.dtype)
 
 
 def dprnn_inter_block_plain(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor,
@@ -134,12 +147,81 @@ def dprnn_inter_block_plain(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor,
                             g: Tensor, bln: Tensor) -> Tuple[Tensor, Tensor]:
     """GRU along T for every (b, f) row of ``x [B, T, Fq, C]`` from
     ``h0 [B, Fq, C]``; ``out[t] = x[t] + LN(fc(h_t))``.  Returns
-    ``(out [B, T, Fq, C], h_last [B, Fq, C])``."""
+    ``(out [B, T, Fq, C]`` at x's dtype, ``h_last [B, Fq, C]`` float32)."""
     B, T, Fq, C = x.shape
-    xt = x.transpose(1, 2).reshape(B * Fq, T, C)
+    xf = x.float()
+    xt = xf.transpose(1, 2).reshape(B * Fq, T, C)
     ys, hl = gru_scan_plain(xt, h0.reshape(B * Fq, C), wi, bi, wh, bh)
     y = _ln(ys @ wfc + bfc, g, bln)
-    return x + y.reshape(B, Fq, T, C).transpose(1, 2), hl.reshape(B, Fq, C)
+    out = xf + y.reshape(B, Fq, T, C).transpose(1, 2)
+    return out.to(x.dtype), hl.reshape(B, Fq, C)
+
+
+def pack_intra_v2(wi2: Tensor, wh2: Tensor, wfc: Tensor) -> Tuple[Tensor, Tensor]:
+    """The v2 intra weights from the v1 packed set and the fc weight
+    (``pallas_gru.pack_intra_v2``): ``wi_cat [C, 6C]`` collapses wi2's two
+    row blocks (their nonzero columns are disjoint); ``wh_big [2C, 8C]``
+    appends ``blockdiag(wfc[:C], wfc[C:])`` columns to wh2."""
+    I = wi2.shape[0] // 2
+    C = wh2.shape[0] // 2
+    wi_cat = wi2[:I] + wi2[I:]
+    fc_blk = wfc.new_zeros((2 * C, 2 * C))
+    fc_blk[:C, :C] = wfc[:C]
+    fc_blk[C:, C:] = wfc[C:]
+    return wi_cat, torch.cat([wh2, fc_blk], dim=1)
+
+
+def dprnn_intra_block_v2_plain(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
+                               bfc: Tensor, g: Tensor, bln: Tensor, *,
+                               xp_bf16: bool = True) -> Tensor:
+    """The v2 intra stage on ``x [N, L, C]``: ``xp = x . wi_cat + b2[0]``
+    for every position at once (rounded to bfloat16 when ``xp_bf16``), then
+    the bidirectional walk (forward-direction gate columns of xp from
+    position s, backward ones from L-1-s) and ``x + LN(fc([ys_fw, ys_bw]))``
+    with the fc read from wh_big's blockdiag columns.  The same function as
+    :func:`dprnn_intra_block_plain` up to the xp rounding."""
+    N, L, C = x.shape
+    C2, H6 = 2 * C, 6 * C
+    xf = x.float()
+    xp = xf @ wi_cat + b2[0]                                     # [N, L, 6C]
+    if xp_bf16:
+        xp = xp.to(torch.bfloat16).float()
+    is_f = (torch.arange(H6, device=x.device) // C) % 2 == 0     # [r_f r_b z_f z_b n_f n_b]
+    wh2 = wh_big[:, :H6]
+    h = xf.new_zeros((N, C2))
+    ys_f, ys_b = [None] * L, [None] * L
+    for s in range(L):
+        xp2 = torch.where(is_f, xp[:, s], xp[:, L - 1 - s])
+        hh = h @ wh2 + b2[1]
+        r = torch.sigmoid(xp2[:, :C2] + hh[:, :C2])
+        z = torch.sigmoid(xp2[:, C2:2 * C2] + hh[:, C2:2 * C2])
+        n = torch.tanh(xp2[:, 2 * C2:] + r * hh[:, 2 * C2:])
+        h = (1.0 - z) * n + z * h
+        ys_f[s] = h[:, :C]
+        ys_b[L - 1 - s] = h[:, C:]
+    wfc = torch.cat([wh_big[:C, H6:H6 + C], wh_big[C:, H6 + C:]], dim=0)
+    ys = torch.cat([torch.stack(ys_f, 1), torch.stack(ys_b, 1)], dim=-1)
+    return (xf + _ln(ys @ wfc + bfc, g, bln)).to(x.dtype)
+
+
+def dprnn_inter_block_v2_plain(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Tensor,
+                               bfc: Tensor, g: Tensor, bln: Tensor) -> Tuple[Tensor, Tensor]:
+    """The v2 inter stage: the GRU along T of every (b, f) row of the plane
+    ``x [B, T, Fq, C]`` from ``h0 [B, Fq, C]``, with the input projections
+    ``xp [B, T, Fq, 3C] = x . Wi + bi`` given, and ``whfc = [Wh | Wfc]``;
+    ``out[t] = x[t] + LN(h_t . Wfc + bfc)``.  Returns ``(out`` at x's
+    dtype, ``h_last [B, Fq, C]`` float32)."""
+    B, T, Fq, C = x.shape
+    xpt = xp.float().transpose(1, 2).reshape(B * Fq, T, 3 * C)
+    wh, wfc = whfc[:, :3 * C], whfc[:, 3 * C:]
+    h = h0.float().reshape(B * Fq, C)
+    hs = []
+    for t in range(T):
+        h = gru_cell({"wh": wh, "bh": bh}, xpt[:, t], h)
+        hs.append(h)
+    y = _ln(torch.stack(hs, dim=1) @ wfc + bfc, g, bln)
+    out = x.float() + y.reshape(B, Fq, T, C).transpose(1, 2)
+    return out.to(x.dtype), h.reshape(B, Fq, C)
 
 
 def dprnn_stack_plain(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
@@ -152,10 +234,10 @@ def dprnn_stack_plain(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
     B, T, Fq, C = x.shape
     K = h0.shape[0]
     w = stacked
-    hs = [h0[k].to(x.dtype) for k in range(K)]
+    hs = [h0[k].float() for k in range(K)]
     outs = []
     for t in range(T):
-        cur = x[:, t]                                           # [B, Fq, C]
+        cur = x[:, t].float()                                   # [B, Fq, C]
         for k in range(K):
             cur = dprnn_intra_block_plain(
                 cur, w["wi2"][k], w["wh2"][k], w["b2"][k], w["wfc_i"][k],
@@ -165,7 +247,25 @@ def dprnn_stack_plain(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
             cur = cur + _ln(hs[k] @ w["wfc_t"][k] + w["bfc_t"][k, 0],
                             w["g_t"][k, 0], w["bln_t"][k, 0])
         outs.append(cur)
-    return torch.stack(outs, dim=1), torch.stack(hs)
+    return torch.stack(outs, dim=1).to(x.dtype), torch.stack(hs)
+
+
+BF16_ULP = 2.0 ** -7
+
+
+def err_beyond_bf16_ulp(got: Tensor, ref: Tensor) -> float:
+    """Max-abs of ``got - ref`` beyond one bfloat16 ulp of ``ref``
+    (``BF16_ULP`` of its magnitude) where ``ref`` is bfloat16; the plain
+    max-abs where it is float32.  A bf16-plane kernel and its plain version
+    each compute in float32 and round the plane once, so a float32
+    difference next to a rounding midpoint can land one ulp apart."""
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise ValueError(f"got {got.dtype} {tuple(got.shape)}, "
+                         f"ref {ref.dtype} {tuple(ref.shape)}")
+    d = (got.float() - ref.float()).abs()
+    if ref.dtype == torch.bfloat16:
+        d = d - ref.float().abs() * BF16_ULP
+    return d.max().item()
 
 
 def stack_enabled() -> bool:
@@ -177,19 +277,48 @@ def stack_enabled() -> bool:
     return os.environ.get("DPDFNET_TPU_STACK", "0") not in ("0", "false", "False")
 
 
+def v2_requested() -> bool:
+    """``DPDFNET_TPU_PALLAS_V2`` set (no precision gate): read where the
+    weights are packed (``models.fuse.pack_dprnn_bidir``), where the run's
+    precision is not known yet (``pallas_gru.v2_requested``)."""
+    env = os.environ.get("DPDFNET_TPU_PALLAS_V2")
+    return env is not None and env not in ("0", "false", "False")
+
+
+def v2_enabled(precision: str) -> bool:
+    """Take the inter v2 kernel in the DPRNN stack?  Only under the
+    ``"default"`` precision of the ``fast`` / ``turbo`` tiers, whose
+    accuracy contract covers the bf16 storage of the hoisted projections
+    (``pallas_gru.v2_enabled``); read at each call."""
+    return precision == "default" and v2_requested()
+
+
+def plane_io_bf16(precision: str) -> bool:
+    """Carry the DPRNN planes between the stack's kernels in bfloat16
+    under the ``"default"`` precision (``DPDFNET_TPU_PLANE_IO=bf16``, the
+    same variable and gate as ``pallas_gru.plane_io_bf16``); the kernels'
+    math stays float32.  Read at each call."""
+    return precision == "default" and os.environ.get(
+        "DPDFNET_TPU_PLANE_IO", "0") not in ("0", "false", "False", "f32", "")
+
+
 # --------------------------------------------------------------------------- #
 # Kernel wrappers
 # --------------------------------------------------------------------------- #
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _ARGTYPES = {
-    "dprnn_inter_launch": [_P] * 12 + [_I] * 4 + [_P],
-    "dprnn_intra_launch": [_P] * 10 + [ctypes.c_longlong, _I, _I, _P],
-    "dprnn_stack_launch": [_P] * 18 + [_I] * 4 + [_P],
-    "gru_bidir_launch": [_P] * 6 + [ctypes.c_longlong, _I, _I, _P],
-    "gru_scan_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "dprnn_inter_launch": [_P] * 12 + [_I] * 5 + [_P],
+    "dprnn_inter_v2_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "dprnn_intra_launch": [_P] * 10 + [_L, _I, _I, _I, _P],
+    "dprnn_intra_v2_launch": [_P] * 10 + [_L, _I, _I, _I, _I, _P],
+    "dprnn_stack_launch": [_P] * 18 + [_I] * 5 + [_P],
+    "gru_bidir_launch": [_P] * 6 + [_L, _I, _I, _I, _P],
+    "gru_scan_launch": [_P] * 9 + [_I] * 7 + [_P],
 }
+_PLANE_DTYPES = (torch.float32, torch.bfloat16)
 _STACK_FQ_MAX = 50          # csrc/dprnn_stack.cu: the block's shared memory
 
 
@@ -219,20 +348,30 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _require_cuda(what: str, **tensors: Tensor) -> torch.device:
+def _require_cuda(what: str, planes: Dict[str, Tensor], weights: Dict[str, Tensor]
+                  ) -> torch.device:
+    """Every tensor contiguous on one CUDA device; planes float32 or
+    bfloat16, weights (biases and carried hiddens included) float32.
+    Raises otherwise: nothing is cast around a kernel."""
     dev = None
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{what}: {name} is on {t.device}, expected a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} is {t.dtype}; the kernel takes float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be contiguous")
-        if dev is None:
-            dev = t.device
-        elif t.device != dev:
-            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+    for group, allowed, kind in ((planes, _PLANE_DTYPES, "float32 or bfloat16"),
+                                 (weights, (torch.float32,), "float32")):
+        for name, t in group.items():
+            if not t.is_cuda:
+                raise ValueError(f"{what}: {name} is on {t.device}, expected a CUDA tensor")
+            if t.dtype not in allowed:
+                raise ValueError(f"{what}: {name} is {t.dtype}; the kernel takes {kind}")
+            if not t.is_contiguous():
+                raise ValueError(f"{what}: {name} must be contiguous")
+            if dev is None:
+                dev = t.device
+            elif t.device != dev:
+                raise ValueError(f"{what}: tensors on {dev} and {t.device}")
     return dev
+
+
+def _is_bf16(t: Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -251,8 +390,8 @@ def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
     Replaces ``pallas_gru.dprnn_intra_block`` / ``dprnn_intra_block_tm``."""
     if x.device.type == "cpu":
         return dprnn_intra_block_plain(x, wi2, wh2, b2, wfc, bfc, g, bln)
-    dev = _require_cuda("dprnn_intra_block", x=x, wi2=wi2, wh2=wh2, b2=b2, wfc=wfc,
-                        bfc=bfc, g=g, bln=bln)
+    dev = _require_cuda("dprnn_intra_block", {"x": x},
+                        dict(wi2=wi2, wh2=wh2, b2=b2, wfc=wfc, bfc=bfc, g=g, bln=bln))
     N, Fq, C = x.shape
     if C != 64 or tuple(wi2.shape) != (2 * C, 6 * C) or tuple(wh2.shape) != (2 * C, 6 * C) \
             or tuple(b2.shape) != (2, 6 * C) or tuple(wfc.shape) != (2 * C, C):
@@ -263,7 +402,7 @@ def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
     rc = _fn("dprnn_intra", "dprnn_intra_launch")(
         x.data_ptr(), out.data_ptr(), part.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
         b2.data_ptr(), wfc.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
-        N, Fq, _walk_rows_per_block(N, 2, dev), _stream())
+        N, Fq, _walk_rows_per_block(N, 2, dev), _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_intra_block")
     dprnn_intra_block.launches += 1
     return out
@@ -278,8 +417,8 @@ def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
     ``pallas_gru.dprnn_inter_block``."""
     if x.device.type == "cpu":
         return dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln)
-    dev = _require_cuda("dprnn_inter_block", x=x, h0=h0, wi=wi, bi=bi, wh=wh, bh=bh,
-                        wfc=wfc, bfc=bfc, g=g, bln=bln)
+    dev = _require_cuda("dprnn_inter_block", {"x": x},
+                        dict(h0=h0, wi=wi, bi=bi, wh=wh, bh=bh, wfc=wfc, bfc=bfc, g=g, bln=bln))
     B, T, Fq, C = x.shape
     if C != 64 or tuple(h0.shape) != (B, Fq, C) or tuple(wi.shape) != (C, 3 * C) \
             or tuple(wh.shape) != (C, 3 * C) or tuple(wfc.shape) != (C, C):
@@ -291,7 +430,7 @@ def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
         x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(), wi.data_ptr(),
         bi.data_ptr(), wh.data_ptr(), bh.data_ptr(), wfc.data_ptr(), bfc.data_ptr(),
         g.data_ptr(), bln.data_ptr(), B, T, Fq, _walk_rows_per_block(B * Fq, 1, dev),
-        _stream())
+        _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_inter_block")
     dprnn_inter_block.launches += 1
     return out, h_last
@@ -304,7 +443,7 @@ def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
     Replaces ``pallas_gru.gru_bidir_tm``."""
     if x.device.type == "cpu":
         return gru_bidir_plain(x, wi2, wh2, b2)
-    dev = _require_cuda("gru_bidir", x=x, wi2=wi2, wh2=wh2, b2=b2)
+    dev = _require_cuda("gru_bidir", {"x": x}, dict(wi2=wi2, wh2=wh2, b2=b2))
     N, L, C = x.shape
     if C != 64 or N == 0 or L == 0 or tuple(wi2.shape) != (2 * C, 6 * C) \
             or tuple(wh2.shape) != (2 * C, 6 * C) or tuple(b2.shape) != (2, 6 * C):
@@ -314,7 +453,7 @@ def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
     ys_bw = torch.empty_like(x)
     rc = _fn("gru_bidir", "gru_bidir_launch")(
         x.data_ptr(), ys_fw.data_ptr(), ys_bw.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
-        b2.data_ptr(), N, L, _walk_rows_per_block(N, 2, dev), _stream())
+        b2.data_ptr(), N, L, _walk_rows_per_block(N, 2, dev), _is_bf16(x), _stream())
     _check_rc(rc, "gru_bidir")
     gru_bidir.launches += 1
     return ys_fw, ys_bw
@@ -332,7 +471,7 @@ def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
     K = h0.shape[0]
     shapes = _stack_shapes(K, C)
     ws = {k: stacked[k] for k in shapes}
-    _require_cuda("dprnn_stack", x=x, h0=h0, **ws)
+    _require_cuda("dprnn_stack", {"x": x}, dict(h0=h0, **ws))
     bad = [k for k, shape in shapes.items() if tuple(ws[k].shape) != shape]
     if C != 64 or not 1 <= Fq <= _STACK_FQ_MAX or B == 0 or T == 0 or K == 0 \
             or tuple(h0.shape) != (K, B, Fq, C) or bad:
@@ -345,7 +484,7 @@ def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
     h_last = torch.empty_like(h0)
     rc = _fn("dprnn_stack", "dprnn_stack_launch")(
         x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
-        *(w.data_ptr() for w in ws.values()), B, T, Fq, K, _stream())
+        *(w.data_ptr() for w in ws.values()), B, T, Fq, K, _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_stack")
     dprnn_stack.launches += 1
     return out, h_last
@@ -358,7 +497,7 @@ def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tens
     Replaces ``pallas_gru.gru_scan_tm``."""
     if x.device.type == "cpu":
         return gru_scan_plain(x, h0, wi, bi, wh, bh, reverse=reverse)
-    dev = _require_cuda("gru_scan", x=x, h0=h0, wi=wi, bi=bi, wh=wh, bh=bh)
+    dev = _require_cuda("gru_scan", {"x": x}, dict(h0=h0, wi=wi, bi=bi, wh=wh, bh=bh))
     N, T, I = x.shape
     H = wh.shape[0]
     if H % 32 or H > 1024 or tuple(wi.shape) != (I, 3 * H) or tuple(wh.shape) != (H, 3 * H) \
@@ -366,17 +505,77 @@ def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tens
         raise ValueError(f"gru_scan: kernel takes H a multiple of 32 up to 1024 with "
                          f"wi [I, 3H], wh [H, 3H]; got x {tuple(x.shape)}, wh {tuple(wh.shape)}")
     xp = torch.empty((N, T, 3 * H), device=dev, dtype=torch.float32)
-    ys = torch.empty((N, T, H), device=dev, dtype=torch.float32)
+    ys = torch.empty((N, T, H), device=dev, dtype=x.dtype)
     h_last = torch.empty((N, H), device=dev, dtype=torch.float32)
     sms = _sm_count(dev)
     rpb = next((r for r in (1, 2, 4) if -(-N // r) <= sms), 8)
     rc = _fn("gru_scan", "gru_scan_launch")(
         x.data_ptr(), h0.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
         bh.data_ptr(), xp.data_ptr(), ys.data_ptr(), h_last.data_ptr(), N, T, I, H,
-        int(reverse), rpb, _stream())
+        int(reverse), rpb, _is_bf16(x), _stream())
     _check_rc(rc, "gru_scan")
     gru_scan.launches += 1
     return ys, h_last
+
+
+def dprnn_intra_block_v2(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
+                         bfc: Tensor, g: Tensor, bln: Tensor, *, xp_bf16: bool = True
+                         ) -> Tensor:
+    """Fused DPRNN intra stage, v2, on ``x [N, L, C]``: the input
+    projections of every position hoisted out of the walk (stored in
+    bfloat16 when ``xp_bf16``, the JAX wrapper's default), one product
+    ``h . [Wh2 | blockdiag(Wfc)]`` per step.  Weights from
+    :func:`pack_intra_v2` plus the v1 ``b2``.  Replaces
+    ``pallas_gru.dprnn_intra_block_v2``."""
+    if x.device.type == "cpu":
+        return dprnn_intra_block_v2_plain(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16=xp_bf16)
+    dev = _require_cuda("dprnn_intra_block_v2", {"x": x},
+                        dict(wi_cat=wi_cat, wh_big=wh_big, b2=b2, bfc=bfc, g=g, bln=bln))
+    N, L, C = x.shape
+    if C != 64 or N == 0 or L == 0 or tuple(wi_cat.shape) != (C, 6 * C) \
+            or tuple(wh_big.shape) != (2 * C, 8 * C) or tuple(b2.shape) != (2, 6 * C):
+        raise ValueError(f"dprnn_intra_block_v2: kernel takes C == 64 with pack_intra_v2 "
+                         f"weights and N, L > 0; got x {tuple(x.shape)}, "
+                         f"wh_big {tuple(wh_big.shape)}")
+    out = torch.empty_like(x)
+    xp = torch.empty((N, L, 6 * C), device=dev,
+                     dtype=torch.bfloat16 if xp_bf16 else torch.float32)
+    part = torch.empty((2, N, L, C), device=dev, dtype=torch.float32)
+    rc = _fn("dprnn_intra_v2", "dprnn_intra_v2_launch")(
+        x.data_ptr(), out.data_ptr(), xp.data_ptr(), part.data_ptr(), wi_cat.data_ptr(),
+        wh_big.data_ptr(), b2.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
+        N, L, _walk_rows_per_block(N, 2, dev), int(xp_bf16), _is_bf16(x), _stream())
+    _check_rc(rc, "dprnn_intra_block_v2")
+    dprnn_intra_block_v2.launches += 1
+    return out
+
+
+def dprnn_inter_block_v2(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Tensor,
+                         bfc: Tensor, g: Tensor, bln: Tensor) -> Tuple[Tensor, Tensor]:
+    """Fused DPRNN inter stage, v2, on the plane ``x [B, T, Fq, C]`` from
+    ``h0 [B, Fq, C]``, with ``xp [B, T, Fq, 3C] = x . Wi + bi`` computed by
+    the caller (float32 or bfloat16) and ``whfc = [Wh | Wfc]``: one product
+    ``h_new . [Wh | Wfc]`` per step.  Returns ``(out, h_last [B, Fq, C])``.
+    Replaces ``pallas_gru.dprnn_inter_block_v2``."""
+    if x.device.type == "cpu":
+        return dprnn_inter_block_v2_plain(xp, x, h0, whfc, bh, bfc, g, bln)
+    dev = _require_cuda("dprnn_inter_block_v2", {"xp": xp, "x": x},
+                        dict(h0=h0, whfc=whfc, bh=bh, bfc=bfc, g=g, bln=bln))
+    B, T, Fq, C = x.shape
+    if C != 64 or tuple(xp.shape) != (B, T, Fq, 3 * C) or tuple(h0.shape) != (B, Fq, C) \
+            or tuple(whfc.shape) != (C, 4 * C) or tuple(bh.shape) != (3 * C,):
+        raise ValueError(f"dprnn_inter_block_v2: kernel takes C == 64, xp [B, T, Fq, 3C], "
+                         f"whfc [C, 4C]; got x {tuple(x.shape)}, xp {tuple(xp.shape)}, "
+                         f"whfc {tuple(whfc.shape)}")
+    out = torch.empty_like(x)
+    h_last = torch.empty_like(h0)
+    rc = _fn("dprnn_inter_v2", "dprnn_inter_v2_launch")(
+        xp.data_ptr(), x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
+        whfc.data_ptr(), bh.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
+        B, T, Fq, _walk_rows_per_block(B * Fq, 1, dev), _is_bf16(xp), _is_bf16(x), _stream())
+    _check_rc(rc, "dprnn_inter_block_v2")
+    dprnn_inter_block_v2.launches += 1
+    return out, h_last
 
 
 KERNEL_WRAPPERS = {
@@ -385,6 +584,8 @@ KERNEL_WRAPPERS = {
     "gru_scan": gru_scan,
     "gru_bidir": gru_bidir,
     "dprnn_stack": dprnn_stack,
+    "dprnn_intra_block_v2": dprnn_intra_block_v2,
+    "dprnn_inter_block_v2": dprnn_inter_block_v2,
 }
 for _w in KERNEL_WRAPPERS.values():
     _w.launches = 0

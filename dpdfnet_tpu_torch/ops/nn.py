@@ -190,15 +190,17 @@ def gru_cell(p: dict, xp: Tensor, h: Tensor) -> Tensor:
 def gru_seq(p: dict, x: Tensor, h0: Optional[Tensor] = None,
             reverse: bool = False) -> Tuple[Tensor, Tensor]:
     """GRU over the time axis of ``x: [B, T, I]``; returns
-    ``(ys [B, T, H], h_last [B, H])``.  Goes through the ``gru_scan``
-    kernel wrapper, which launches the CUDA kernel for CUDA tensors and
-    runs its plain version for CPU tensors."""
+    ``(ys [B, T, H]`` at x's dtype, ``h_last [B, H]`` float32).  Goes
+    through the ``gru_scan`` kernel wrapper, which launches the CUDA kernel
+    for CUDA tensors and runs its plain version for CPU tensors; the
+    carried hidden enters the kernel in float32 whatever the state's
+    dtype."""
     from . import gru_kernels
 
     B = x.shape[0]
     H = p["wh"].shape[0]
-    if h0 is None:
-        h0 = x.new_zeros((B, H))
+    h0 = (x.new_zeros((B, H), dtype=torch.float32) if h0 is None
+          else h0.float().contiguous())
     return gru_kernels.gru_scan(x, h0, p["wi"], p["bi"], p["wh"], p["bh"],
                                 reverse=reverse)
 
@@ -245,29 +247,56 @@ def grouped_gru_seq(ps: list, x: Tensor, h0s: Optional[list] = None,
 # EMA linear recurrence
 # --------------------------------------------------------------------------- #
 
+def rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` and back: a Python scalar that multiplies
+    a tensor of that dtype as JAX's weakly typed scalars do (they take the
+    tensor's dtype first).  A no-op for float32 arithmetic."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def _coef(v: float, x: Tensor) -> float:
+    return rounded(v, x.dtype)
+
+
 def ema_scan(x: Tensor, init: Tensor, alpha: float) -> Tensor:
     """Sequential ``m_t = alpha*m_{t-1} + (1-alpha)*x_t`` over ``x [B, T, F]``
     with ``m_{-1} = init`` (``[F]`` or ``[B, F]``); returns every ``m_t``.
     The op sequence per frame is the same for every chunking."""
     m = init.to(x.dtype).expand(x.shape[0], x.shape[-1])
+    a, b = _coef(alpha, x), _coef(1.0 - alpha, x)
     out = []
     for t in range(x.shape[1]):
-        m = alpha * m + (1.0 - alpha) * x[:, t]
+        m = a * m + b * x[:, t]
         out.append(m)
     return torch.stack(out, dim=1)
 
 
+def _affine_scan(a: Tensor, b: Tensor) -> Tuple[Tensor, Tensor]:
+    """Inclusive scan along dim 1 of the affine maps ``m -> a*m + b`` under
+    ``(a1, b1), (a2, b2) -> (a1*a2, a2*b1 + b2)``, with the pairing tree of
+    ``jax.lax.associative_scan`` (pairs, recursion on the odd results,
+    then the evens), so each element takes the same roundings as there."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    a_odd, b_odd = _affine_scan(a[:, 0:-1:2] * a[:, 1::2],
+                                a[:, 1::2] * b[:, 0:-1:2] + b[:, 1::2])
+    if n % 2 == 0:
+        a_odd_head, b_odd_head = a_odd[:, :-1], b_odd[:, :-1]
+    else:
+        a_odd_head, b_odd_head = a_odd, b_odd
+    a_even = torch.cat([a[:, :1], a_odd_head * a[:, 2::2]], dim=1)
+    b_even = torch.cat([b[:, :1], a[:, 2::2] * b_odd_head + b[:, 2::2]], dim=1)
+    a_out, b_out = a.new_empty(a.shape), b.new_empty(b.shape)
+    a_out[:, 0::2], a_out[:, 1::2] = a_even, a_odd
+    b_out[:, 0::2], b_out[:, 1::2] = b_even, b_odd
+    return a_out, b_out
+
+
 def ema_scan_assoc(x: Tensor, init: Tensor, alpha: float) -> Tensor:
-    """Log-depth (Hillis-Steele) associative form of :func:`ema_scan`;
-    agrees with it to float rounding (~1e-7 relative)."""
-    a = torch.full_like(x, alpha)
-    b = (1.0 - alpha) * x
-    T = x.shape[1]
-    d = 1
-    while d < T:
-        a_prev, b_prev = a[:, :-d], b[:, :-d]
-        b = torch.cat([b[:, :d], a[:, d:] * b_prev + b[:, d:]], dim=1)
-        a = torch.cat([a[:, :d], a_prev * a[:, d:]], dim=1)
-        d *= 2
+    """Log-depth associative form of :func:`ema_scan` (the JAX package's
+    ``lax.associative_scan`` tree); agrees with it to float rounding
+    (~1e-7 relative in float32)."""
+    a, b = _affine_scan(torch.full_like(x, alpha), _coef(1.0 - alpha, x) * x)
     init = init.to(x.dtype).expand(x.shape[0], x.shape[-1])
     return a * init[:, None, :] + b

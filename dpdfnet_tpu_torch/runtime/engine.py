@@ -11,8 +11,23 @@ The offline pipeline runs on the engine's device:
    2-frame DF delay).
 
 Utterance lengths are bucketed on a geometric ladder so a corpus of varied
-lengths sees a handful of shapes.  ``highest`` and ``high`` both run in
-float32 with TF32 off (kernels in f32 FMA, cuBLAS/cuDNN in full f32).
+lengths sees a handful of shapes.
+
+Quality tiers (``QUALITY_TIERS``, the JAX package's ``{name: (precision,
+compute dtype)}``) on the card:
+
+- ``highest`` and ``high``: float32 activations, cuBLAS / cuDNN in full
+  float32 (TF32 off);
+- ``fast``: float32 activations, cuBLAS / cuDNN with TF32 tensor-core math
+  (10-bit mantissa, finer than the bf16 pass of the TPU's ``default``);
+- ``turbo``: bfloat16 activations from the spectrum after the float32
+  STFT to the network's output (convs, linears, DPRNN planes), bf16
+  cuBLAS / cuDNN with float32 accumulation; the attenuation-limit blend,
+  the iSTFT and the streaming FFTs run in float32.
+
+The hand-written kernels compute in float32 FMA in every tier (bfloat16
+planes in and out on ``turbo``).  Each call sets its tier's math mode for
+cuBLAS / cuDNN and restores the caller's settings on the way out.
 
 The streaming path (``init_stream_state`` / ``process_frames``) takes
 sample frames ``[B, T, win]`` and returns windowed time frames ready for
@@ -34,17 +49,19 @@ from ..config import ModelConfig
 from ..models import state as state_lib
 from ..models.dpdfnet import forward_spec
 from ..ops import stft as stft_ops
+from ..ops.nn import rounded
 from ..ops.windows import vorbis_window
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tree import tree_map
 
 QUALITY_TIERS = {
-    # name -> matmul precision; every tier of this slice computes in f32
-    "highest": "highest",
-    "high": "high",
-    "fast": "default",
-    "turbo": "default",
+    # name -> (matmul precision, compute dtype), as dpdfnet_tpu's table
+    "highest": ("highest", None),
+    "high": ("high", None),
+    "fast": ("default", None),
+    "turbo": ("default", "bf16"),
 }
+_PRECISIONS = ("highest", "high", "default")
 
 # frames per forward_spec call in throughput mode: the JAX package's
 # power-of-two ladder, so both packages split a chunk the same way
@@ -59,8 +76,12 @@ def _stream_dft_gemm() -> bool:
     return os.environ.get("DPDFNET_TPU_STREAM_DFT_GEMM", "0") not in ("0", "false", "False")
 
 
-_BF16_TODO = ("the bf16 'fast'/'turbo' tiers are not ported yet "
-              "(ROADMAP.md queue 1, 'fast/turbo bf16 tiers')")
+def _state_f32_hiddens() -> bool:
+    """Carry the DPRNN inter-GRU hiddens in float32 under bf16 compute
+    (``DPDFNET_TPU_STATE_F32H``, default on, read when a stream state is
+    made, as in the JAX package): the kernels take and return float32
+    hiddens, so a bf16 state would round them at every frame."""
+    return os.environ.get("DPDFNET_TPU_STATE_F32H", "1") not in ("0", "false", "False")
 
 
 def engine_from_quality(cfg, params, quality: str = "high", **kwargs):
@@ -68,32 +89,48 @@ def engine_from_quality(cfg, params, quality: str = "high", **kwargs):
     if quality not in QUALITY_TIERS:
         raise ValueError(f"Unknown quality {quality!r}; choose from "
                          f"{sorted(QUALITY_TIERS)}")
-    return Engine(cfg, params, precision=QUALITY_TIERS[quality], **kwargs)
+    precision, dtype = QUALITY_TIERS[quality]
+    if dtype == "bf16":
+        kwargs.setdefault("compute_dtype", torch.bfloat16)
+    return Engine(cfg, params, precision=precision, **kwargs)
 
 
 @contextlib.contextmanager
-def _full_f32():
-    """TF32 off for cuBLAS and cuDNN (cuDNN convs default to TF32)."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _math_mode(precision: str):
+    """cuBLAS / cuDNN math for one engine call: TF32 on under ``"default"``
+    (``fast``, ``turbo``), off otherwise (cuDNN convs default to TF32);
+    bf16 GEMMs accumulate in float32.  The caller's settings come back
+    on exit, so a tier never leaks into other code or engines."""
+    tf32 = precision == "default"
+    m = torch.backends.cuda.matmul
+    saved = (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+             m.allow_bf16_reduced_precision_reduction)
+    m.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    m.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        (m.allow_tf32, torch.backends.cudnn.allow_tf32,
+         m.allow_bf16_reduced_precision_reduction) = saved
 
 
 class Engine:
     """Holds params on one device for one model configuration."""
 
     def __init__(self, cfg: ModelConfig, params, *, precision: str = "high",
-                 seg_frames: int = 112, bucket_s: float = 1.0, fuse: bool = True,
-                 device: DeviceLike = None):
-        if precision not in ("highest", "high"):
-            raise NotImplementedError(f"precision {precision!r}: {_BF16_TODO}")
+                 compute_dtype: torch.dtype = torch.float32, seg_frames: int = 112,
+                 bucket_s: float = 1.0, fuse: bool = True, device: DeviceLike = None):
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision {precision!r}: choose from {_PRECISIONS}")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.precision = precision
+        self.compute_dtype = compute_dtype
+        self._wnorm = rounded(cfg.wnorm, compute_dtype)
+        # weights stay float32 on the device; bf16 compute casts them at use
         params = tree_map(lambda _, x: torch.as_tensor(x, dtype=torch.float32,
                                                        device=self.device), params)
         if fuse:
@@ -126,29 +163,35 @@ class Engine:
         b = wav.shape[0]
         x = torch.nn.functional.pad(wav, (0, cfg.win_len))
         spec = stft_ops.stft_matmul(x, self._window, cfg.hop, center=True, dft=self._dft)
-        spec = spec * cfg.wnorm
-        st = state_lib.init_state(cfg, batch=b, device=self.device)
+        spec = self._scale_spec(spec)
+        st = state_lib.init_state(cfg, batch=b, dtype=spec.dtype, device=self.device)
         T = spec.shape[1]
         seg = self.seg_frames
         if T <= seg:
-            out, _, _ = forward_spec(self.params, cfg, spec, st)
+            out, _, _ = forward_spec(self.params, cfg, spec, st, precision=self.precision)
         else:
             n_seg = -(-T // seg)
             spec_p = torch.nn.functional.pad(spec, (0, 0, 0, 0, 0, n_seg * seg - T))
             outs = []
             for i in range(n_seg):
                 o, st, _ = forward_spec(self.params, cfg,
-                                        spec_p[:, i * seg:(i + 1) * seg].contiguous(), st)
+                                        spec_p[:, i * seg:(i + 1) * seg].contiguous(), st,
+                                        precision=self.precision)
                 outs.append(o)
             out = torch.cat(outs, dim=1)[:, :T]
         # attenuation limit: blend the 4-frame-shifted noisy spec; alpha == 0
-        # passes the enhanced spec through
+        # passes the enhanced spec through.  Blend and iSTFT in float32.
         k = audio_lib.ATTN_LIMIT_NOISY_FRAME_OFFSET
         aligned = torch.nn.functional.pad(spec, (0, 0, 0, 0, k, 0))[:, :-k]
-        out = alpha * aligned + (1.0 - alpha) * out
+        out = alpha * aligned.float() + (1.0 - alpha) * out.float()
         y = stft_ops.istft_matmul(out / cfg.wnorm, self._window, cfg.hop, center=True,
                                   idft=self._idft)
         return y[:, 2 * cfg.win_len:]
+
+    def _scale_spec(self, spec: torch.Tensor) -> torch.Tensor:
+        """The float32 spectrum at the compute dtype, times wnorm rounded to
+        that dtype (the JAX package's order: cast, then scale)."""
+        return spec.to(self.compute_dtype) * self._wnorm
 
     # ------------------------------------------------------------------ #
     # Streaming path (sample frames in, overlap-add-ready frames out)
@@ -156,38 +199,45 @@ class Engine:
 
     def _stream_ends(self):
         """(front, back): sample frames ``[B, T, win]`` -> wnorm-scaled spec
-        ``[B, T, F, 2]``, and network output spec -> windowed time frames
-        ``[B, T, win]``.  The rfft pair by default; the DFT / iDFT GEMMs
-        (windows and irfft scaling inside the matrices) under
-        ``DPDFNET_TPU_STREAM_DFT_GEMM``."""
+        ``[B, T, F, 2]`` at the compute dtype, and network output spec ->
+        windowed float32 time frames ``[B, T, win]``.  The rfft pair by
+        default; the DFT / iDFT GEMMs (windows and irfft scaling inside the
+        matrices) under ``DPDFNET_TPU_STREAM_DFT_GEMM``.  The transforms run
+        in float32 (``torch.fft`` takes no bfloat16): the front casts after
+        its transform, the back upcasts before its own."""
         cfg = self.cfg
         window, wnorm, F = self._window, cfg.wnorm, cfg.win_len // 2 + 1
         if _stream_dft_gemm():
             def front(frames):
                 out = frames @ self._dft
-                return torch.stack([out[..., :F], out[..., F:]], dim=-1) * wnorm
+                return self._scale_spec(torch.stack([out[..., :F], out[..., F:]], dim=-1))
 
             def back(out):
-                out = out / wnorm
+                out = out.float() / wnorm
                 return torch.cat([out[..., 0], out[..., 1]], dim=-1) @ self._idft
         else:
             def front(frames):
                 spec = torch.fft.rfft(frames * window, dim=-1)
-                return torch.stack([spec.real, spec.imag], dim=-1) * wnorm
+                return self._scale_spec(torch.stack([spec.real, spec.imag], dim=-1))
 
             def back(out):
-                out = out / wnorm
+                out = out.float() / wnorm
                 y = torch.fft.irfft(torch.complex(out[..., 0], out[..., 1]),
                                     n=cfg.win_len, dim=-1)
                 return y * window
         return front, back
 
     def init_stream_state(self, batch: int = 1):
-        """Fresh state for ``batch`` streams on the engine's device.  Every
-        leaf is float32: the ported tiers compute in f32, so the JAX
-        package's f32 DPRNN hiddens under bf16 planes have no counterpart
-        until the bf16 tiers land."""
-        return state_lib.init_state(self.cfg, batch=batch, device=self.device)
+        """Fresh state for ``batch`` streams on the engine's device, at the
+        compute dtype; under bf16 compute the DPRNN inter-GRU hiddens stay
+        float32 unless ``DPDFNET_TPU_STATE_F32H=0`` (the kernels carry them
+        in float32; the conv tails and delay lines join the bf16 planes)."""
+        st = state_lib.init_state(self.cfg, batch=batch, dtype=self.compute_dtype,
+                                  device=self.device)
+        if self.compute_dtype != torch.float32 and _state_f32_hiddens():
+            for key in ("dprnn_erb", "dprnn_df"):
+                st[key] = [h.float() for h in st[key]]
+        return st
 
     def process_frames(self, frames: np.ndarray, st, mode: str = "exact"):
         """Process ``[B, T, win_len]`` sample frames; returns windowed time
@@ -213,7 +263,7 @@ class Engine:
             return np.zeros((B, 0, self.cfg.win_len), np.float32), st
         front, back = self._stream_ends()
         outs = []
-        with _full_f32(), torch.no_grad():
+        with _math_mode(self.precision), torch.no_grad():
             x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
             if mode == "exact":
                 spans = [(t, 1) for t in range(T)]
@@ -225,7 +275,8 @@ class Engine:
                     pos += step
             for pos, step in spans:
                 out, st, _ = forward_spec(self.params, self.cfg,
-                                          front(x[:, pos:pos + step]), st)
+                                          front(x[:, pos:pos + step]), st,
+                                          precision=self.precision)
                 outs.append(back(out))
             y = torch.cat(outs, dim=1).cpu().numpy()
         return y, st
@@ -258,7 +309,7 @@ class Engine:
         S_pad = self.bucket_len(S)
         xp = np.zeros((B, S_pad), np.float32)
         xp[:, :S] = x
-        with _full_f32():
+        with _math_mode(self.precision):
             y = self._offline(torch.from_numpy(xp).to(self.device), alpha)
         y = y.cpu().numpy()
 

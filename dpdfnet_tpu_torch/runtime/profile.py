@@ -2,13 +2,17 @@
 
     python3 -m dpdfnet_tpu_torch.runtime.profile [--model M] [--batch B] [--seconds S]
     python3 -m dpdfnet_tpu_torch.runtime.profile --stream [--batch B] [--hops N] [--stack]
+    ... [--quality highest|high|fast|turbo] [--v2]
 
 Offline (default): runs ``Engine.enhance_waveforms`` once as a warm-up,
 then once under ``torch.profiler``.  ``--stream``: exact streaming of
 ``--batch`` streams, one ``process_frames`` call per hop as a real-time
 server makes them; 8 warm-up hops, then ``--hops`` hops under the
 profiler.  ``--stack`` sets ``DPDFNET_TPU_STACK=1`` (the DPRNN stack
-kernel) before the engine is built.
+kernel) before the engine is built; ``--quality`` picks the tier
+(``engine_from_quality``, default ``high``) and ``--v2`` sets
+``DPDFNET_TPU_PALLAS_V2=1`` (the inter v2 kernel under ``fast`` /
+``turbo``).
 
 Prints one JSON object: the wall ms of the profiled span (and ms per hop
 when streaming), the summed device ms per kernel family (the port's CUDA
@@ -16,8 +20,8 @@ kernels, convolutions, GEMMs, FFTs, everything else), the device's busy
 share of the wall time, the kernel launches counted by the wrappers, the
 number of device operations (kernels and copies) the span ran, and the
 top kernels by device time.  Needs a CUDA device; random contracted
-weights (``init_params`` + ``contract_params``, seed 0), float32 with TF32
-off.
+weights (``init_params`` + ``contract_params``, seed 0); the tier sets its
+own cuBLAS / cuDNN math mode for each engine call.
 """
 
 from __future__ import annotations
@@ -33,13 +37,16 @@ import numpy as np
 import torch
 
 FAMILIES = (
+    ("dprnn_intra_v2", ("dprnn_intra_v2",)),
+    ("dprnn_inter_v2", ("dprnn_inter_v2",)),
     ("dprnn_intra", ("dprnn_intra",)),
     ("dprnn_inter", ("dprnn_inter",)),
     ("dprnn_stack", ("dprnn_stack",)),
     ("gru_bidir", ("gru_bidir",)),
-    ("gru_scan", ("gru_proj", "gru_recur")),
+    ("gru_scan", ("gru_recur",)),
+    ("proj_gemm", ("proj_gemm",)),
     ("conv", ("conv", "cudnn", "implicit_convolve", "winograd", "fft2d", "xmma_fprop")),
-    ("gemm", ("gemm", "sgemm", "cutlass", "cublas", "matmul", "splitk")),
+    ("gemm", ("gemm", "sgemm", "cutlass", "cublas", "matmul", "splitk", "nvjet")),
     ("fft", ("fft",)),
 )
 
@@ -62,21 +69,28 @@ def main(argv=None) -> int:
     ap.add_argument("--hops", type=int, default=20)
     ap.add_argument("--stack", action="store_true",
                     help="build the engine with DPDFNET_TPU_STACK=1")
+    ap.add_argument("--quality", default="high", choices=("highest", "high", "fast", "turbo"),
+                    help="quality tier (engine_from_quality)")
+    ap.add_argument("--v2", action="store_true",
+                    help="build the engine with DPDFNET_TPU_PALLAS_V2=1")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     torch.set_grad_enabled(False)
     if args.stack:
         os.environ["DPDFNET_TPU_STACK"] = "1"
+    if args.v2:
+        os.environ["DPDFNET_TPU_PALLAS_V2"] = "1"
     from torch.profiler import ProfilerActivity, profile
 
     from ..config import get_config
     from ..models.params import contract_params, init_params
     from ..ops import gru_kernels
-    from .engine import Engine
+    from .engine import engine_from_quality
 
     cfg = get_config(args.model)
-    eng = Engine(cfg, contract_params(init_params(cfg, seed=0, device="cuda")))
+    eng = engine_from_quality(cfg, contract_params(init_params(cfg, seed=0, device="cuda")),
+                              args.quality)
     rng = np.random.default_rng(0)
     if args.stream:
         frames = (0.1 * rng.standard_normal(
@@ -124,6 +138,7 @@ def main(argv=None) -> int:
             if args.stream else {"mode": "offline", "seconds": args.seconds})
     print(json.dumps({
         "model": args.model, "batch": args.batch, **span, "stack": args.stack,
+        "quality": args.quality, "v2": args.v2,
         "card": smi, "wall_ms_profiled": wall_ms, "device_busy_ms": busy,
         "device_busy_share": busy / wall_ms, "launches": launches,
         "device_ops": n_device_ops,

@@ -16,16 +16,7 @@ import numpy as np
 import torch
 
 from .audio import to_mono
-from .utils.tree import tree_map
-
-
-def _map2(fn, a, b):
-    """``fn`` over the leaves of two state dicts of the same structure."""
-    if isinstance(a, dict):
-        return {k: _map2(fn, a[k], b[k]) for k in a}
-    if isinstance(a, list):
-        return [_map2(fn, x, y) for x, y in zip(a, b)]
-    return fn(a, b)
+from .utils.tree import tree_map, tree_map2
 
 
 class MultiStreamEnhancer:
@@ -88,8 +79,8 @@ class MultiStreamEnhancer:
     def _reset_slot(self, sid: int) -> None:
         fresh = self._engine.init_stream_state(batch=1)
         rows = torch.tensor([sid], device=self._engine.device)
-        self._state = _map2(lambda cur, new: cur.index_copy(0, rows, new),
-                            self._state, fresh)
+        self._state = tree_map2(lambda cur, new: cur.index_copy(0, rows, new),
+                                self._state, fresh)
         self._in_buf[sid] = np.zeros(0, np.float32)
         self._ola_tail[sid] = 0.0
 
@@ -151,8 +142,8 @@ class MultiStreamEnhancer:
                 rows = torch.tensor(sids, device=dev)
                 sub = tree_map(lambda _, a: a.index_select(0, idx), self._state)
                 y, sub = self._engine.process_frames(frames, sub, mode=self.mode)
-                self._state = _map2(lambda cur, new: cur.index_copy(0, rows, new[:g]),
-                                    self._state, sub)
+                self._state = tree_map2(lambda cur, new: cur.index_copy(0, rows, new[:g]),
+                                        self._state, sub)
 
             for row, sid in enumerate(sids):
                 yf = y[row]                                       # [n, win]

@@ -16,6 +16,7 @@ import numpy as np
 
 from .audio import ensure_sample_rate, to_mono
 from .models import state as state_lib
+from .utils.tree import tree_map2
 
 
 class StreamEnhancer:
@@ -122,9 +123,12 @@ class StreamEnhancer:
 
     def load_state(self, snapshot: dict) -> None:
         """Restore a snapshot from :meth:`save_state`; the stream continues
-        bit-exactly from where it was saved."""
-        self._state = state_lib.unflatten_state(
+        bit-exactly from where it was saved.  Each leaf comes back at the
+        dtype of the live state's leaf (bfloat16 planes with float32 DPRNN
+        hiddens on the ``turbo`` tier), as the un-interrupted stream has it."""
+        st = state_lib.unflatten_state(
             self._engine.cfg, snapshot["model_state"], batch=1, device=self._engine.device)
+        self._state = tree_map2(lambda new, live: new.to(live.dtype), st, self._state)
         self._in_buf = np.asarray(snapshot["in_buf"], np.float32).copy()
         self._ola_tail = np.asarray(snapshot["ola_tail"], np.float32).copy()
         self._input_sr = snapshot["input_sr"]

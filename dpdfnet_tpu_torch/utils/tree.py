@@ -17,6 +17,15 @@ def tree_map(fn: Callable, tree, path: str = ""):
     return fn(path[:-1], tree)
 
 
+def tree_map2(fn: Callable, a, b):
+    """Apply ``fn(leaf_a, leaf_b)`` over two trees of the same structure."""
+    if isinstance(a, dict):
+        return {k: tree_map2(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return [tree_map2(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
+
+
 def tree_leaves(tree, path: str = "") -> Iterator[Tuple[str, object]]:
     """Yield ``(path, leaf)`` in insertion order, skipping ``None``."""
     if tree is None:

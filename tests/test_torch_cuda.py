@@ -9,6 +9,14 @@ runs on a machine with a card and no JAX (``--noconftest`` skips
 
 Tolerance 1e-4 max-abs: the same float32 arithmetic summed in another
 order (see ``chip_smoke.py``, which also checks the flagship shapes).
+bfloat16 planes: both sides compute in float32 and round the plane once,
+so a float32 difference of ~1e-7 can flip one rounding: the bound is 1e-4
+plus one bfloat16 ulp of the plain value
+(``gru_kernels.err_beyond_bf16_ulp``).  Intra v2 with bfloat16 input
+projections (``xp_bf16``) is held to 1e-4 on inputs whose products
+``x . wi_cat`` are exact in float32 in any summation order
+(``chip_smoke.on_grid``), so the kernel and torch.matmul round the same
+values to bfloat16.
 """
 
 import numpy as np
@@ -17,8 +25,15 @@ import torch
 
 from dpdfnet_tpu_torch.models.fuse import _pack_bidir, pack_stack
 from dpdfnet_tpu_torch.ops import gru_kernels
+from chip_smoke import on_grid
 
 TOL = 1e-4
+BF16 = torch.bfloat16
+
+
+def _close(got, ref):
+    """Max-abs within TOL, plus one bfloat16 ulp where the plane is bf16."""
+    assert gru_kernels.err_beyond_bf16_ulp(got, ref) < TOL
 
 
 def _gru(rng, I, H, dev):
@@ -153,3 +168,171 @@ def test_cuda_exact_streaming_is_bit_invariant_to_chunking(dev, monkeypatch, sta
     assert np.isfinite(outs[0]).all()
     for y in outs[1:]:
         np.testing.assert_array_equal(y, outs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,Fq", [(30, 40), (7, 48)])
+def test_cuda_intra_bf16_plane_matches_plain(dev, N, Fq):
+    rng = np.random.default_rng(12)
+    C = 64
+    wi2, wh2, b2 = _pack_bidir(_gru(rng, C, C, dev), _gru(rng, C, C, dev))
+    epi = (_rand(rng, (2 * C, C), dev, 0.3), _rand(rng, (C,), dev, 0.1),
+           1.0 + _rand(rng, (C,), dev, 0.5), _rand(rng, (C,), dev, 0.1))
+    x = _rand(rng, (N, Fq, C), dev).to(BF16)
+    gru_kernels.reset_launch_counts()
+    got = gru_kernels.dprnn_intra_block(x, wi2, wh2, b2, *epi)
+    assert gru_kernels.launch_counts()["dprnn_intra_block"] == 1
+    _close(got, gru_kernels.dprnn_intra_block_plain(x, wi2, wh2, b2, *epi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Fq", [(3, 10, 40), (1, 7, 48)])
+def test_cuda_inter_bf16_plane_matches_plain(dev, B, T, Fq):
+    rng = np.random.default_rng(13)
+    C = 64
+    p = _gru(rng, C, C, dev)
+    args = (p["wi"], p["bi"], p["wh"], p["bh"], _rand(rng, (C, C), dev, 0.3),
+            _rand(rng, (C,), dev, 0.1), 1.0 + _rand(rng, (C,), dev, 0.5),
+            _rand(rng, (C,), dev, 0.1))
+    x = _rand(rng, (B, T, Fq, C), dev).to(BF16)
+    h0 = _rand(rng, (B, Fq, C), dev, 0.2)
+    out, hl = gru_kernels.dprnn_inter_block(x, h0, *args)
+    ref, hl_ref = gru_kernels.dprnn_inter_block_plain(x, h0, *args)
+    _close(out, ref)
+    _close(hl, hl_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_gru_scan_bf16_plane_matches_plain(dev, reverse):
+    rng = np.random.default_rng(14)
+    p = _gru(rng, 256, 256, dev)
+    x = _rand(rng, (5, 9, 256), dev).to(BF16)
+    h0 = _rand(rng, (5, 256), dev, 0.2)
+    ys, hl = gru_kernels.gru_scan(x, h0, p["wi"], p["bi"], p["wh"], p["bh"], reverse=reverse)
+    ys_ref, hl_ref = gru_kernels.gru_scan_plain(x, h0, p["wi"], p["bi"], p["wh"], p["bh"],
+                                                reverse=reverse)
+    _close(ys, ys_ref)
+    _close(hl, hl_ref)
+
+
+@pytest.mark.cuda
+def test_cuda_gru_bidir_and_stack_bf16_plane_match_plain(dev):
+    rng = np.random.default_rng(15)
+    C = 64
+    w = _pack_bidir(_gru(rng, C, C, dev), _gru(rng, C, C, dev))
+    x = _rand(rng, (9, 40, C), dev).to(BF16)
+    for a, b in zip(gru_kernels.gru_bidir(x, *w), gru_kernels.gru_bidir_plain(x, *w)):
+        _close(a, b)
+    stacked = _stacked(rng, 2, C, dev)
+    x = _rand(rng, (3, 2, 48, C), dev).to(BF16)
+    h0 = _rand(rng, (2, 3, 48, C), dev, 0.2)
+    out, hl = gru_kernels.dprnn_stack(x, h0, stacked)
+    ref, hl_ref = gru_kernels.dprnn_stack_plain(x, h0, stacked)
+    _close(out, ref)
+    _close(hl, hl_ref)
+
+
+def _intra_v2_args(rng, C, dev):
+    wi2, wh2, b2 = _pack_bidir(_gru(rng, C, C, dev), _gru(rng, C, C, dev))
+    wfc = _rand(rng, (2 * C, C), dev, 0.3)
+    wi_cat, wh_big = gru_kernels.pack_intra_v2(wi2, wh2, wfc)
+    return (wi_cat, wh_big, b2, _rand(rng, (C,), dev, 0.1), 1.0 + _rand(rng, (C,), dev, 0.5),
+            _rand(rng, (C,), dev, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("N,L", [(30, 40), (7, 48), (200, 8)])
+def test_cuda_intra_v2_matches_plain(dev, N, L, plane):
+    """f32 input projections: the 1e-4 bound (one bf16 ulp more for a
+    bf16 plane).  bf16 projections: the same bound, on x on a 2^-5 grid in
+    [-1.875, 1.875] and wi_cat, b2 on a 2^-10 grid in [-0.5, 0.5], so that
+    every partial sum of ``x . wi_cat + b2[0]`` is exact in float32; there
+    the rounding of xp itself moves the plain output by more than 10x the
+    bound, so the check tells the two modes apart."""
+    rng = np.random.default_rng(16)
+    args = _intra_v2_args(rng, 64, dev)
+    x = _rand(rng, (N, L, 64), dev).to(plane)
+    gru_kernels.reset_launch_counts()
+    got = gru_kernels.dprnn_intra_block_v2(x, *args, xp_bf16=False)
+    _close(got, gru_kernels.dprnn_intra_block_v2_plain(x, *args, xp_bf16=False))
+    xg = on_grid(x.float(), 2.0 ** -5, 1.875).to(plane)
+    wi_cat, wh_big, b2 = args[:3]
+    gargs = (on_grid(wi_cat, 2.0 ** -10, 0.5), wh_big, on_grid(b2, 2.0 ** -10, 0.5), *args[3:])
+    got = gru_kernels.dprnn_intra_block_v2(xg, *gargs)
+    ref = gru_kernels.dprnn_intra_block_v2_plain(xg, *gargs)
+    _close(got, ref)
+    moved = gru_kernels.dprnn_intra_block_v2_plain(xg, *gargs, xp_bf16=False)
+    assert (moved.float() - ref.float()).abs().max().item() > 10 * TOL
+    assert gru_kernels.launch_counts()["dprnn_intra_block_v2"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xp_dtype,plane", [(BF16, torch.float32), (BF16, BF16),
+                                            (torch.float32, torch.float32)])
+@pytest.mark.parametrize("B,T,Fq", [(3, 10, 40), (1, 7, 48), (64, 1, 48)])
+def test_cuda_inter_v2_matches_plain(dev, B, T, Fq, xp_dtype, plane):
+    rng = np.random.default_rng(17)
+    C = 64
+    p = _gru(rng, C, C, dev)
+    whfc = torch.cat([p["wh"], _rand(rng, (C, C), dev, 0.3)], dim=1)
+    epi = (_rand(rng, (C,), dev, 0.1), 1.0 + _rand(rng, (C,), dev, 0.5),
+           _rand(rng, (C,), dev, 0.1))
+    x = _rand(rng, (B, T, Fq, C), dev).to(plane)
+    xp = (x.float() @ p["wi"] + p["bi"]).to(xp_dtype)
+    h0 = _rand(rng, (B, Fq, C), dev, 0.2)
+    gru_kernels.reset_launch_counts()
+    out, hl = gru_kernels.dprnn_inter_block_v2(xp, x, h0, whfc, p["bh"], *epi)
+    assert gru_kernels.launch_counts()["dprnn_inter_block_v2"] == 1
+    ref, hl_ref = gru_kernels.dprnn_inter_block_v2_plain(xp, x, h0, whfc, p["bh"], *epi)
+    _close(out, ref)
+    _close(hl, hl_ref)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_other_dtypes(dev):
+    """A CUDA plane reaches its kernel or raises: float16 planes and bf16
+    weights or hiddens are refused, never cast."""
+    rng = np.random.default_rng(18)
+    p = _gru(rng, 64, 64, dev)
+    x = _rand(rng, (2, 3, 64), dev)
+    h0 = _rand(rng, (2, 64), dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gru_kernels.gru_scan(x.half(), h0, p["wi"], p["bi"], p["wh"], p["bh"])
+    with pytest.raises(ValueError, match="takes float32"):
+        gru_kernels.gru_scan(x.to(BF16), h0.to(BF16), p["wi"], p["bi"], p["wh"], p["bh"])
+    with pytest.raises(ValueError, match="takes float32"):
+        gru_kernels.gru_scan(x, h0, p["wi"].to(BF16), p["bi"], p["wh"], p["bh"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", ["fast", "turbo"])
+def test_cuda_exact_streaming_bf16_tiers_bit_invariant(dev, monkeypatch, quality):
+    """Exact mode of the fast / turbo engines on the card (turbo with the
+    v2 inter kernel): the same frames cut three ways give the same bits,
+    and the tier's TF32 setting does not outlive the calls."""
+    from dpdfnet_tpu_torch import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    monkeypatch.setenv("DPDFNET_TPU_PALLAS_V2", "1" if quality == "turbo" else "0")
+    cfg = get_config("dpdfnet2")
+    eng = engine_from_quality(cfg, contract_params(init_params(cfg, seed=0, device=dev)),
+                              quality, device=dev)
+    frames = (0.1 * np.random.default_rng(19).normal(size=(3, 9, cfg.win_len))).astype(np.float32)
+    outs = []
+    gru_kernels.reset_launch_counts()
+    for cuts in ([9], [1] * 9, [2, 4, 3]):
+        st, ys, pos = eng.init_stream_state(batch=3), [], 0
+        for n in cuts:
+            y, st = eng.process_frames(frames[:, pos:pos + n], st)
+            ys.append(y)
+            pos += n
+        outs.append(np.concatenate(ys, axis=1))
+    counts = gru_kernels.launch_counts()
+    assert counts["dprnn_inter_block_v2" if quality == "turbo" else "dprnn_inter_block"] > 0
+    assert np.isfinite(outs[0]).all()
+    for y in outs[1:]:
+        np.testing.assert_array_equal(y, outs[0])
+    assert not torch.backends.cuda.matmul.allow_tf32

@@ -66,15 +66,22 @@ def test_engine_segments_match_single_span():
 
 
 def test_engine_rejects_unported_tiers():
+    """Every tier of the JAX table builds (the bf16 tiers since their port);
+    an unknown tier or precision and the unported progress path raise."""
     cfg = get_config("dpdfnet2")
     params = params_from_jax(_jax_params_np("dpdfnet2"), device="cpu")
-    for q in ("fast", "turbo"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine_from_quality(cfg, params, q, device="cpu")
+    with pytest.raises(ValueError, match="Unknown quality"):
+        engine_from_quality(cfg, params, "ultra", device="cpu")
+    with pytest.raises(ValueError, match="precision"):
+        Engine(cfg, params, precision="tf32", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(cfg, params, device="cpu").enhance_waveforms(
             np.zeros(1600, np.float32), progress_callback=lambda *a: None)
     assert engine_from_quality(cfg, params, "high", device="cpu").precision == "high"
+    fast = engine_from_quality(cfg, params, "fast", device="cpu")
+    turbo = engine_from_quality(cfg, params, "turbo", device="cpu")
+    assert (fast.precision, fast.compute_dtype) == ("default", torch.float32)
+    assert (turbo.precision, turbo.compute_dtype) == ("default", torch.bfloat16)
 
 
 def test_engine_unfused_matches_jax_unfused():

@@ -143,7 +143,8 @@ def test_launch_counters_count_only_kernel_launches():
     gru_kernels.gru_bidir(torch.zeros(2, 3, 8), *_pack_bidir(p, p))
     assert gru_kernels.launch_counts() == {
         "dprnn_intra_block": 0, "dprnn_inter_block": 0, "gru_scan": 0,
-        "gru_bidir": 0, "dprnn_stack": 0}
+        "gru_bidir": 0, "dprnn_stack": 0, "dprnn_intra_block_v2": 0,
+        "dprnn_inter_block_v2": 0}
 
 
 def test_wrappers_reject_non_cpu_non_cuda_devices():
@@ -270,3 +271,168 @@ def test_stacked_forward_spec_matches_jax(monkeypatch):
     lj = {k: np.asarray(v) for k, v in tree_leaves(st_j)}
     for k, v in tree_leaves(st_t):
         np.testing.assert_allclose(v.numpy(), lj[k], atol=3e-5, err_msg=k)
+
+
+# --------------------------------------------------------------------------- #
+# The v2 DPRNN kernels and the bfloat16-plane modes
+# --------------------------------------------------------------------------- #
+
+BF16 = torch.bfloat16
+
+
+def _bf16_np(a):
+    """float32 numpy values rounded to bfloat16 (still float32 numpy)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(BF16).float().numpy()
+
+
+def _assert_bf16_close(got, ref, atol=ATOL):
+    """``got`` a bfloat16 tensor, ``ref`` a bfloat16 JAX array.  Both sides
+    round a float32 result to bfloat16 once; a float32 difference of ~1e-7
+    can flip one rounding, so the bound is ``atol`` plus one bfloat16 ulp of
+    the reference (``gru_kernels.err_beyond_bf16_ulp``)."""
+    ref = torch.from_numpy(np.asarray(ref.astype(jnp.float32))).to(BF16)
+    assert gru_kernels.err_beyond_bf16_ulp(got, ref) < atol
+
+
+@pytest.mark.parametrize("xp_bf16", [False, True])
+@pytest.mark.parametrize("B,T,Fq,C", [(2, 9, 7, 8), (3, 4, 5, 16)])
+def test_dprnn_inter_v2_plain_matches_pallas(B, T, Fq, C, xp_bf16):
+    """``dprnn_inter_block_v2_plain`` against ``pallas_gru.dprnn_inter_block_v2``
+    (interpret mode) on the same precomputed projections, float32 or
+    rounded to bfloat16 as the model stores them: atol 1e-5, both sides
+    consume identical xp values."""
+    rng = np.random.default_rng(21)
+    p = _gru_np(rng, C, C)
+    wfc, bfc, g, bln = _epi_np(rng, C, C)
+    whfc = np.concatenate([p["wh"], wfc], axis=1)
+    x = rng.normal(size=(B, T, Fq, C)).astype(np.float32)
+    h0 = rng.normal(size=(B, Fq, C)).astype(np.float32) * 0.2
+    xp = x @ p["wi"] + p["bi"]
+    if xp_bf16:
+        xp = _bf16_np(xp)
+
+    def tm(a):
+        return jnp.asarray(np.transpose(a, (1, 0, 2, 3)).reshape(T, B * Fq, -1))
+
+    ref, hl_ref = pallas_gru.dprnn_inter_block_v2(
+        tm(xp).astype(jnp.bfloat16) if xp_bf16 else tm(xp), tm(x),
+        jnp.asarray(h0.reshape(B * Fq, C)), jnp.asarray(whfc), jnp.asarray(p["bh"]),
+        jnp.asarray(bfc), jnp.asarray(g), jnp.asarray(bln), precision="highest",
+        interpret=True)
+    got_xp = _t(xp).to(BF16) if xp_bf16 else _t(xp)
+    out, hl = gru_kernels.dprnn_inter_block_v2(got_xp, _t(x), _t(h0), _t(whfc), _t(p["bh"]),
+                                               _t(bfc), _t(g), _t(bln))
+    ref4 = np.transpose(np.asarray(ref).reshape(T, B, Fq, C), (1, 0, 2, 3))
+    np.testing.assert_allclose(out.numpy(), ref4, atol=ATOL)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(hl_ref).reshape(B, Fq, C), atol=ATOL)
+
+
+@pytest.mark.parametrize("xp_bf16,atol", [(False, 1e-5), (True, 2e-3)])
+@pytest.mark.parametrize("N,L,C", [(10, 13, 8), (6, 8, 16)])
+def test_dprnn_intra_v2_plain_matches_pallas(N, L, C, xp_bf16, atol):
+    """``dprnn_intra_block_v2_plain`` against ``pallas_gru.dprnn_intra_block_v2``
+    (interpret mode), with ``pack_intra_v2`` equal on both sides.  f32
+    projections: atol 1e-5.  bf16 projections: the two sides sum
+    ``x . wi_cat`` in different orders before rounding to bfloat16, so a
+    value near a rounding midpoint can land one bf16 ulp apart and move the
+    recurrence; measured max-abs 4e-4 over these cases, bound 2e-3."""
+    rng = np.random.default_rng(22)
+    p_fw, p_bw = _gru_np(rng, C, C), _gru_np(rng, C, C)
+    wfc, bfc, g, bln = _epi_np(rng, 2 * C, C)
+    x = rng.normal(size=(N, L, C)).astype(np.float32)
+
+    wi2j, wh2j, b2j = pallas_gru._pack_bidir(_jp(p_fw), _jp(p_bw), jnp.float32)
+    wi_cat_j, wh_big_j = pallas_gru.pack_intra_v2({"wi2": wi2j, "wh2": wh2j}, jnp.asarray(wfc))
+    ref = pallas_gru.dprnn_intra_block_v2(
+        jnp.asarray(x), wi_cat_j, wh_big_j, b2j, jnp.asarray(bfc), jnp.asarray(g),
+        jnp.asarray(bln), precision="highest", interpret=True, xp_bf16=xp_bf16)
+
+    wi2, wh2, b2 = _pack_bidir(_tp(p_fw), _tp(p_bw))
+    wi_cat, wh_big = gru_kernels.pack_intra_v2(wi2, wh2, _t(wfc))
+    np.testing.assert_array_equal(wi_cat.numpy(), np.asarray(wi_cat_j))
+    np.testing.assert_array_equal(wh_big.numpy(), np.asarray(wh_big_j))
+    got = gru_kernels.dprnn_intra_block_v2(_t(x), wi_cat, wh_big, b2, _t(bfc), _t(g), _t(bln),
+                                           xp_bf16=xp_bf16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=atol)
+    # without the xp rounding, v2 is v1's function
+    v1 = gru_kernels.dprnn_intra_block(_t(x), wi2, wh2, b2, _t(wfc), _t(bfc), _t(g), _t(bln))
+    if not xp_bf16:
+        np.testing.assert_allclose(got.numpy(), v1.numpy(), atol=ATOL)
+
+
+def test_bf16_plane_intra_inter_match_pallas():
+    """bfloat16 planes into the v1 intra and inter kernels: the Pallas
+    kernels and the plain versions both upcast, compute in float32 and round
+    the plane once (h_last stays float32), so the bound is 1e-5 plus one
+    bf16 ulp of the output."""
+    rng = np.random.default_rng(23)
+    C, N, Fq, B, T = 8, 12, 16, 2, 5
+    p_fw, p_bw = _gru_np(rng, C, C), _gru_np(rng, C, C)
+    wfc, bfc, g, bln = _epi_np(rng, 2 * C, C)
+    x = _bf16_np(rng.normal(size=(N, Fq, C)).astype(np.float32))
+    wi2j, wh2j, b2j = pallas_gru._pack_bidir(_jp(p_fw), _jp(p_bw), jnp.float32)
+    ref = pallas_gru.dprnn_intra_block(
+        jnp.asarray(x, jnp.bfloat16), wi2j, wh2j, b2j, jnp.asarray(wfc), jnp.asarray(bfc),
+        jnp.asarray(g), jnp.asarray(bln), precision="highest", interpret=True)
+    got = gru_kernels.dprnn_intra_block(_t(x).to(BF16), *_pack_bidir(_tp(p_fw), _tp(p_bw)),
+                                        _t(wfc), _t(bfc), _t(g), _t(bln))
+    assert got.dtype == BF16 and ref.dtype == jnp.bfloat16
+    _assert_bf16_close(got, ref)
+
+    p = _gru_np(rng, C, C)
+    wfc, bfc, g, bln = _epi_np(rng, C, C)
+    x = _bf16_np(rng.normal(size=(B, T, Fq, C)).astype(np.float32))
+    h0 = rng.normal(size=(B, Fq, C)).astype(np.float32) * 0.2
+    x_tm = np.transpose(x, (1, 0, 2, 3)).reshape(T, B * Fq, C)
+    ref, hl_ref = pallas_gru.dprnn_inter_block(
+        jnp.asarray(x_tm, jnp.bfloat16), jnp.asarray(h0.reshape(B * Fq, C)),
+        *(jnp.asarray(p[k]) for k in ("wi", "bi", "wh", "bh")),
+        jnp.asarray(wfc), jnp.asarray(bfc), jnp.asarray(g), jnp.asarray(bln),
+        precision="highest", interpret=True)
+    tp = _tp(p)
+    out, hl = gru_kernels.dprnn_inter_block(_t(x).to(BF16), _t(h0), tp["wi"], tp["bi"],
+                                            tp["wh"], tp["bh"], _t(wfc), _t(bfc), _t(g), _t(bln))
+    assert out.dtype == BF16 and hl.dtype == torch.float32
+    _assert_bf16_close(out, jnp.transpose(ref.reshape(T, B, Fq, C), (1, 0, 2, 3)))
+    np.testing.assert_allclose(hl.numpy(), np.asarray(hl_ref).reshape(B, Fq, C), atol=ATOL)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_bf16_plane_gru_scan_matches_pallas(reverse):
+    """bfloat16 x into ``gru_scan``.  The Pallas kernel then runs in
+    bfloat16 throughout (weights and the carried hidden rounded to bf16
+    each step); the port keeps float32 weights and hidden and rounds only
+    ys.  Measured max-abs 1.6e-2 on ys and h_last here; bound 4e-2."""
+    rng = np.random.default_rng(24)
+    N, T, I, H = 6, 12, 16, 16
+    p = _gru_np(rng, I, H)
+    x = _bf16_np(rng.normal(size=(N, T, I)).astype(np.float32))
+    h0 = _bf16_np(rng.normal(size=(N, H)).astype(np.float32) * 0.2)
+    ys_ref, hl_ref = pallas_gru.gru_scan_tm(
+        jnp.swapaxes(jnp.asarray(x, jnp.bfloat16), 0, 1), jnp.asarray(h0, jnp.bfloat16),
+        *(jnp.asarray(p[k]) for k in ("wi", "bi", "wh", "bh")),
+        reverse=reverse, precision="highest", interpret=True)
+    tp = _tp(p)
+    ys, hl = gru_kernels.gru_scan(_t(x).to(BF16), _t(h0), tp["wi"], tp["bi"], tp["wh"],
+                                  tp["bh"], reverse=reverse)
+    assert ys.dtype == BF16 and hl.dtype == torch.float32
+    ys_ref = np.swapaxes(np.asarray(ys_ref.astype(jnp.float32)), 0, 1)
+    np.testing.assert_allclose(ys.float().numpy(), ys_ref, atol=4e-2)
+    np.testing.assert_allclose(hl.numpy(), np.asarray(hl_ref.astype(jnp.float32)), atol=4e-2)
+
+
+def test_bf16_planes_run_float32_math():
+    """Every plain version takes a bfloat16 plane, computes on its float32
+    upcast and rounds its plane output once; carried hiddens come back
+    float32."""
+    rng = np.random.default_rng(25)
+    C = 8
+    p = _tp(_gru_np(rng, C, C))
+    x = torch.from_numpy(rng.normal(size=(2, 5, 3, C)).astype(np.float32)).to(BF16)
+    h0 = torch.zeros(2, 3, C)
+    epi = tuple(_t(a) for a in _epi_np(rng, C, C))
+    out, hl = gru_kernels.dprnn_inter_block(x, h0, p["wi"], p["bi"], p["wh"], p["bh"], *epi)
+    ref, hl_ref = gru_kernels.dprnn_inter_block(x.float(), h0, p["wi"], p["bi"], p["wh"],
+                                                p["bh"], *epi)
+    assert out.dtype == BF16 and hl.dtype == torch.float32
+    assert torch.equal(out, ref.to(BF16)) and torch.equal(hl, hl_ref)
