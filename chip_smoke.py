@@ -42,7 +42,27 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    its state), ``StreamEnhancer`` /
    ``MultiStreamEnhancer`` on a ``turbo`` engine, offline xRT per tier and
    exact / throughput ms per hop for ``highest`` against ``turbo``;
-11. one JSON line listing the kernels, then the final JSON status line.
+11. ``relayout_fm`` (the freq-major chain's entry permute) against its
+   plain version, bit-exact, at [64, 112, 40 and 48, 64] float32 to float32
+   and to bfloat16 and at two odd shapes, with kernel, bound, plain and
+   ``permute().contiguous()`` times;
+12. every kernel on the shared walk with its layout modes off, bit-identical
+   to the committed digests of the kernels before the modes were added
+   (``tools/mode_off_digest.py``); the fm layout modes of the intra and
+   inter kernels (``fm_batch``, ``h_bm``, ``defer``) against their plain
+   versions at B=64 x 112 frames, each fused mode bit-identical to the
+   row-major mode on the same rows, and both DPRNN stacks through the fm
+   chain bit-identical to the row-major chain;
+13. the fm chain on the main path: launches per 112-frame segment with
+   ``DPDFNET_TPU_ENTRY_RELAYOUT=1`` (``relayout_fm`` 2 per segment), card
+   against CPU at B=32 x 1 s, exact streaming at 64 streams bit-identical
+   across chunkings and within KERNEL_TOL of the row-major chain, and the A/B: offline xRT at B=64 x 4 s and exact ms
+   per hop at 64 streams with the chain off, on, and on with the entry
+   relayout, in ``highest`` and ``turbo``, interleaved call by call;
+14. both step-ablation tools (``dpdfnet_tpu_torch.tools``): every
+   specialization against its plain version at a small size and at the JAX
+   tools' default shapes, then one timing pass of every variant there;
+15. one JSON line listing the kernels, then the final JSON status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
 ``dpdfnet_tpu_torch`` package beside it.
@@ -113,6 +133,8 @@ def log(msg: str) -> None:
 
 STACK = "DPDFNET_TPU_STACK"      # read where weights are packed and at each call
 V2 = "DPDFNET_TPU_PALLAS_V2"     # the same, under the fast / turbo tiers
+TM = "DPDFNET_TPU_INTRA_TM"      # the freq-major DPRNN chain (default off here), read per call
+ENTRY = "DPDFNET_TPU_ENTRY_RELAYOUT"   # its entry permute through relayout_fm (default off)
 
 
 @contextlib.contextmanager
@@ -200,10 +222,8 @@ def check(name: str, got, ref) -> float:
 
 
 def check_bf16(name: str, got, ref) -> float:
-    """A bf16-plane mode against its plain version: returns the max-abs
-    error; fails where it exceeds KERNEL_TOL plus one bf16 ulp of the plain
-    value (``gru_kernels.err_beyond_bf16_ulp``; float32 outputs, such as
-    h_last, get no ulp)."""
+    """A bf16-plane mode against its plain version under
+    ``gru_kernels.err_beyond_bf16_ulp``: returns the max-abs error."""
     from dpdfnet_tpu_torch.ops.gru_kernels import err_beyond_bf16_ulp
 
     got = got if isinstance(got, (tuple, list)) else (got,)
@@ -878,6 +898,363 @@ def tier_phase(cfg, params, cpu_params, gk, smi, rng, wavs, lengths):
     return v2_counts
 
 
+def relayout_phase(gk):
+    """relayout_fm against its plain version, bit-exact; times at every
+    shape.  Returns the kernel-line numbers at [64, 112, 48, 64] f32."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    row = None
+    for shape, src, dst in (((64, 112, 40, 64), f32, f32), ((64, 112, 48, 64), f32, f32),
+                            ((64, 112, 40, 64), f32, bf16), ((64, 112, 48, 64), f32, bf16),
+                            ((5, 7, 13, 6), f32, bf16), ((3, 9, 11, 64), bf16, f32)):
+        x = torch.randn(shape, generator=g, device="cuda").to(src)
+        got = gk.relayout_fm(x, out_dtype=dst)
+        ref = gk.relayout_fm_plain(x, dst)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"relayout_fm {shape} {src} -> {dst} differs from its plain "
+                                 f"version by {(got.float() - ref.float()).abs().max():.3e}")
+        out = torch.empty_like(ref)
+        xp = x.permute(2, 1, 0, 3)
+        ms = cuda_ms(lambda: gk.relayout_fm(x, out_dtype=dst), 20)
+        plain_ms = cuda_ms(lambda: gk.relayout_fm_plain(x, dst), 20)
+        lib_ms = cuda_ms((lambda: xp.contiguous()) if src == dst else (lambda: out.copy_(xp)), 20)
+        b_ms, b_by = bound(0, x.numel() * (x.element_size() + ref.element_size()))
+        log(f"kernel relayout_fm x[{','.join(map(str, shape))}] {str(src)[6:]} -> "
+            f"{str(dst)[6:]}: bit-exact (max_abs 0); ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms {lib_ms:.4f} ({'permute().contiguous()' if src == dst else 'copy_ of the permuted view'}) "
+            f"bound_ms {b_ms:.4f} ({b_by}; {b_ms / ms:.2f} of it)")
+        if shape == (64, 112, 48, 64) and src == dst:
+            row = dict(err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                       bound_by=b_by)
+    return row
+
+
+def mode_off_phase(gk):
+    """Every kernel on the shared walk (DPRNN intra / inter and their v2
+    forms, gru_scan, gru_bidir, the stack) with its layout modes off,
+    against the committed digests of the kernels before the modes were
+    added (``tools/mode_off_digests.json``): bit-identical outputs."""
+    from dpdfnet_tpu_torch.tools import mode_off_digest as mod
+
+    record = json.loads(mod.RECORD.read_text())
+    here = mod.toolchain()
+    bad = mod.compare(mod.kernel_digests(gk), record, here)
+    if bad:
+        raise AssertionError("mode off: not bit-identical to the kernels before the layout "
+                             "modes:\n  " + "\n  ".join(bad))
+    log(f"mode off: {len(record['digests'])} cases of the walk kernels bit-identical (SHA-256 "
+        f"of their outputs, max_abs 0) to the record of the kernels before the layout modes "
+        f"({json.dumps(record['toolchain'])})")
+
+
+def fm_modes_phase(params, cfg, gk):
+    """The intra / inter kernels' fm layout modes at B=64 x 112 frames, Fq
+    48: against the plain versions, fused modes bit-identical to the
+    row-major mode on the same rows, and both DPRNN stacks bit-identical
+    through the fm chain and the row-major chain.  Returns kernel-line rows."""
+    from dpdfnet_tpu_torch.models import dpdfnet as tmd
+
+    B, T, C, Fq = 64, 112, cfg.conv_ch, cfg.dprnn_df_feat
+    g = torch.Generator(device="cuda").manual_seed(4)
+    blk = params["enc"]["dprnn_df"][0]
+    intra, inter = blk["intra"], blk["inter"]
+    pk, gw = intra["packed"], inter["gru"]
+    ia = (pk["wi2"], pk["wh2"], pk["b2"], intra["fc"]["w"], intra["fc"]["b"],
+          intra["ln"]["g"], intra["ln"]["b"])
+    ea = (gw["wi"], gw["bi"], gw["wh"], gw["bh"], inter["fc"]["w"], inter["fc"]["b"],
+          inter["ln"]["g"], inter["ln"]["b"])
+    rows = {}
+    x4 = torch.randn((B, T, Fq, C), generator=g, device="cuda")
+
+    # ---- intra, fm_batch ----
+    plane = x4.permute(2, 1, 0, 3).reshape(Fq, T * B, C).contiguous()
+    got = gk.dprnn_intra_block(plane, *ia, fm_batch=B)
+    err = check("dprnn_intra_block fm_batch", got,
+                gk.dprnn_intra_block_plain(plane, *ia, fm_batch=B))
+    rm_in = x4.transpose(0, 1).reshape(T * B, Fq, C).contiguous()
+    rm = gk.dprnn_intra_block(rm_in, *ia)
+    if not torch.equal(got, rm.reshape(T, B, Fq, C).transpose(1, 2)):
+        raise AssertionError("dprnn_intra_block: the fm mode is not bit-identical to the "
+                             "row-major mode")
+    err_b = check_bf16("dprnn_intra_block fm_batch bf16 plane",
+                       gk.dprnn_intra_block(plane.to(torch.bfloat16), *ia, fm_batch=B),
+                       gk.dprnn_intra_block_plain(plane.to(torch.bfloat16), *ia, fm_batch=B))
+    ms = cuda_ms(lambda: gk.dprnn_intra_block(plane, *ia, fm_batch=B))
+    ms_rm = cuda_ms(lambda: gk.dprnn_intra_block(rm_in, *ia))
+    plain_ms = cuda_ms(lambda: gk.dprnn_intra_block_plain(plane, *ia, fm_batch=B), 3)
+    lib_gru = gru_module(intra["fw"]["wi"], intra["fw"]["bi"], intra["fw"]["wh"],
+                         intra["fw"]["bh"], bidir=intra["bw"])
+    lib_in = plane.transpose(0, 1)
+
+    def lib_intra():
+        ys, _ = lib_gru(lib_in)
+        return lib_in + torch.nn.functional.layer_norm(
+            torch.nn.functional.linear(ys, intra["fc"]["w"].T, intra["fc"]["b"]),
+            (C,), intra["ln"]["g"], intra["ln"]["b"], 1e-5)
+
+    lib_ms = cuda_ms(lib_intra)
+    n = B * T * Fq
+    b_ms, b_by = bound(28 * C * C * n, 2 * C * 4 * n + 4 * sum(t.numel() for t in ia))
+    rows["dprnn_intra_block_tm"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel dprnn_intra_block fm_batch={B} x[{Fq},{T * B},{C}] -> [{T},{Fq},{B},{C}]: "
+        f"max_abs {err:.3e} (bf16 plane {err_b:.3e}; tol {KERNEL_TOL:.0e}), bit-identical to "
+        f"the row-major mode; ms {ms:.4f} (row-major {ms_rm:.4f}) plain_ms {plain_ms:.4f} "
+        f"library_ms {lib_ms:.4f} (cuDNN bidir GRU + linear + LN) bound_ms {b_ms:.4f} ({b_by})")
+
+    # ---- inter, fm_batch x h_bm x defer ----
+    x_fm = got.reshape(T, Fq * B, C)
+    h4 = torch.randn((B, Fq, C), generator=g, device="cuda") * 0.5
+    h_rows = h4.transpose(0, 1).reshape(Fq * B, C).contiguous()
+    x_fm_out = x_fm.reshape(T, Fq, B, C).transpose(0, 1)
+    rm_x = x_fm.reshape(T, Fq, B, C).permute(2, 0, 1, 3).contiguous()
+    rm_out, rm_hl = gk.dprnn_inter_block(rm_x, h4, *ea, defer=False)
+    ms_rm = cuda_ms(lambda: gk.dprnn_inter_block(rm_x, h4, *ea, defer=False))
+    for h_bm in (False, True):
+        for defer in (False, True):
+            h0 = h4 if h_bm else h_rows
+            out, hl = gk.dprnn_inter_block(x_fm, h0, *ea, fm_batch=B, h_bm=h_bm, defer=defer)
+            ref, hl_ref = gk.dprnn_inter_block_plain(x_fm, h0, *ea, fm_batch=B, h_bm=h_bm,
+                                                     defer=defer)
+            if defer:
+                ref = gk.inter_tail(ref, x_fm_out, *ea[4:])
+            err = check(f"dprnn_inter_block fm h_bm={h_bm} defer={defer}", (out, hl),
+                        (ref, hl_ref))
+            same = ""
+            if not defer:
+                if not (torch.equal(out, rm_out.permute(2, 1, 0, 3)) and torch.equal(
+                        hl if h_bm else hl.reshape(Fq, B, C).transpose(0, 1), rm_hl)):
+                    raise AssertionError(f"dprnn_inter_block fm h_bm={h_bm}: not bit-identical "
+                                         f"to the row-major mode")
+                same = ", bit-identical to the row-major mode"
+            ms = cuda_ms(lambda: gk.dprnn_inter_block(x_fm, h0, *ea, fm_batch=B, h_bm=h_bm,
+                                                      defer=defer))
+            log(f"kernel dprnn_inter_block fm_batch={B} h_bm={h_bm} defer={defer} "
+                f"x[{T},{Fq * B},{C}]: max_abs {err:.3e} (tol {KERNEL_TOL:.0e}){same}; ms "
+                f"{ms:.4f} (row-major {ms_rm:.4f}{'; the deferred tail in PyTorch included' if defer else ''})")
+            rows[("inter_fm", h_bm, defer)] = dict(err=err, ms=ms)
+
+    # ---- both DPRNN stacks: the fm chain against the row-major chain ----
+    for branch, Fb in (("dprnn_erb", cfg.dprnn_erb_feat), ("dprnn_df", Fq)):
+        x = torch.randn((B, T, Fb, C), generator=g, device="cuda")
+        hs = [torch.randn((B, Fb, C), generator=g, device="cuda") * 0.5
+              for _ in params["enc"][branch]]
+        with set_env(TM, False):
+            ref, hs_ref = tmd._dprnn(params["enc"][branch], x, hs)
+        for entry in (False, True):
+            with set_env(TM, True), set_env(ENTRY, entry):
+                gk.reset_launch_counts()
+                got, hs_got = tmd._dprnn(params["enc"][branch], x, hs)
+                counts = gk.launch_counts()
+            if counts["relayout_fm"] != int(entry) or not torch.equal(got, ref) or not all(
+                    torch.equal(a, b) for a, b in zip(hs_got, hs_ref)):
+                raise AssertionError(f"{branch}: the fm chain (entry relayout {entry}) is not "
+                                     f"bit-identical to the row-major chain ({counts})")
+        log(f"DPRNN stack {branch} x[{B},{T},{Fb},{C}]: the fm chain, with and without the "
+            f"entry relayout, bit-identical to the row-major chain (max_abs 0, every hidden)")
+    torch.cuda.synchronize()
+    return rows
+
+
+def fm_chain_phase(cfg, params, cpu_params, gk, smi, rng):
+    """The fm chain: card vs CPU, exact streaming chunk invariance and
+    launches per hop at 64 streams (the launches per segment on the main
+    path are read in ``main``)."""
+    from dpdfnet_tpu_torch import Engine
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    K, sr = cfg.dprnn_blocks, cfg.sample_rate
+    with set_env(STACK, False):
+        eng = Engine(cfg, params, device="cuda")
+    # ---- card against CPU, B = 32 x 1 s, with and without the entry relayout ----
+    w32 = (0.1 * rng.standard_normal((32, sr))).astype(np.float32)
+    t0 = time.perf_counter()
+    with set_env(STACK, False), set_env(TM, True):
+        ref = Engine(cfg, cpu_params, device="cpu").enhance_waveforms(w32)
+    t_cpu = time.perf_counter() - t0
+    for entry in (False, True):
+        with set_env(STACK, False), set_env(TM, True), set_env(ENTRY, entry):
+            y = eng.enhance_waveforms(w32)
+        err = float(np.abs(y - ref).max())
+        log(f"fm chain B=32 x 1 s (entry relayout {entry}): card vs CPU max_abs {err:.3e} "
+            f"(tol {ENGINE_TOL:.0e}; CPU run {t_cpu:.1f} s)")
+        if not (np.isfinite(y).all() and err <= ENGINE_TOL):
+            raise AssertionError(f"fm chain on the card deviates from the CPU by {err:.3e}")
+
+    # ---- exact streaming at 64 streams through the fm chain (T == 1) ----
+    frames = stream_frames(rng, 64, 12, cfg.win_len)
+    with set_env(STACK, False), set_env(TM, True):
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        y = run_chunked(eng, frames, [12])
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+        expect_counts("fm chain exact streaming", counts,
+                      {"dprnn_intra_block": 12 * 2 * K, "dprnn_inter_block": 12 * 2 * K,
+                       "gru_scan": 12 * 5})
+        for cuts in ([1] * 12, [3, 5, 4]):
+            other = run_chunked(eng, frames, cuts)
+            if not np.array_equal(other, y):
+                raise AssertionError(f"fm chain exact streaming: chunking {cuts[:4]} differs "
+                                     f"by {float(np.abs(other - y).max()):.3e}")
+        with set_env(TM, False):
+            y_rm = run_chunked(eng, frames, [12])
+    # the DPRNN stacks are bit-identical (phase 12); the exit contraction
+    # (grouped_linear_fm against grouped_linear) sums in another order
+    rm_err = float(np.abs(y - y_rm).max())
+    log(f"fm chain exact streaming 64 streams x 12 hops: bit-identical for chunkings "
+        f"all-at-once, 1+1+..., 3+5+4; launches per hop "
+        f"{json.dumps({k: v // 12 for k, v in counts.items() if v})}; vs the row-major chain "
+        f"max_abs {rm_err:.3e} (tol {KERNEL_TOL:.0e})")
+    if not rm_err <= KERNEL_TOL:
+        raise AssertionError(f"fm chain exact streaming deviates from the row-major chain by "
+                             f"{rm_err:.3e}")
+
+
+def fm_ab_phase(cfg, params, smi, rng):
+    """The A/B of the fm chain, in highest and turbo: the chain off
+    (row-major), on, and on with the entry relayout, interleaved call by
+    call (the switches are read per call), so that drift of the shared host
+    cancels: offline B=64 x 4 s, 5 rounds, median xRT; exact streaming at
+    64 streams, one hop per call, 200 rounds of one hop per configuration
+    (each with its own stream state), median ms per hop.  Returns the
+    medians."""
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    Bb, secs, hops = 64, 4.0, 200
+    big = (0.1 * rng.standard_normal((Bb, int(secs * cfg.sample_rate)))).astype(np.float32)
+    sframes = stream_frames(rng, Bb, hops + 16, cfg.win_len)
+    cfgs = {"row-major": (False, False), "fm": (True, False), "fm+relayout": (True, True)}
+    res = {}
+
+    def timed(name, fn):
+        tm, entry = cfgs[name]
+        with set_env(STACK, False), set_env(TM, tm), set_env(ENTRY, entry):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    for q in ("highest", "turbo"):
+        e = engine_from_quality(cfg, params, q, device="cuda")
+        walls = {n: [] for n in cfgs}
+        for rnd in range(6):                                    # round 0 warms up
+            for name in cfgs:
+                t, out = timed(name, lambda: e.enhance_waveforms(big))
+                if not np.isfinite(out).all():
+                    raise AssertionError(f"A/B {q} {name}: offline output not finite")
+                if rnd:
+                    walls[name].append(t)
+        states = {n: e.init_stream_state(batch=Bb) for n in cfgs}
+        hop_ms = {n: [] for n in cfgs}
+        for i in range(hops + 16):                              # 16 warm-up hops
+            for name in cfgs:
+                t, (ys, states[name]) = timed(
+                    name, lambda: e.process_frames(sframes[:, i:i + 1], states[name]))
+                if i >= 16:
+                    hop_ms[name].append(t * 1e3)
+        if not np.isfinite(ys).all():
+            raise AssertionError(f"A/B {q}: streaming output not finite")
+        for name in cfgs:
+            xrt = Bb * secs / statistics.median(walls[name])
+            med, mean = statistics.median(hop_ms[name]), statistics.fmean(hop_ms[name])
+            res[(q, name)] = (xrt, med)
+            log(f"A/B {q} {name}: offline B={Bb} x {secs} s xRT {xrt:.1f} (median of 5 "
+                f"interleaved calls, runs {[round(t * 1e3, 1) for t in walls[name]]} ms); exact "
+                f"64 streams, {hops} interleaved hops: median {med:.3f} ms per hop, mean "
+                f"{mean:.3f} | {smi}")
+    return res
+
+
+def ablation_phase(smi):
+    """Both step-ablation tools: every specialization against its plain
+    version at a small size (both plane dtypes) and at the JAX tools'
+    default shapes on the inputs that are timed, then one timing pass of
+    every variant there.  Returns the kernel-line rows, with ``full``'s
+    max-abs at the default shapes."""
+    from dpdfnet_tpu_torch.ops.gru_kernels import err_beyond_bf16_ulp
+    from dpdfnet_tpu_torch.tools import inter_step_ablation as abl_e
+    from dpdfnet_tpu_torch.tools import intra_step_ablation as abl_i
+
+    def gate(tool, errs):
+        bad = {k: v for k, v in errs.items() if not v <= KERNEL_TOL}
+        if bad:
+            raise AssertionError(f"{tool} ablation {bad}: beyond one bf16 ulp of the plain "
+                                 f"version by more than {KERNEL_TOL:.0e}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for tool, mod in (("intra", abl_i), ("inter", abl_e)):
+            gate(tool, mod.check_specializations(dtype=dtype, log=log))
+    rows = {}
+    C = 64
+    for tool, mod, run, shape in (("intra", abl_i, abl_i.run_intra, (4096, 48)),
+                                  ("inter", abl_e, abl_e.run_inter, (6144, 56))):
+        nrows, T = shape
+        # every specialization (intra: both layouts) at the timed shape, on
+        # the timed inputs (seed 0): grid, row-tail and offset faults show here
+        gate(tool, mod.check_specializations(nrows, T, log=log, seed=0))
+        log(f"{tool} step ablation, rows {nrows}, T {T}, C {C}, bf16 planes | {smi}")
+        run.launches = 0
+        res = mod.time_variants(list(mod.VARIANTS), nrows, T, C, log=log)
+        launches = run.launches
+        if tool == "intra":
+            x, w = abl_i.make_inputs(nrows, T, C, "cuda")
+            ref = abl_i.intra_plain("full", x, *w)
+            got = abl_i.run_intra("full", x, *w)
+            plain_ms = cuda_ms(lambda: abl_i.intra_plain("full", x, *w), 3)
+            wi2, wh2, b2, wfc, bfc, g, bln = w
+            lib = torch.nn.GRU(C, C, batch_first=True, bidirectional=True).cuda()
+            with torch.no_grad():
+                for d, sfx in ((0, ""), (1, "_reverse")):
+                    cols = torch.cat([torch.arange(gt * 2 * C + d * C, gt * 2 * C + d * C + C)
+                                      for gt in range(3)]).cuda()
+                    getattr(lib, f"weight_ih_l0{sfx}").copy_(wi2[d * C:(d + 1) * C][:, cols].T)
+                    getattr(lib, f"weight_hh_l0{sfx}").copy_(wh2[d * C:(d + 1) * C][:, cols].T)
+                    getattr(lib, f"bias_ih_l0{sfx}").copy_(b2[0, cols])
+                    getattr(lib, f"bias_hh_l0{sfx}").copy_(b2[1, cols])
+            xl = x.float()
+
+            def lib_call():
+                ys, _ = lib(xl)
+                return xl + torch.nn.functional.layer_norm(
+                    torch.nn.functional.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
+
+            flops = 28 * C * C * nrows * T
+            nbytes = 2 * C * 2 * nrows * T
+        else:
+            x, h0, wp, bp, tail = abl_e.make_inputs(nrows, T, C, "cuda")
+            wi, bi, wh, bh = abl_e.unpack_wp(wp, bp)
+            wfc, bfc, g, bln = tail
+            ref = abl_e.inter_plain("full", x, h0, wi, bi, wh, bh, *tail)[0]
+            got = abl_e.run_inter("full", x, h0, wi, bi, wh, bh, *tail)[0]
+            plain_ms = cuda_ms(lambda: abl_e.inter_plain("full", x, h0, wi, bi, wh, bh, *tail),
+                               3)
+            lib = gru_module(wi, bi, wh, bh)
+            xl = x.float().transpose(0, 1)
+
+            def lib_call():
+                ys, _ = lib(xl, h0[None])
+                return xl + torch.nn.functional.layer_norm(
+                    torch.nn.functional.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
+
+            flops = 14 * C * C * nrows * T
+            nbytes = 2 * C * 2 * nrows * T + 2 * nrows * C * 4
+        lib_ms = cuda_ms(lib_call)
+        b_ms, b_by = bound(flops, nbytes)
+        spec, ms, ns = res["full"]
+        err = (got.float() - ref.float()).abs().max().item()
+        beyond = err_beyond_bf16_ulp(got, ref)
+        gate(tool, {"full": beyond})
+        rows[tool] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, launches=launches)
+        log(f"{tool} step ablation full: max_abs {err:.3e} ({beyond:.3e} beyond one bf16 "
+            f"ulp; tol {KERNEL_TOL:.0e}) ms {ms:.4f} ({ns:.1f} ns/step) plain_ms "
+            f"{plain_ms:.4f} library_ms {lib_ms:.4f} (cuDNN GRU + linear + LN on the same "
+            f"rows) bound_ms {b_ms:.4f} ({b_by}); {launches} launches in the timing pass")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1003,9 +1380,41 @@ def main() -> int:
     # ---- phase 10: the quality tiers ----
     tier_counts = tier_phase(cfg, params, cpu_params, gk, smi, rng, wavs, lengths)
 
-    # ---- phase 11: kernel list ----
-    def entry(name, key, source, replaces, launches):
-        r = kernel_rows[key]
+    # ---- phase 11: relayout_fm ----
+    kernel_rows["relayout_fm"] = relayout_phase(gk)
+
+    # ---- phase 12: the fm layout modes of the intra and inter kernels ----
+    mode_off_phase(gk)
+    kernel_rows.update(fm_modes_phase(prepare_inference_params(params, cfg), cfg, gk))
+
+    # ---- phase 13: the fm chain on the main path, and the A/B ----
+    fm_chain_phase(cfg, params, cpu_params, gk, smi, rng)
+    fm_ab_phase(cfg, params, smi, rng)
+    with set_env(STACK, False), set_env(TM, True), set_env(ENTRY, True):
+        e = Engine(cfg, params, device="cuda")
+        e.enhance_waveforms(wavs[:, : sr // 2])
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        y_fm = e.enhance_waveforms(np.tile(wavs, (22, 1))[:64], lengths=np.tile(lengths, 22)[:64])
+        torch.cuda.synchronize()
+        fm_counts = gk.launch_counts()
+    n_seg = segments(e, S)
+    per_seg = {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+               "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5, "relayout_fm": 2}
+    log(f"fm chain main path, B=64 (the 3 utterances tiled), entry relayout on: launches "
+        f"({n_seg} segments) {json.dumps(fm_counts)}, expected per segment "
+        f"{json.dumps(per_seg)}; vs the B=3 run max_abs "
+        f"{float(np.abs(y_fm[:3] - y_gpu).max()):.3e}")
+    expect_counts("fm chain main path", fm_counts, {k: n_seg * v for k, v in per_seg.items()})
+    if not float(np.abs(y_fm[:3] - y_gpu).max()) <= ENGINE_TOL:
+        raise AssertionError("the fm chain at B=64 deviates from the row-major chain at B=3")
+
+    # ---- phase 14: the step-ablation tools ----
+    abl_rows = ablation_phase(smi)
+
+    # ---- phase 15: kernel list ----
+    def entry(name, key, source, replaces, launches, rows=kernel_rows):
+        r = rows[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1029,6 +1438,14 @@ def main() -> int:
         entry("dprnn_inter_block_v2", ("dprnn_inter_block_v2", df),
               f"{csrc}/dprnn_inter_v2.cu", f"{PALLAS}:2128",
               tier_counts["dprnn_inter_block_v2"]),
+        entry("dprnn_intra_block_tm", "dprnn_intra_block_tm", f"{csrc}/dprnn_intra.cu",
+              f"{PALLAS}:903", fm_counts["dprnn_intra_block"]),
+        entry("relayout_fm", "relayout_fm", f"{csrc}/relayout_fm.cu", f"{PALLAS}:2290",
+              fm_counts["relayout_fm"]),
+        entry("intra_step_ablation", "intra", f"{csrc}/intra_step_ablation.cu",
+              "tools/intra_step_ablation.py:101", abl_rows["intra"]["launches"], abl_rows),
+        entry("inter_step_ablation", "inter", f"{csrc}/inter_step_ablation.cu",
+              "tools/inter_step_ablation.py:99", abl_rows["inter"]["launches"], abl_rows),
     ]
     errs = {"dprnn_intra_block": [("dprnn_intra_block", f) for f in (cfg.dprnn_erb_feat, df)],
             "dprnn_inter_block": [("dprnn_inter_block", f) for f in (cfg.dprnn_erb_feat, df)],
@@ -1040,7 +1457,8 @@ def main() -> int:
             "dprnn_inter_block_v2": [("dprnn_inter_block_v2", f)
                                      for f in (cfg.dprnn_erb_feat, df)]}
     for k in kernels:
-        k["max_abs_err"] = max(kernel_rows[key]["err"] for key in errs[k["name"]])
+        if k["name"] in errs:
+            k["max_abs_err"] = max(kernel_rows[key]["err"] for key in errs[k["name"]])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

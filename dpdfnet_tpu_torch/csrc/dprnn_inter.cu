@@ -19,61 +19,100 @@
 // The plane is read and written in place through strides: no transpose.
 // The plane is float32 or bfloat16 (loads upcast, the store rounds once);
 // h0 / h_last, the weights and all arithmetic are float32.
+//
+// Modes (the TPU kernel's fm_batch, h_bm and defer), each a stride set or
+// a template flag of the same walk, with the arithmetic unchanged:
+//   fm_batch = B  x is the freq-major [T, Fq * B, C] (rows f-major,
+//                 n = f * B + b) and out the freq-leading [Fq, T, B, C]
+//                 that the next fm intra stage reads;
+//   h_bm          (with fm_batch) h0 / h_last in the state's [B, Fq, C]
+//                 instead of the rows' [Fq * B, C];
+//   defer         the walk stores the raw hidden h_t (MODE_YS) in out's
+//                 layout at the plane's dtype; the fc + LayerNorm +
+//                 residual tail runs outside the kernel.
 #include "gru64_walk.cuh"
 
 using namespace dpdf;
 
-template <int RPT, typename TX>
+template <int RPT, int MODE, typename TX>
 __global__ void __launch_bounds__(THREADS)
 dprnn_inter_kernel(const TX* __restrict__ x, TX* __restrict__ out,
                    const float* __restrict__ h0, float* __restrict__ h_last,
-                   GruWeights w, Epilogue<TX> ep, Rows rows, int64_t N, int T) {
+                   GruWeights w, Epilogue<TX> ep, Rows rows, Rows orows, Rows hrows, int64_t N,
+                   int T) {
   ep.out = out;
-  gru64_walk<RPT, MODE_LN_RESIDUAL>(x, rows, N, T, false, w, ep, h0, h_last);
+  gru64_walk_io<RPT, MODE>(x, rows, orows, hrows, N, T, false, w, ep, h0, h_last);
 }
 
-template <int RPT, typename TX>
+template <int RPT, int MODE, typename TX>
 static cudaError_t launch(const TX* x, TX* out, const float* h0, float* h_last,
-                          GruWeights w, Epilogue<TX> ep, Rows rows, int64_t N, int T,
-                          cudaStream_t stream) {
+                          GruWeights w, Epilogue<TX> ep, Rows rows, Rows orows, Rows hrows,
+                          int64_t N, int T, cudaStream_t stream) {
   constexpr int R = GROUPS * RPT;
   const size_t smem = sizeof(float) * walk_smem_floats<RPT>();
-  cudaError_t err = cudaFuncSetAttribute(dprnn_inter_kernel<RPT, TX>,
+  cudaError_t err = cudaFuncSetAttribute(dprnn_inter_kernel<RPT, MODE, TX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((N + R - 1) / R);
-  dprnn_inter_kernel<RPT, TX><<<blocks, THREADS, smem, stream>>>(x, out, h0, h_last, w, ep,
-                                                                 rows, N, T);
+  dprnn_inter_kernel<RPT, MODE, TX><<<blocks, THREADS, smem, stream>>>(
+      x, out, h0, h_last, w, ep, rows, orows, hrows, N, T);
   return cudaGetLastError();
+}
+
+template <int MODE, typename TX>
+static cudaError_t launch_rpb(const TX* x, TX* out, const float* h0, float* h_last,
+                              GruWeights w, Epilogue<TX> ep, Rows rows, Rows orows, Rows hrows,
+                              int64_t N, int T, int rows_per_block, cudaStream_t st) {
+  return rows_per_block == 16
+             ? launch<4, MODE>(x, out, h0, h_last, w, ep, rows, orows, hrows, N, T, st)
+             : launch<2, MODE>(x, out, h0, h_last, w, ep, rows, orows, hrows, N, T, st);
 }
 
 template <typename TX>
 static cudaError_t run(const TX* x, TX* out, const float* h0, float* h_last, const float* wi,
                        const float* bi, const float* wh, const float* bh, const float* wfc,
                        const float* bfc, const float* g, const float* bln, int B, int T,
-                       int Fq, int rows_per_block, cudaStream_t st) {
+                       int Fq, int rows_per_block, int fm, int h_bm, int defer,
+                       cudaStream_t st) {
   GruWeights w{wi, wh, bi, bh, G3, 0, C, 0};
   Epilogue<TX> ep{wfc, bfc, g, bln, out, 1e-5f};
-  // row n = b * Fq + f; x[b, t, f, :] at b*T*Fq*C + f*C + t*Fq*C
-  Rows rows{Fq, (int64_t)T * Fq * C, C, (int64_t)Fq * C};
   const int64_t N = (int64_t)B * Fq;
-  return rows_per_block == 16 ? launch<4>(x, out, h0, h_last, w, ep, rows, N, T, st)
-                              : launch<2>(x, out, h0, h_last, w, ep, rows, N, T, st);
+  Rows rows, orows, hrows;
+  if (fm) {
+    // row n = f * B + b; x[t, n] at t*N*C + n*C; out[f, t, b] at
+    // f*T*B*C + t*B*C + b*C; h_bm: h[b, f] at b*Fq*C + f*C
+    rows = Rows{N, 0, C, N * C};
+    orows = Rows{B, (int64_t)T * B * C, C, (int64_t)B * C};
+    hrows = h_bm ? Rows{B, C, (int64_t)Fq * C, 0} : dense_rows(N);
+  } else {
+    // row n = b * Fq + f; x[b, t, f, :] at b*T*Fq*C + f*C + t*Fq*C
+    rows = Rows{Fq, (int64_t)T * Fq * C, C, (int64_t)Fq * C};
+    orows = rows;
+    hrows = dense_rows(N);
+  }
+  return defer ? launch_rpb<MODE_YS>(x, out, h0, h_last, w, ep, rows, orows, hrows, N, T,
+                                     rows_per_block, st)
+               : launch_rpb<MODE_LN_RESIDUAL>(x, out, h0, h_last, w, ep, rows, orows, hrows, N,
+                                              T, rows_per_block, st);
 }
 
-// x, out: [B, T, Fq, C], float32, or bfloat16 when plane_bf16; h0, h_last:
-// [B, Fq, C] float32.
+// fm_batch == 0: x, out [B, T, Fq, C]; h0, h_last [B, Fq, C].  fm_batch:
+// x [T, Fq * B, C] (f-major rows), out [Fq, T, B, C]; h0, h_last
+// [Fq * B, C], or [B, Fq, C] with h_bm.  defer: out holds the raw hidden.
+// Planes float32, or bfloat16 when plane_bf16; hiddens float32.
 extern "C" int dprnn_inter_launch(const void* x, void* out, const float* h0,
                                   float* h_last, const float* wi, const float* bi,
                                   const float* wh, const float* bh, const float* wfc,
                                   const float* bfc, const float* g, const float* bln,
                                   int B, int T, int Fq, int rows_per_block, int plane_bf16,
-                                  void* stream) {
+                                  int fm_batch, int h_bm, int defer, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (plane_bf16)
     return (int)run(static_cast<const bf16*>(x), static_cast<bf16*>(out), h0, h_last, wi, bi,
-                    wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_block, st);
+                    wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_block, fm_batch, h_bm, defer,
+                    st);
   return (int)run(static_cast<const float*>(x), static_cast<float*>(out), h0, h_last, wi, bi,
-                  wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_block, st);
+                  wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_block, fm_batch, h_bm, defer,
+                  st);
 }

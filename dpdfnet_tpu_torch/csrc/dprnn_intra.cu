@@ -24,6 +24,13 @@
 // their zero cross-direction blocks: half the packed FLOPs.  The plane x /
 // out is float32 or bfloat16 (loads upcast, the store rounds once); the
 // weights, the partials and all arithmetic are float32.
+//
+// Layouts (replacing the TPU kernel's fm_batch mode, which the freq-major
+// DPRNN chain runs): row-major x, out [N, Fq, C]; or, with fm_batch = B,
+// the freq-leading x [Fq, N, C] (rows t-major, n = t * B + b) and out
+// [T, Fq, B, C], the layout the fm inter stage reads.  Both are stride sets
+// of the same walk (the partials keep x's layout) and a row map of the
+// epilogue's store; the arithmetic does not change.
 #include "gru64_walk.cuh"
 
 using namespace dpdf;
@@ -60,27 +67,33 @@ static cudaError_t launch_walk(const TX* x, float* part, const float* wi2,
 template <typename TX>
 static cudaError_t run(const TX* x, TX* out, float* part, const float* wi2, const float* wh2,
                        const float* b2, const float* wfc, const float* bfc, const float* g,
-                       const float* bln, int64_t N, int Fq, int rows_per_block,
+                       const float* bln, int64_t N, int Fq, int rows_per_block, int64_t fm_b,
                        cudaStream_t st) {
-  Rows rows{N, 0, (int64_t)Fq * C, C};
+  // row n, step f: x[n, f] (row-major) or x[f, n] (freq-leading)
+  const Rows rows = fm_b ? Rows{N, 0, C, N * C} : Rows{N, 0, (int64_t)Fq * C, C};
+  // flat row f * N + t * B + b of the freq-leading plane -> out[t, f, b]
+  const RowMap omap = fm_b ? RowMap{N, fm_b, fm_b * C, Fq * fm_b * C, C} : dense_map(N * Fq);
   cudaError_t err = rows_per_block == 16
                         ? launch_walk<4>(x, part, wi2, wh2, b2, wfc, rows, N, Fq, st)
                         : launch_walk<2>(x, part, wi2, wh2, b2, wfc, rows, N, Fq, st);
   if (err != cudaSuccess) return err;
-  return launch_intra_epilogue(x, part, bfc, g, bln, out, N * Fq, st);
+  return launch_intra_epilogue(x, part, bfc, g, bln, out, N * Fq, omap, st);
 }
 
-// x, out: [N, Fq, C] contiguous (N = B * T rows of the [B, T, Fq, C] plane),
-// float32, or bfloat16 when plane_bf16; part: f32 scratch [2, N, Fq, C].
+// fm_batch == 0: x, out [N, Fq, C] contiguous (N = B * T rows of the
+// [B, T, Fq, C] plane).  fm_batch == B > 0: x [Fq, N, C] with N = T * B
+// t-major rows, out [T, Fq, B, C].  Planes float32, or bfloat16 when
+// plane_bf16; part: f32 scratch of 2 * N * Fq * C.
 extern "C" int dprnn_intra_launch(const void* x, void* out, float* part,
                                   const float* wi2, const float* wh2, const float* b2,
                                   const float* wfc, const float* bfc, const float* g,
                                   const float* bln, long long N, int Fq,
-                                  int rows_per_block, int plane_bf16, void* stream) {
+                                  int rows_per_block, int plane_bf16, long long fm_batch,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (plane_bf16)
     return (int)run(static_cast<const bf16*>(x), static_cast<bf16*>(out), part, wi2, wh2, b2,
-                    wfc, bfc, g, bln, N, Fq, rows_per_block, st);
+                    wfc, bfc, g, bln, N, Fq, rows_per_block, fm_batch, st);
   return (int)run(static_cast<const float*>(x), static_cast<float*>(out), part, wi2, wh2, b2,
-                  wfc, bfc, g, bln, N, Fq, rows_per_block, st);
+                  wfc, bfc, g, bln, N, Fq, rows_per_block, fm_batch, st);
 }

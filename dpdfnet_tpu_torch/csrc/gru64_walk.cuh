@@ -20,7 +20,14 @@
 // Rows are addressed through strides, so the kernels read the model's
 // [B, T, Fq, C] plane directly: element c of row n at step s lives at
 //   (n / rpg) * sg + (n % rpg) * sr + t(s) * ss + c,
-// t(s) = s, or S - 1 - s for a reverse walk.
+// t(s) = s, or S - 1 - s for a reverse walk.  The per-step output and the
+// carried hidden h0 / h_last have strides of their own (gru64_walk_io), so
+// one walk reads one layout and writes another (the freq-major DPRNN chain
+// and its batch-major hidden); gru64_walk keeps x's layout for the output
+// and a dense [N, C] hidden.
+//
+// STEP and LNV select timing-ablation bodies (tools/*_step_ablation.py of
+// the port): every default instantiation is the production step.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +56,29 @@ enum Mode {
   MODE_FC_PART = 1,
   // out = h: the hidden itself (a plain GRU layer; no Wfc is read)
   MODE_YS = 2,
+  // no per-step output: only h_last (the ablation walks)
+  MODE_NONE = 3,
+};
+
+// The per-step update of the hidden.  Only STEP_GRU is a GRU; the others
+// are the ablation tools' wrong-math bodies (the dot products they skip
+// from the update are still computed, see keep_alive).
+enum Step {
+  STEP_GRU = 0,          // the GRU step
+  STEP_SUM = 1,          // h = h + x: no products, no gates
+  STEP_SUM_BF16 = 2,     // h = bf16(h + x)
+  STEP_RSUM = 3,         // h = (x . Wi_r + bi_r) + (h . Wh_r + bh_r): products, no gates
+  STEP_RSUM_INDEP = 4,   // as STEP_RSUM with x in place of h: no dependence on h
+  STEP_RSUM_ACC = 5,     // h = (x . Wi_r + bi_r) + (h . Wh_r + bh_r) + h
+  STEP_GATES = 6,        // the gates with identity weights: no products
+};
+
+// The LayerNorm of MODE_LN_RESIDUAL.
+enum LnVariant {
+  LN_TWO_PASS = 0,       // mean, then the mean square of the centred values
+  LN_NONE = 1,           // no normalisation: y * g + bln
+  LN_ONE_PASS = 2,       // var = E[y^2] - mean^2
+  LN_BF16_STATS = 3,     // both statistics summed from bfloat16-rounded terms
 };
 
 struct Rows {
@@ -57,6 +87,22 @@ struct Rows {
     return (n / rpg) * sg + (n % rpg) * sr + t * ss;
   }
 };
+
+// A dense [N, C] hidden: row n at n * C.
+__host__ __device__ inline Rows dense_rows(int64_t N) { return Rows{N, 0, C, 0}; }
+
+// Flat row r of a plane -> its offset in another layout:
+//   i0 = r / n1, i1 = (r % n1) / n2, i2 = r % n2 -> i0 * s0 + i1 * s1 + i2 * s2.
+struct RowMap {
+  int64_t n1, n2, s0, s1, s2;
+  __device__ __forceinline__ int64_t off(int64_t r) const {
+    const int64_t rem = r % n1;
+    return (r / n1) * s0 + (rem / n2) * s1 + (rem % n2) * s2;
+  }
+};
+
+// The identity map of a [rows_total, C] plane.
+__host__ __device__ inline RowMap dense_map(int64_t rows_total) { return RowMap{rows_total, 1, 0, C, 0}; }
 
 // Weight element (k, gate, u) at w[(row0 + k) * ld + gate * gstride + col0 + u];
 // bias (gate, u) at b[gate * gstride + col0 + u].  Plain GRU weights
@@ -89,18 +135,31 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Makes the compiler compute v although nothing reads it: the ablation
+// steps keep the full product cost of the step they stand in for.
+__device__ __forceinline__ void keep_alive(float v) { asm volatile("" ::"f"(v)); }
+
 template <int RPT>
 constexpr int walk_smem_floats() {
   // swi, swh, swfc, sbi, sbh, sx, sh, sred
   return 2 * C * G3 + C * C + 2 * G3 + 2 * (GROUPS * RPT) * C + 2 * (GROUPS * RPT);
 }
 
-// Walk S steps for the block's rows.  h0 == nullptr starts from zeros;
-// h_last == nullptr skips the final hidden.  h0 / h_last are [N, C].
-template <int RPT, int MODE, typename TX, typename TO>
-__device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S,
-                           bool reverse, GruWeights w, Epilogue<TO> ep,
-                           const float* __restrict__ h0, float* __restrict__ h_last) {
+// Walk S steps for the block's rows: x read through ``rows``, the per-step
+// output written through ``orows``, h0 / h_last (element c of row n at
+// hrows.off(n, 0) + c) read and written through ``hrows``.  h0 == nullptr
+// starts from zeros; h_last == nullptr skips the final hidden.
+template <int RPT, int MODE, typename TX, typename TO, int STEP = STEP_GRU,
+          int LNV = LN_TWO_PASS>
+__device__ void gru64_walk_io(const TX* __restrict__ x, Rows rows, Rows orows, Rows hrows,
+                              int64_t N, int S, bool reverse, GruWeights w, Epilogue<TO> ep,
+                              const float* __restrict__ h0, float* __restrict__ h_last) {
+  constexpr bool DOTS = STEP == STEP_GRU || STEP == STEP_RSUM || STEP == STEP_RSUM_INDEP ||
+                        STEP == STEP_RSUM_ACC;
   constexpr int R = GROUPS * RPT;
   extern __shared__ __align__(16) float smem[];
   float* swi = smem;                 // [C][G3]
@@ -125,7 +184,7 @@ __device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S
     swi[i] = w.wi[src];
     swh[i] = w.wh[src];
   }
-  if constexpr (MODE != MODE_YS) {
+  if constexpr (MODE != MODE_YS && MODE != MODE_NONE) {
     for (int i = tid; i < C * C; i += THREADS) swfc[i] = ep.wfc[i];
   }
   for (int i = tid; i < G3; i += THREADS) {
@@ -135,7 +194,7 @@ __device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S
   }
   for (int i = tid; i < R * C; i += THREADS) {
     const int64_t n = row0 + i / C;
-    sh[i] = (h0 != nullptr && n < N) ? h0[n * C + i % C] : 0.0f;
+    sh[i] = (h0 != nullptr && n < N) ? h0[hrows.off(n, 0) + i % C] : 0.0f;
   }
   __syncthreads();
 
@@ -156,57 +215,87 @@ __device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S
     }
     __syncthreads();
 
-    float axr[RPT], axz[RPT], axn[RPT], ahr[RPT], ahz[RPT], ahn[RPT];
+    float hnew[RPT];
+    if constexpr (DOTS) {
+      float axr[RPT], axz[RPT], axn[RPT], ahr[RPT], ahz[RPT], ahn[RPT];
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      axr[j] = axz[j] = axn[j] = ahr[j] = ahz[j] = ahn[j] = 0.0f;
-    }
-    for (int k = 0; k < C; k += 4) {
-      float4 xv[RPT], hv[RPT];
+      for (int j = 0; j < RPT; ++j) {
+        axr[j] = axz[j] = axn[j] = ahr[j] = ahz[j] = ahn[j] = 0.0f;
+      }
+      // STEP_RSUM_INDEP multiplies Wh by x instead of h
+      const float* hsrc = STEP == STEP_RSUM_INDEP ? sx : sh;
+      for (int k = 0; k < C; k += 4) {
+        float4 xv[RPT], hv[RPT];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const int r = grp + GROUPS * j;
+          xv[j] = *reinterpret_cast<const float4*>(&sx[r * C + k]);
+          hv[j] = *reinterpret_cast<const float4*>(&hsrc[r * C + k]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wir = &swi[(k + kk) * G3];
+          const float* whr = &swh[(k + kk) * G3];
+          const float wr = wir[u], wz = wir[C + u], wn = wir[2 * C + u];
+          const float vr = whr[u], vz = whr[C + u], vn = whr[2 * C + u];
+#pragma unroll
+          for (int j = 0; j < RPT; ++j) {
+            const float xs = (&xv[j].x)[kk];
+            const float hs = (&hv[j].x)[kk];
+            axr[j] = fmaf(xs, wr, axr[j]);
+            axz[j] = fmaf(xs, wz, axz[j]);
+            axn[j] = fmaf(xs, wn, axn[j]);
+            ahr[j] = fmaf(hs, vr, ahr[j]);
+            ahz[j] = fmaf(hs, vz, ahz[j]);
+            ahn[j] = fmaf(hs, vn, ahn[j]);
+          }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int r = grp + GROUPS * j;
-        xv[j] = *reinterpret_cast<const float4*>(&sx[r * C + k]);
-        hv[j] = *reinterpret_cast<const float4*>(&sh[r * C + k]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* wir = &swi[(k + kk) * G3];
-        const float* whr = &swh[(k + kk) * G3];
-        const float wr = wir[u], wz = wir[C + u], wn = wir[2 * C + u];
-        const float vr = whr[u], vz = whr[C + u], vn = whr[2 * C + u];
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const float xs = (&xv[j].x)[kk];
-          const float hs = (&hv[j].x)[kk];
-          axr[j] = fmaf(xs, wr, axr[j]);
-          axz[j] = fmaf(xs, wz, axz[j]);
-          axn[j] = fmaf(xs, wn, axn[j]);
-          ahr[j] = fmaf(hs, vr, ahr[j]);
-          ahz[j] = fmaf(hs, vz, ahz[j]);
-          ahn[j] = fmaf(hs, vn, ahn[j]);
+        if constexpr (STEP == STEP_GRU) {
+          const float rg = sigmoid_f((axr[j] + bir) + (ahr[j] + bhr));
+          const float zg = sigmoid_f((axz[j] + biz) + (ahz[j] + bhz));
+          const float ng = tanhf((axn[j] + bin) + rg * (ahn[j] + bhn));
+          hnew[j] = (1.0f - zg) * ng + zg * sh[r * C + u];
+        } else {
+          keep_alive(axz[j]);
+          keep_alive(axn[j]);
+          keep_alive(ahz[j]);
+          keep_alive(ahn[j]);
+          const float rs = (axr[j] + bir) + (ahr[j] + bhr);
+          hnew[j] = STEP == STEP_RSUM_ACC ? rs + sh[r * C + u] : rs;
         }
       }
-    }
-    float hnew[RPT];
+    } else {
 #pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int r = grp + GROUPS * j;
-      const float rg = sigmoid_f((axr[j] + bir) + (ahr[j] + bhr));
-      const float zg = sigmoid_f((axz[j] + biz) + (ahz[j] + bhz));
-      const float ng = tanhf((axn[j] + bin) + rg * (ahn[j] + bhn));
-      hnew[j] = (1.0f - zg) * ng + zg * sh[r * C + u];
+      for (int j = 0; j < RPT; ++j) {
+        const int r = grp + GROUPS * j;
+        const float xs = sx[r * C + u], hs = sh[r * C + u];
+        if constexpr (STEP == STEP_SUM) {
+          hnew[j] = hs + xs;
+        } else if constexpr (STEP == STEP_SUM_BF16) {
+          hnew[j] = round_bf16(hs + xs);
+        } else {                                    // STEP_GATES
+          const float rg = sigmoid_f(xs + hs);
+          const float zg = sigmoid_f(xs + hs);
+          const float ng = tanhf(xs + rg * hs);
+          hnew[j] = (1.0f - zg) * ng + zg * hs;
+        }
+      }
     }
     __syncthreads();                       // every read of the old h is done
 #pragma unroll
     for (int j = 0; j < RPT; ++j) sh[(grp + GROUPS * j) * C + u] = hnew[j];
     __syncthreads();
 
-    if constexpr (MODE == MODE_YS) {
+    if constexpr (MODE == MODE_NONE) {
+    } else if constexpr (MODE == MODE_YS) {
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int64_t n = row0 + grp + GROUPS * j;
-        if (n < N) store_f(ep.out + rows.off(n, t) + u, hnew[j]);
+        if (n < N) store_f(ep.out + orows.off(n, t) + u, hnew[j]);
       }
     } else {
       // epilogue: y = h . Wfc for this unit
@@ -229,7 +318,15 @@ __device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
           const int64_t n = row0 + grp + GROUPS * j;
-          if (n < N) store_f(ep.out + rows.off(n, t) + u, y[j]);
+          if (n < N) store_f(ep.out + orows.off(n, t) + u, y[j]);
+        }
+      } else if constexpr (LNV == LN_NONE) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          const int r = grp + GROUPS * j;
+          const int64_t n = row0 + r;
+          if (n < N) store_f(ep.out + orows.off(n, t) + u,
+                             sx[r * C + u] + ((y[j] + fcb) * gain + shift));
         }
       } else {
         // LayerNorm over the 64 units of each row: two warps per row group
@@ -237,30 +334,41 @@ __device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
           y[j] += fcb;
-          const float sm = warp_sum(y[j]);
+          const float sm = warp_sum(LNV == LN_BF16_STATS ? round_bf16(y[j]) : y[j]);
           if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sm;
         }
         __syncthreads();
+        float msq[RPT];
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
           const int r = grp + GROUPS * j;
           const float mu = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
           d[j] = y[j] - mu;
+          msq[j] = mu * mu;
         }
         __syncthreads();
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
-          const float sq = warp_sum(d[j] * d[j]);
+          float q;
+          if constexpr (LNV == LN_ONE_PASS) {
+            q = y[j] * y[j];
+          } else if constexpr (LNV == LN_BF16_STATS) {
+            q = round_bf16(d[j] * d[j]);
+          } else {
+            q = d[j] * d[j];
+          }
+          const float sq = warp_sum(q);
           if (lane == 0) sred[(grp + GROUPS * j) * 2 + half] = sq;
         }
         __syncthreads();
 #pragma unroll
         for (int j = 0; j < RPT; ++j) {
           const int r = grp + GROUPS * j;
-          const float var = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
+          float var = (sred[r * 2] + sred[r * 2 + 1]) * (1.0f / C);
+          if constexpr (LNV == LN_ONE_PASS) var -= msq[j];
           const float yn = d[j] * (1.0f / sqrtf(var + ep.eps));
           const int64_t n = row0 + r;
-          if (n < N) store_f(ep.out + rows.off(n, t) + u, sx[r * C + u] + (yn * gain + shift));
+          if (n < N) store_f(ep.out + orows.off(n, t) + u, sx[r * C + u] + (yn * gain + shift));
         }
       }
     }  // MODE != MODE_YS
@@ -271,21 +379,30 @@ __device__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
       const int64_t n = row0 + grp + GROUPS * j;
-      if (n < N) h_last[n * C + u] = sh[(grp + GROUPS * j) * C + u];
+      if (n < N) h_last[hrows.off(n, 0) + u] = sh[(grp + GROUPS * j) * C + u];
     }
   }
 }
 
+// The walk with the output in x's layout and a dense [N, C] hidden.
+template <int RPT, int MODE, typename TX, typename TO>
+__device__ __forceinline__ void gru64_walk(const TX* __restrict__ x, Rows rows, int64_t N, int S,
+                                           bool reverse, GruWeights w, Epilogue<TO> ep,
+                                           const float* __restrict__ h0,
+                                           float* __restrict__ h_last) {
+  gru64_walk_io<RPT, MODE>(x, rows, rows, dense_rows(N), N, S, reverse, w, ep, h0, h_last);
+}
+
 // The DPRNN intra epilogue, one warp per (row, f) element of the plane:
 // y = part0 + part1 + bfc, out = x + LN(y) * g + bln.  part: [2][rows][C]
-// f32 fc partials of the two directions; x, out: [rows][C].  Each lane
-// holds two of the 64 channels.
+// f32 fc partials of the two directions; x: [rows][C]; flat row r of out
+// at omap.off(r).  Each lane holds two of the 64 channels.
 template <typename TX>
 __global__ void __launch_bounds__(256)
 dprnn_intra_epilogue_kernel(const TX* __restrict__ x, const float* __restrict__ part,
                             const float* __restrict__ bfc, const float* __restrict__ g,
                             const float* __restrict__ bln, TX* __restrict__ out,
-                            int64_t rows_total) {
+                            int64_t rows_total, RowMap omap) {
   const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (r >= rows_total) return;
@@ -298,19 +415,28 @@ dprnn_intra_epilogue_kernel(const TX* __restrict__ x, const float* __restrict__ 
   y1 -= mu;
   const float var = warp_sum(y0 * y0 + y1 * y1) * (1.0f / C);
   const float inv = 1.0f / sqrtf(var + 1e-5f);
-  store_f(out + r * C + lane, load_f(x + r * C + lane) + (y0 * inv * g[lane] + bln[lane]));
-  store_f(out + r * C + lane + 32,
+  TX* o = out + omap.off(r);
+  store_f(o + lane, load_f(x + r * C + lane) + (y0 * inv * g[lane] + bln[lane]));
+  store_f(o + lane + 32,
           load_f(x + r * C + lane + 32) + (y1 * inv * g[lane + 32] + bln[lane + 32]));
 }
 
 template <typename TX>
 cudaError_t launch_intra_epilogue(const TX* x, const float* part, const float* bfc,
                                   const float* g, const float* bln, TX* out,
-                                  int64_t rows_total, cudaStream_t stream) {
+                                  int64_t rows_total, RowMap omap, cudaStream_t stream) {
   const unsigned blocks = (unsigned)((rows_total + 7) / 8);
   dprnn_intra_epilogue_kernel<TX><<<blocks, 256, 0, stream>>>(x, part, bfc, g, bln, out,
-                                                              rows_total);
+                                                              rows_total, omap);
   return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t launch_intra_epilogue(const TX* x, const float* part, const float* bfc,
+                                  const float* g, const float* bln, TX* out,
+                                  int64_t rows_total, cudaStream_t stream) {
+  return launch_intra_epilogue(x, part, bfc, g, bln, out, rows_total, dense_map(rows_total),
+                               stream);
 }
 
 }  // namespace dpdf

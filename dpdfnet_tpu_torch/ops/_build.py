@@ -33,6 +33,9 @@ SOURCES: Dict[str, tuple] = {
     "dprnn_stack": ("dprnn_stack.cu", ("gru64_walk.cuh",)),
     "gru_bidir": ("gru_bidir.cu", ("gru64_walk.cuh",)),
     "gru_scan": ("gru_scan.cu", ("gru64_walk.cuh", "proj_gemm.cuh")),
+    "relayout_fm": ("relayout_fm.cu", ()),
+    "intra_step_ablation": ("intra_step_ablation.cu", ("gru64_walk.cuh",)),
+    "inter_step_ablation": ("inter_step_ablation.cu", ("gru64_walk.cuh",)),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

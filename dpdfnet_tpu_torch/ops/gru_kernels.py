@@ -1,6 +1,7 @@
 """The port's sequential kernels: DPRNN intra, DPRNN inter, GRU scan,
-bidirectional GRU, the whole DPRNN stack, and the v2 DPRNN intra / inter
-stages with hoisted input projections.
+bidirectional GRU, the whole DPRNN stack, the v2 DPRNN intra / inter
+stages with hoisted input projections, and the entry relayout of the
+freq-major DPRNN chain.
 
 Counterpart of ``dpdfnet_tpu.ops.pallas_gru``.  Each wrapper sits beside
 its plain PyTorch version:
@@ -30,6 +31,36 @@ The math is float32 in every case: the kernels upcast plane loads and
 round each plane store once, and the plain versions compute on the
 upcast plane and round their result once, to the plane's dtype.  A
 wrapper casts nothing around its kernel: other dtypes raise.
+
+The freq-major ("fm") DPRNN chain (``models.dpdfnet._dprnn``, the JAX
+package's ``_dprnn_fused`` tm branch) runs the intra and inter kernels in
+layout modes: ``dprnn_intra_block(..., fm_batch=B)`` reads the
+freq-leading ``[Fq, T*B, C]`` plane and writes ``[T, Fq, B, C]``;
+``dprnn_inter_block(..., fm_batch=B)`` reads that as ``[T, Fq*B, C]`` and
+writes ``[Fq, T, B, C]``, with ``h_bm`` (hidden in the state's
+``[B, Fq, C]``) and ``defer`` (the raw hidden out of the kernel, the fc +
+LayerNorm + residual tail in PyTorch).  The modes are stride sets and a
+template flag of the same CUDA kernels.  ``relayout_fm`` is the chain's
+entry permute.  The switches are read per call under the JAX package's
+names: ``intra_tm_enabled`` (``DPDFNET_TPU_INTRA_TM``), and with the JAX
+defaults ``entry_relayout_enabled`` (``DPDFNET_TPU_ENTRY_RELAYOUT``, off),
+``h_ingest_enabled`` (``DPDFNET_TPU_H_INGEST``, off) and ``inter_defer``
+(``DPDFNET_TPU_INTER_DEFER``, off; only where the JAX kernel's TS > 1).
+``DPDFNET_TPU_RELAYOUT_FULLF`` only picks a TPU block shape and is not
+read: the Hopper relayout kernel picks its own tiling.
+
+The fm chain is OFF by default here (the JAX package's default is on).
+On the H100 the chain runs bit-identical work (the row-major kernels
+already read ``[B, T, Fq, C]`` through strides, so it removes no
+transpose) and adds device operations: the entry permute, the exit
+contraction's copies and two hidden transposes per block, 46 more per
+exact hop (16,300 against 14,000 over 50 hops at 64 streams).  Measured
+on one NVIDIA H100 80GB HBM3, 700.00 W, interleaved call by call
+(``chip_smoke.fm_ab_phase``): exact streaming at 64 streams 13-18% slower
+per hop (``highest`` 9.269 / 10.850 against 10.789 / 12.843 ms,
+``turbo`` 13.939 / 12.131 against 15.897 / 13.723 ms, median of 200
+hops), offline B=64 x 4 s within 1.5% (xRT 366.2 / 352.8 against 360.7 /
+351.8 in ``highest``, 404.2 / 400.2 against 405.6 / 396.7 in ``turbo``).
 """
 
 from __future__ import annotations
@@ -133,10 +164,16 @@ def gru_bidir_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
 
 
 def dprnn_intra_block_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
-                            wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor
-                            ) -> Tensor:
+                            wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
+                            fm_batch: Optional[int] = None) -> Tensor:
     """``x + LN(fc(bidirGRU_along_Fq(x)))`` over ``x [N, Fq, C]`` with the
-    packed direction-blockdiag weights (``_pack_bidir``)."""
+    packed direction-blockdiag weights (``_pack_bidir``).  ``fm_batch=B``:
+    ``x`` is the freq-leading ``[Fq, N, C]`` with ``N = T*B`` t-major rows,
+    and the result the ``[T, Fq, B, C]`` plane."""
+    if fm_batch:
+        Fq, N, C = x.shape
+        out = dprnn_intra_block_plain(x.transpose(0, 1), wi2, wh2, b2, wfc, bfc, g, bln)
+        return out.reshape(N // fm_batch, fm_batch, Fq, C).transpose(1, 2).contiguous()
     xf = x.float()
     ys = torch.cat(gru_bidir_plain(xf, wi2, wh2, b2), dim=-1)
     return (xf + _ln(ys @ wfc + bfc, g, bln)).to(x.dtype)
@@ -144,17 +181,49 @@ def dprnn_intra_block_plain(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
 
 def dprnn_inter_block_plain(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor,
                             wh: Tensor, bh: Tensor, wfc: Tensor, bfc: Tensor,
-                            g: Tensor, bln: Tensor) -> Tuple[Tensor, Tensor]:
+                            g: Tensor, bln: Tensor, *, fm_batch: Optional[int] = None,
+                            h_bm: bool = False, defer: bool = False
+                            ) -> Tuple[Tensor, Tensor]:
     """GRU along T for every (b, f) row of ``x [B, T, Fq, C]`` from
     ``h0 [B, Fq, C]``; ``out[t] = x[t] + LN(fc(h_t))``.  Returns
-    ``(out [B, T, Fq, C]`` at x's dtype, ``h_last [B, Fq, C]`` float32)."""
+    ``(out [B, T, Fq, C]`` at x's dtype, ``h_last [B, Fq, C]`` float32).
+
+    ``fm_batch=B``: ``x`` is ``[T, Fq*B, C]`` with f-major rows, ``out``
+    ``[Fq, T, B, C]``, and ``h0`` / ``h_last`` ``[Fq*B, C]`` in the rows'
+    order, or ``[B, Fq, C]`` with ``h_bm``.  ``defer``: ``out`` is the raw
+    hidden ``h_t`` at x's dtype (the kernel's defer mode, whose tail
+    :func:`inter_tail` applies)."""
+    if fm_batch:
+        T, N, C = x.shape
+        B, Fq = fm_batch, N // fm_batch
+        h0b = h0 if h_bm else h0.reshape(Fq, B, C).transpose(0, 1)
+        out, hl = dprnn_inter_block_plain(x.reshape(T, Fq, B, C).permute(2, 0, 1, 3), h0b,
+                                          wi, bi, wh, bh, wfc, bfc, g, bln, defer=defer)
+        hl = hl if h_bm else hl.transpose(0, 1).reshape(N, C)
+        return out.permute(2, 1, 0, 3).contiguous(), hl.contiguous()
     B, T, Fq, C = x.shape
     xf = x.float()
     xt = xf.transpose(1, 2).reshape(B * Fq, T, C)
     ys, hl = gru_scan_plain(xt, h0.reshape(B * Fq, C), wi, bi, wh, bh)
+    if defer:
+        return ys.reshape(B, Fq, T, C).transpose(1, 2).to(x.dtype), hl.reshape(B, Fq, C)
     y = _ln(ys @ wfc + bfc, g, bln)
     out = xf + y.reshape(B, Fq, T, C).transpose(1, 2)
     return out.to(x.dtype), hl.reshape(B, Fq, C)
+
+
+def inter_tail(h: Tensor, x: Tensor, wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor
+               ) -> Tensor:
+    """The deferred inter tail: ``x + LN(h . Wfc + bfc)`` over the raw
+    hidden plane ``h`` and the plane ``x`` in the same layout, in float32
+    (``h`` keeps its plane rounding, as in the JAX package), rounded to x's
+    dtype."""
+    return (x.float() + _ln(h.float() @ wfc + bfc, g, bln)).to(x.dtype)
+
+
+def relayout_fm_plain(x: Tensor, out_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """``[B, T, F, C] -> [F, T, B, C]``, cast to ``out_dtype`` (default x's)."""
+    return x.permute(2, 1, 0, 3).to(out_dtype or x.dtype).contiguous()
 
 
 def pack_intra_v2(wi2: Tensor, wh2: Tensor, wfc: Tensor) -> Tuple[Tensor, Tensor]:
@@ -253,18 +322,22 @@ def dprnn_stack_plain(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
 BF16_ULP = 2.0 ** -7
 
 
-def err_beyond_bf16_ulp(got: Tensor, ref: Tensor) -> float:
+def err_beyond_bf16_ulp(got: Tensor, ref: Tensor, slack: Optional[Tensor] = None) -> float:
     """Max-abs of ``got - ref`` beyond one bfloat16 ulp of ``ref``
     (``BF16_ULP`` of its magnitude) where ``ref`` is bfloat16; the plain
     max-abs where it is float32.  A bf16-plane kernel and its plain version
     each compute in float32 and round the plane once, so a float32
-    difference next to a rounding midpoint can land one ulp apart."""
+    difference next to a rounding midpoint can land one ulp apart.
+    ``slack`` (broadcast against ``ref``): a further per-element allowance,
+    for a function that rounds intermediate values to bfloat16 itself."""
     if got.dtype != ref.dtype or got.shape != ref.shape:
         raise ValueError(f"got {got.dtype} {tuple(got.shape)}, "
                          f"ref {ref.dtype} {tuple(ref.shape)}")
     d = (got.float() - ref.float()).abs()
     if ref.dtype == torch.bfloat16:
         d = d - ref.float().abs() * BF16_ULP
+    if slack is not None:
+        d = d - slack
     return d.max().item()
 
 
@@ -293,6 +366,44 @@ def v2_enabled(precision: str) -> bool:
     return precision == "default" and v2_requested()
 
 
+def _env_on(name: str, default: str) -> bool:
+    return os.environ.get(name, default) not in ("0", "false", "False")
+
+
+def intra_tm_enabled() -> bool:
+    """Run the freq-major DPRNN chain where it engages
+    (``DPDFNET_TPU_INTRA_TM``, the variable of
+    ``pallas_gru.intra_tm_enabled``; default off here, on there: see the
+    module notes for the card's A/B).  Read at each call."""
+    return _env_on("DPDFNET_TPU_INTRA_TM", "0")
+
+
+def entry_relayout_enabled() -> bool:
+    """Enter the fm chain through the ``relayout_fm`` kernel instead of a
+    PyTorch permute copy (``DPDFNET_TPU_ENTRY_RELAYOUT``, default off:
+    ``pallas_gru.entry_relayout_enabled``).  Read at each call."""
+    return _env_on("DPDFNET_TPU_ENTRY_RELAYOUT", "0")
+
+
+def h_ingest_enabled() -> bool:
+    """Hand the fm chain's inter kernel the hidden in the state's
+    ``[B, Fq, C]`` (``h_bm``) instead of transposing it around the call
+    (``DPDFNET_TPU_H_INGEST``, default off: ``pallas_gru.h_ingest_enabled``).
+    Read at each call."""
+    return _env_on("DPDFNET_TPU_H_INGEST", "0")
+
+
+def inter_defer(T: int) -> bool:
+    """Defer the inter fc + LayerNorm + residual tail out of the kernel
+    (``DPDFNET_TPU_INTER_DEFER``, default off: ``pallas_gru._inter_defer``),
+    which the JAX package engages only where its kernel runs more than one
+    step per grid cell: the largest power of two up to
+    ``DPDFNET_TPU_INTER_TS`` (default 8) dividing T must exceed 1, so never
+    at T == 1 and under the default only at even T.  Read at each call."""
+    ts = max(1, int(os.environ.get("DPDFNET_TPU_INTER_TS", "8")))
+    return _env_on("DPDFNET_TPU_INTER_DEFER", "0") and ts >= 2 and T % 2 == 0
+
+
 def plane_io_bf16(precision: str) -> bool:
     """Carry the DPRNN planes between the stack's kernels in bfloat16
     under the ``"default"`` precision (``DPDFNET_TPU_PLANE_IO=bf16``, the
@@ -310,13 +421,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "dprnn_inter_launch": [_P] * 12 + [_I] * 5 + [_P],
+    "dprnn_inter_launch": [_P] * 12 + [_I] * 8 + [_P],
     "dprnn_inter_v2_launch": [_P] * 10 + [_I] * 6 + [_P],
-    "dprnn_intra_launch": [_P] * 10 + [_L, _I, _I, _I, _P],
+    "dprnn_intra_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _P],
     "dprnn_intra_v2_launch": [_P] * 10 + [_L, _I, _I, _I, _I, _P],
     "dprnn_stack_launch": [_P] * 18 + [_I] * 5 + [_P],
     "gru_bidir_launch": [_P] * 6 + [_L, _I, _I, _I, _P],
     "gru_scan_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "relayout_fm_launch": [_P, _P] + [_L] * 4 + [_I] * 3 + [_P],
 }
 _PLANE_DTYPES = (torch.float32, torch.bfloat16)
 _STACK_FQ_MAX = 50          # csrc/dprnn_stack.cu: the block's shared memory
@@ -384,56 +496,124 @@ def _walk_rows_per_block(rows: int, blocks_per_row_tile: int, dev) -> int:
 
 
 def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
-                      wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor) -> Tensor:
+                      wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
+                      fm_batch: Optional[int] = None) -> Tensor:
     """Fused DPRNN intra stage ``x + LN(fc(bidirGRU(x)))`` on ``x [N, Fq, C]``
     (``N = B*T`` rows of the plane, recurrence along Fq, zero state).
-    Replaces ``pallas_gru.dprnn_intra_block`` / ``dprnn_intra_block_tm``."""
+    ``fm_batch=B``: the fm chain's layout, ``x [Fq, T*B, C]`` (t-major
+    rows) in and ``[T, Fq, B, C]`` out.  Replaces
+    ``pallas_gru.dprnn_intra_block`` / ``dprnn_intra_block_tm``."""
     if x.device.type == "cpu":
-        return dprnn_intra_block_plain(x, wi2, wh2, b2, wfc, bfc, g, bln)
+        return dprnn_intra_block_plain(x, wi2, wh2, b2, wfc, bfc, g, bln, fm_batch=fm_batch)
     dev = _require_cuda("dprnn_intra_block", {"x": x},
                         dict(wi2=wi2, wh2=wh2, b2=b2, wfc=wfc, bfc=bfc, g=g, bln=bln))
-    N, Fq, C = x.shape
+    if fm_batch:
+        Fq, N, C = x.shape
+        if fm_batch < 1 or N % fm_batch:
+            raise ValueError(f"dprnn_intra_block: fm_batch={fm_batch} does not divide the "
+                             f"{N} rows of x {tuple(x.shape)}")
+    else:
+        N, Fq, C = x.shape
     if C != 64 or tuple(wi2.shape) != (2 * C, 6 * C) or tuple(wh2.shape) != (2 * C, 6 * C) \
             or tuple(b2.shape) != (2, 6 * C) or tuple(wfc.shape) != (2 * C, C):
         raise ValueError(f"dprnn_intra_block: kernel takes C == 64 with packed weights; "
                          f"got x {tuple(x.shape)}, wi2 {tuple(wi2.shape)}")
-    out = torch.empty_like(x)
+    out = (torch.empty((N // fm_batch, Fq, fm_batch, C), device=dev, dtype=x.dtype)
+           if fm_batch else torch.empty_like(x))
     part = torch.empty((2, N, Fq, C), device=dev, dtype=torch.float32)
     rc = _fn("dprnn_intra", "dprnn_intra_launch")(
         x.data_ptr(), out.data_ptr(), part.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
         b2.data_ptr(), wfc.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
-        N, Fq, _walk_rows_per_block(N, 2, dev), _is_bf16(x), _stream())
+        N, Fq, _walk_rows_per_block(N, 2, dev), _is_bf16(x), fm_batch or 0, _stream())
     _check_rc(rc, "dprnn_intra_block")
     dprnn_intra_block.launches += 1
     return out
 
 
 def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
-                      bh: Tensor, wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor
-                      ) -> Tuple[Tensor, Tensor]:
+                      bh: Tensor, wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
+                      fm_batch: Optional[int] = None, h_bm: bool = False,
+                      defer: Optional[bool] = None) -> Tuple[Tensor, Tensor]:
     """Fused DPRNN inter stage on the plane ``x [B, T, Fq, C]`` from the
     carried ``h0 [B, Fq, C]``: ``out[t] = x[t] + LN(fc(GRUstep(h, x[t])))``.
-    Returns ``(out, h_last [B, Fq, C])``.  Replaces
+    Returns ``(out, h_last [B, Fq, C])``.
+
+    ``fm_batch=B``: the fm chain's layout, ``x [T, Fq*B, C]`` (f-major
+    rows) in, ``out [Fq, T, B, C]``; ``h0`` / ``h_last`` ``[Fq*B, C]`` in
+    the rows' order, or ``[B, Fq, C]`` with ``h_bm``.  ``defer`` (default
+    :func:`inter_defer` of T): the kernel writes the raw hidden and
+    :func:`inter_tail` runs the fc + LayerNorm + residual over the whole
+    plane in PyTorch, x re-read in out's layout.  Replaces
     ``pallas_gru.dprnn_inter_block``."""
+    T = x.shape[0] if fm_batch else x.shape[1]
+    if defer is None:
+        defer = inter_defer(T)
     if x.device.type == "cpu":
-        return dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln)
+        out, h_last = dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
+                                              fm_batch=fm_batch, h_bm=h_bm, defer=defer)
+    else:
+        out, h_last = _inter_launch(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
+                                    fm_batch, h_bm, defer)
+    if defer:
+        x_out = (x.reshape(T, -1, fm_batch, x.shape[-1]).transpose(0, 1) if fm_batch else x)
+        out = inter_tail(out, x_out, wfc, bfc, g, bln)
+    return out, h_last
+
+
+def _inter_launch(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, fm_batch, h_bm, defer):
     dev = _require_cuda("dprnn_inter_block", {"x": x},
                         dict(h0=h0, wi=wi, bi=bi, wh=wh, bh=bh, wfc=wfc, bfc=bfc, g=g, bln=bln))
-    B, T, Fq, C = x.shape
-    if C != 64 or tuple(h0.shape) != (B, Fq, C) or tuple(wi.shape) != (C, 3 * C) \
+    h_bm = bool(h_bm and fm_batch)
+    if fm_batch:
+        T, N, C = x.shape
+        B, Fq = fm_batch, N // max(fm_batch, 1)
+        if fm_batch < 1 or N % fm_batch:
+            raise ValueError(f"dprnn_inter_block: fm_batch={fm_batch} does not divide the "
+                             f"{N} rows of x {tuple(x.shape)}")
+        h_shape = (B, Fq, C) if h_bm else (N, C)
+        out = torch.empty((Fq, T, B, C), device=dev, dtype=x.dtype)
+    else:
+        B, T, Fq, C = x.shape
+        h_shape = (B, Fq, C)
+        out = torch.empty_like(x)
+    if C != 64 or tuple(h0.shape) != h_shape or tuple(wi.shape) != (C, 3 * C) \
             or tuple(wh.shape) != (C, 3 * C) or tuple(wfc.shape) != (C, C):
-        raise ValueError(f"dprnn_inter_block: kernel takes C == 64; got x {tuple(x.shape)}, "
-                         f"h0 {tuple(h0.shape)}, wi {tuple(wi.shape)}")
-    out = torch.empty_like(x)
+        raise ValueError(f"dprnn_inter_block: kernel takes C == 64 and h0 {h_shape}; got "
+                         f"x {tuple(x.shape)}, h0 {tuple(h0.shape)}, wi {tuple(wi.shape)}")
     h_last = torch.empty_like(h0)
     rc = _fn("dprnn_inter", "dprnn_inter_launch")(
         x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(), wi.data_ptr(),
         bi.data_ptr(), wh.data_ptr(), bh.data_ptr(), wfc.data_ptr(), bfc.data_ptr(),
         g.data_ptr(), bln.data_ptr(), B, T, Fq, _walk_rows_per_block(B * Fq, 1, dev),
-        _is_bf16(x), _stream())
+        _is_bf16(x), int(bool(fm_batch)), int(h_bm), int(bool(defer)), _stream())
     _check_rc(rc, "dprnn_inter_block")
     dprnn_inter_block.launches += 1
     return out, h_last
+
+
+def relayout_fm(x: Tensor, *, out_dtype: Optional[torch.dtype] = None) -> Tensor:
+    """The fm chain's entry permute ``x [B, T, F, C] -> [F, T, B, C]``, cast
+    to ``out_dtype`` (float32 or bfloat16; default x's) on the store.  Any
+    shape (the JAX wrapper's multiple-of-8 fallback is a TPU block limit).
+    Replaces ``pallas_gru.relayout_fm``."""
+    dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        return relayout_fm_plain(x, dtype)
+    dev = _require_cuda("relayout_fm", {"x": x}, {})
+    if dtype not in _PLANE_DTYPES or x.dim() != 4:
+        raise ValueError(f"relayout_fm: takes a 4-D plane to float32 or bfloat16; got "
+                         f"x {tuple(x.shape)} to {dtype}")
+    B, T, F, C = x.shape
+    out = torch.empty((F, T, B, C), device=dev, dtype=dtype)
+    if out.numel() == 0:
+        return out
+    vec = int(C % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+              and out.data_ptr() % (4 * out.element_size()) == 0)
+    rc = _fn("relayout_fm", "relayout_fm_launch")(
+        x.data_ptr(), out.data_ptr(), B, T, F, C, _is_bf16(x), _is_bf16(out), vec, _stream())
+    _check_rc(rc, "relayout_fm")
+    relayout_fm.launches += 1
+    return out
 
 
 def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
@@ -586,6 +766,7 @@ KERNEL_WRAPPERS = {
     "dprnn_stack": dprnn_stack,
     "dprnn_intra_block_v2": dprnn_intra_block_v2,
     "dprnn_inter_block_v2": dprnn_inter_block_v2,
+    "relayout_fm": relayout_fm,
 }
 for _w in KERNEL_WRAPPERS.values():
     _w.launches = 0

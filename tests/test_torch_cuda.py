@@ -8,11 +8,8 @@ runs on a machine with a card and no JAX (``--noconftest`` skips
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerance 1e-4 max-abs: the same float32 arithmetic summed in another
-order (see ``chip_smoke.py``, which also checks the flagship shapes).
-bfloat16 planes: both sides compute in float32 and round the plane once,
-so a float32 difference of ~1e-7 can flip one rounding: the bound is 1e-4
-plus one bfloat16 ulp of the plain value
-(``gru_kernels.err_beyond_bf16_ulp``).  Intra v2 with bfloat16 input
+order (see ``chip_smoke.py``, which also checks the flagship shapes);
+bfloat16 planes are held to it under ``gru_kernels.err_beyond_bf16_ulp``.  Intra v2 with bfloat16 input
 projections (``xp_bf16``) is held to 1e-4 on inputs whose products
 ``x . wi_cat`` are exact in float32 in any summation order
 (``chip_smoke.on_grid``), so the kernel and torch.matmul round the same
@@ -31,9 +28,8 @@ TOL = 1e-4
 BF16 = torch.bfloat16
 
 
-def _close(got, ref):
-    """Max-abs within TOL, plus one bfloat16 ulp where the plane is bf16."""
-    assert gru_kernels.err_beyond_bf16_ulp(got, ref) < TOL
+def _close(got, ref, tol=TOL):
+    assert gru_kernels.err_beyond_bf16_ulp(got, ref) < tol
 
 
 def _gru(rng, I, H, dev):
@@ -336,3 +332,145 @@ def test_cuda_exact_streaming_bf16_tiers_bit_invariant(dev, monkeypatch, quality
     for y in outs[1:]:
         np.testing.assert_array_equal(y, outs[0])
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# --------------------------------------------------------------------------- #
+# The freq-major chain: relayout_fm and the intra / inter layout modes
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,src,dst", [
+    ((4, 10, 40, 64), torch.float32, torch.float32),
+    ((4, 10, 48, 64), torch.float32, BF16),
+    ((3, 9, 11, 64), BF16, torch.float32),
+    ((5, 7, 13, 6), torch.float32, BF16),          # C % 4 != 0: the scalar path
+    ((2, 3, 5, 64), BF16, BF16),
+])
+def test_cuda_relayout_fm_bit_exact(dev, shape, src, dst):
+    x = _rand(np.random.default_rng(30), shape, dev).to(src)
+    gru_kernels.reset_launch_counts()
+    got = gru_kernels.relayout_fm(x, out_dtype=dst)
+    assert gru_kernels.launch_counts()["relayout_fm"] == 1
+    assert torch.equal(got, gru_kernels.relayout_fm_plain(x, dst))
+
+
+def _intra_args(rng, dev, C=64):
+    wi2, wh2, b2 = _pack_bidir(_gru(rng, C, C, dev), _gru(rng, C, C, dev))
+    return (wi2, wh2, b2, _rand(rng, (2 * C, C), dev, 0.3), _rand(rng, (C,), dev, 0.1),
+            1.0 + _rand(rng, (C,), dev, 0.5), _rand(rng, (C,), dev, 0.1))
+
+
+def _inter_args(rng, dev, C=64):
+    p = _gru(rng, C, C, dev)
+    return (p["wi"], p["bi"], p["wh"], p["bh"], _rand(rng, (C, C), dev, 0.3),
+            _rand(rng, (C,), dev, 0.1), 1.0 + _rand(rng, (C,), dev, 0.5),
+            _rand(rng, (C,), dev, 0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+def test_cuda_intra_fm_mode(dev, plane):
+    """fm_batch: [Fq, T*B, C] in, [T, Fq, B, C] out, with T, B, Fq all
+    different; against the plain version, and bit-identical to the
+    row-major mode on the same rows."""
+    rng = np.random.default_rng(31)
+    B, T, Fq = 5, 3, 40
+    args = _intra_args(rng, dev)
+    x4 = _rand(rng, (B, T, Fq, 64), dev).to(plane)
+    plane_fm = x4.permute(2, 1, 0, 3).reshape(Fq, T * B, 64).contiguous()
+    got = gru_kernels.dprnn_intra_block(plane_fm, *args, fm_batch=B)
+    assert got.shape == (T, Fq, B, 64)
+    _close(got, gru_kernels.dprnn_intra_block_plain(plane_fm, *args, fm_batch=B))
+    rows = gru_kernels.dprnn_intra_block(x4.transpose(0, 1).reshape(T * B, Fq, 64)
+                                         .contiguous(), *args)
+    assert torch.equal(got, rows.reshape(T, B, Fq, 64).transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("defer", [False, True])
+@pytest.mark.parametrize("h_bm", [False, True])
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+def test_cuda_inter_fm_modes(dev, plane, h_bm, defer):
+    """fm_batch x h_bm x defer against the plain version (the deferred
+    bf16 tail rounds the hidden before its fc on both sides, so a flipped
+    rounding moves the output by more than one ulp: 3e-2 there, as in
+    tests/test_torch_fm.py); the fused modes bit-identical to the
+    row-major mode on the same rows, h_bm to the rows' hidden order."""
+    rng = np.random.default_rng(32)
+    B, T, Fq = 6, 4, 16
+    args = _inter_args(rng, dev)
+    x4 = _rand(rng, (B, T, Fq, 64), dev).to(plane)
+    h4 = _rand(rng, (B, Fq, 64), dev, 0.2)
+    x_fm = x4.permute(1, 2, 0, 3).reshape(T, Fq * B, 64).contiguous()
+    h0 = h4 if h_bm else h4.transpose(0, 1).reshape(Fq * B, 64).contiguous()
+    gru_kernels.reset_launch_counts()
+    out, hl = gru_kernels.dprnn_inter_block(x_fm, h0, *args, fm_batch=B, h_bm=h_bm, defer=defer)
+    assert gru_kernels.launch_counts()["dprnn_inter_block"] == 1
+    assert out.shape == (Fq, T, B, 64) and hl.shape == h0.shape
+    ref, hl_ref = gru_kernels.dprnn_inter_block(x_fm.cpu(), h0.cpu(),
+                                                *(a.cpu() for a in args), fm_batch=B,
+                                                h_bm=h_bm, defer=defer)
+    _close(out.cpu(), ref, 3e-2 if defer and plane == BF16 else TOL)
+    _close(hl.cpu(), hl_ref)
+    if not defer:
+        rows, hl_rows = gru_kernels.dprnn_inter_block(x4, h4, *args, defer=False)
+        assert torch.equal(out, rows.permute(2, 1, 0, 3))
+        assert torch.equal(hl if h_bm else hl.reshape(Fq, B, 64).transpose(0, 1), hl_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relayout", ["0", "1"])
+def test_cuda_dprnn_fm_chain_bit_identical_to_rowmajor(dev, monkeypatch, relayout):
+    """The fm chain (DPDFNET_TPU_INTRA_TM=1, B = 32) runs the same per-row
+    arithmetic as the row-major chain: outputs and hiddens bit-identical."""
+    from dpdfnet_tpu_torch.models import dpdfnet as tmd
+
+    rng = np.random.default_rng(33)
+    B, T, Fq, K = 32, 3, 16, 2
+    blocks = []
+    for _ in range(K):
+        wi2, wh2, b2, wfc, bfc, g, bln = _intra_args(rng, dev)
+        wi, bi, wh, bh, wfc2, bfc2, g2, bln2 = _inter_args(rng, dev)
+        blocks.append({"intra": {"packed": {"wi2": wi2, "wh2": wh2, "b2": b2},
+                                 "fc": {"w": wfc, "b": bfc}, "ln": {"g": g, "b": bln}},
+                       "inter": {"gru": {"wi": wi, "bi": bi, "wh": wh, "bh": bh},
+                                 "fc": {"w": wfc2, "b": bfc2}, "ln": {"g": g2, "b": bln2}}})
+    x = _rand(rng, (B, T, Fq, 64), dev)
+    hs = [_rand(rng, (B, Fq, 64), dev, 0.2) for _ in range(K)]
+    monkeypatch.setenv("DPDFNET_TPU_ENTRY_RELAYOUT", relayout)
+    monkeypatch.setenv("DPDFNET_TPU_INTRA_TM", "0")
+    ref, hs_ref = tmd._dprnn(blocks, x, hs)
+    monkeypatch.setenv("DPDFNET_TPU_INTRA_TM", "1")
+    gru_kernels.reset_launch_counts()
+    got, hs_got = tmd._dprnn(blocks, x, hs)
+    assert gru_kernels.launch_counts()["relayout_fm"] == int(relayout)
+    assert torch.equal(got, ref)
+    for a, b in zip(hs_got, hs_ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+def test_cuda_ablation_specializations_match_plain(dev, plane):
+    """Every specialization of both ablation tools against its plain
+    version (both intra layouts), 1e-4 beyond one bf16 ulp."""
+    from dpdfnet_tpu_torch.tools import inter_step_ablation, intra_step_ablation
+
+    for errs in (intra_step_ablation.check_specializations(rows=40, T=16, dtype=plane,
+                                                           log=lambda m: None),
+                 inter_step_ablation.check_specializations(rows=40, T=9, dtype=plane,
+                                                           log=lambda m: None)):
+        assert max(errs.values()) < TOL, errs
+
+
+@pytest.mark.cuda
+def test_cuda_mode_off_bit_identical_to_record(dev):
+    """Every kernel on the shared walk with its layout modes off gives the
+    outputs recorded from the kernels before the modes were added."""
+    import json
+
+    from dpdfnet_tpu_torch.tools import mode_off_digest
+
+    record = json.loads(mode_off_digest.RECORD.read_text())
+    got = mode_off_digest.kernel_digests(gru_kernels)
+    assert mode_off_digest.compare(got, record, mode_off_digest.toolchain()) == []

@@ -1,0 +1,81 @@
+"""The port's tool plumbing that runs without a card: the ablation tools'
+``--check`` verdict and the mode-off digest record."""
+
+import json
+import math
+
+import pytest
+import torch
+
+from dpdfnet_tpu_torch.ops import gru_kernels
+from dpdfnet_tpu_torch.tools import CHECK_TOL, check_failures, mode_off_digest
+
+
+@pytest.mark.parametrize("errs,want", [
+    ({"full": 0.0, "hlast/tm": CHECK_TOL}, 0),
+    ({"full": 0.0, "floor": 2 * CHECK_TOL}, 1),
+    ({"full": math.nan, "dot": 1.0}, 2),
+])
+def test_check_failures_counts_specializations_beyond_tolerance(errs, want):
+    lines = []
+    assert check_failures(errs, log=lines.append) == want
+    assert len(lines) == want
+
+
+def test_mode_off_record_covers_every_case():
+    record = json.loads(mode_off_digest.RECORD.read_text())
+    assert set(record["digests"]) == set(mode_off_digest.CASES)
+    assert all(len(d) == 64 and int(d, 16) >= 0 for d in record["digests"].values())
+    assert set(record["toolchain"]) == {"nvcc", "device", "sms"}
+
+
+def test_mode_off_compare_names_each_difference():
+    record = {"toolchain": {"nvcc": "a", "device": "b", "sms": 1},
+              "digests": {"k1": "0" * 64, "k2": "1" * 64}}
+    assert mode_off_digest.compare(dict(record["digests"]), record, record["toolchain"]) == []
+    bad = mode_off_digest.compare({"k1": "0" * 64, "k2": "2" * 64, "k3": "3" * 64}, record,
+                                  {"nvcc": "c", "device": "b", "sms": 1})
+    assert bad[:2] == ["k2: digest differs", "k3: not in the record"]
+    assert "taken with" in bad[2]
+
+
+def test_mode_off_digests_repeat_on_the_cpu(monkeypatch):
+    """On CPU tensors the wrappers run their plain versions: the digests
+    are deterministic, and differ between cases (the inputs differ)."""
+    small = {k: v for k, v in mode_off_digest.CASES.items() if "x[896" in k or "x[8,112,48" in k}
+    monkeypatch.setattr(mode_off_digest, "CASES", small)
+    torch.set_num_threads(1)
+    a = mode_off_digest.kernel_digests(gru_kernels, device="cpu")
+    b = mode_off_digest.kernel_digests(gru_kernels, device="cpu")
+    assert a == b and len(set(a.values())) == len(small) >= 4
+
+
+def test_ln_bf16_slack_covers_a_last_bit_change_upstream():
+    """ln_bf16 rounds its statistics' terms to bfloat16: moving y by one
+    float32 ulp (another summation order) moves the output beyond a bf16
+    ulp, and ln_bf16_slack covers that move."""
+    from dpdfnet_tpu_torch.tools import inter_step_ablation as tinter
+
+    torch.set_num_threads(1)
+    x, h0, wp, bp, tail = tinter.make_inputs(4096, 8, 64, "cpu", seed=0)
+    w = tinter._weights(wp, bp, tail)
+    wi, bi, wh, bh, wfc, bfc, g, bln = w
+    h, ys = h0, []
+    for t in range(x.shape[0]):
+        h = gru_kernels.gru_cell({"wh": wh, "bh": bh}, x[t].float() @ wi + bi, h)
+        ys.append(h @ wfc + bfc)
+    y = torch.stack(ys)
+
+    def ln_bf16(y):
+        mu = y.to(torch.bfloat16).float().sum(-1, keepdim=True) / 64
+        d = y - mu
+        var = (d * d).to(torch.bfloat16).float().sum(-1, keepdim=True) / 64
+        return (x.float() + d * torch.rsqrt(var + 1e-5) * g + bln).to(x.dtype)
+
+    ref = ln_bf16(y)
+    assert torch.equal(ref, tinter.inter_plain("ln_bf16", x, h0, *w)[0])
+    away = torch.where(torch.rand(y.shape, generator=torch.Generator().manual_seed(1)) < 0.5,
+                       -math.inf, math.inf)
+    moved = ln_bf16(torch.nextafter(y, away))
+    assert gru_kernels.err_beyond_bf16_ulp(moved, ref) > CHECK_TOL
+    assert gru_kernels.err_beyond_bf16_ulp(moved, ref, tinter.ln_bf16_slack(x, h0, *w)) <= 0
