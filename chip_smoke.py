@@ -11,7 +11,13 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
 2. each kernel against its plain PyTorch version on the card at the
    flagship's shapes (dpdfnet8_48khz_hr, B=8): max-abs error and its
    tolerance, kernel ms, plain ms, the ms of one PyTorch library call of the
-   same function (a yardstick the port never calls), and the roofline bound;
+   same function (a yardstick the port never calls), and the roofline
+   bound; the kernel and its library call are timed alternately call by
+   call, 21 pairs, median [min-max]; then gru_scan and
+   ``dprnn_inter_block_v2`` at every shape the main path gives them (B=8,
+   B=64 x 112, T=1 at 64 streams, bfloat16 planes; gru_scan forward and
+   reverse; inter v2 with bfloat16 and float32 xp) against their plain
+   versions and their library calls (``tools/kernel_ab.py``);
 3. the main path: ``Engine.enhance_waveforms`` on dpdfnet8_48khz_hr with
    random contracted weights, 3 utterances (1.3, 2.0, 3.1 s) with
    ``lengths``, on the card and on the CPU with the same weights; checks
@@ -47,8 +53,8 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    and to bfloat16 and at two odd shapes, with kernel, bound, plain and
    ``permute().contiguous()`` times;
 12. every kernel on the shared walk with its layout modes off, bit-identical
-   to the committed digests of the kernels before the modes were added
-   (``tools/mode_off_digest.py``); the fm layout modes of the intra and
+   to the committed digests (``tools/mode_off_digests.json``, whose note
+   names the commit each case was taken on); the fm layout modes of the intra and
    inter kernels (``fm_batch``, ``h_bm``, ``defer``) against their plain
    versions at B=64 x 112 frames, each fused mode bit-identical to the
    row-major mode on the same rows, and both DPRNN stacks through the fm
@@ -80,6 +86,9 @@ import time
 
 import numpy as np
 import torch
+
+# the roofline bound, and kernel / library timed alternately call by call
+from dpdfnet_tpu_torch.tools.kernel_ab import bound, interleaved_ms as yardstick
 
 # Tolerances (max-abs, float32 everywhere, TF32 off).
 # Kernel vs plain version: the same f32 arithmetic summed in another order;
@@ -119,9 +128,6 @@ TIER_REL_RMS = 0.1
 # state's dtypes.
 TURBO_STREAM_REL_RMS = 1e-2
 TURBO_STATE_REL_RMS = 0.1
-
-PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
-PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 
 MODEL = "dpdfnet8_48khz_hr"
 PALLAS = "dpdfnet_tpu/ops/pallas_gru.py"
@@ -181,11 +187,9 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """(ms, what bounds it): the larger of FLOPs over peak and bytes over
-    bandwidth."""
-    t_f, t_b = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
+def spread(t) -> str:
+    """``median [min-max]`` of an ``interleaved_ms`` entry."""
+    return f"{t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}]"
 
 
 def segments(eng, S: int) -> int:
@@ -298,26 +302,29 @@ def kernel_phase(params, cfg, gk):
         x = randn(B * T, Fq, C)
         err = check(f"dprnn_intra_block Fq={Fq}", gk.dprnn_intra_block(x, *ia),
                     gk.dprnn_intra_block_plain(x, *ia))
-        ms = cuda_ms(lambda: gk.dprnn_intra_block(x, *ia))
+        t = yardstick({"kernel": lambda: gk.dprnn_intra_block(x, *ia),
+                       "library": lambda: lib_intra(x)})
+        ms, lib_ms = t["kernel"][0], t["library"][0]
         plain_ms = cuda_ms(lambda: gk.dprnn_intra_block_plain(x, *ia), 3)
         lib_err = (lib_intra(x) - gk.dprnn_intra_block_plain(x, *ia)).abs().max().item()
-        lib_ms = cuda_ms(lambda: lib_intra(x))
         n = B * T * Fq
         b_ms, b_by = bound(28 * C * C * n, 2 * C * 4 * n + w_bytes(ia))
         rows[("dprnn_intra_block", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel dprnn_intra_block x[{B * T},{Fq},{C}]: max_abs {err:.3e} "
             f"(tol {KERNEL_TOL:.0e}; cuDNN yardstick differs by {lib_err:.1e}) "
-            f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-            f"bound_ms {b_ms:.4f} ({b_by})")
+            f"ms {spread(t['kernel'])} plain_ms {plain_ms:.4f} library_ms "
+            f"{spread(t['library'])} bound_ms {b_ms:.4f} ({b_by})")
         if Fq == cfg.dprnn_df_feat:
             xb = x.to(bf16)
             err_b = check_bf16("dprnn_intra_block bf16 plane", gk.dprnn_intra_block(xb, *ia),
                                gk.dprnn_intra_block_plain(xb, *ia))
-            ms_b = cuda_ms(lambda: gk.dprnn_intra_block(xb, *ia))
+            t = yardstick({"kernel": lambda: gk.dprnn_intra_block(xb, *ia),
+                           "library": lambda: lib_intra(x)})
             log(f"kernel dprnn_intra_block bf16 plane x[{B * T},{Fq},{C}]: max_abs {err_b:.3e} "
-                f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {ms_b:.4f} (f32 plane {ms:.4f})")
-            rows[("bf16", "dprnn_intra_block")] = dict(err=err_b, ms=ms_b)
+                f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {spread(t['kernel'])} (f32 plane "
+                f"{ms:.4f}) library_ms {spread(t['library'])}")
+            rows[("bf16", "dprnn_intra_block")] = dict(err=err_b, ms=t["kernel"][0])
 
         # ---- intra v2: the same plane, projections hoisted ----
         err = check(f"dprnn_intra_block_v2 f32 xp Fq={Fq}",
@@ -341,44 +348,49 @@ def kernel_phase(params, cfg, gk):
                                  f"cannot tell the modes apart")
         v1_err = (gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False)
                   - gk.dprnn_intra_block(x, *ia)).abs().max().item()
-        ms = cuda_ms(lambda: gk.dprnn_intra_block_v2(x, *iva))
-        ms_f = cuda_ms(lambda: gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False))
+        t = yardstick({"kernel": lambda: gk.dprnn_intra_block_v2(x, *iva),
+                       "f32 xp": lambda: gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False),
+                       "library": lambda: lib_intra(x)})
+        ms, ms_f, lib_ms = t["kernel"][0], t["f32 xp"][0], t["library"][0]
         plain_ms = cuda_ms(lambda: gk.dprnn_intra_block_v2_plain(x, *iva), 3)
-        lib_ms = cuda_ms(lambda: lib_intra(x))
         b_ms, b_by = bound(28 * C * C * n, 2 * C * 4 * n + w_bytes(iva))
         rows[("dprnn_intra_block_v2", Fq)] = dict(err=max(err, err_xb), ms=ms, plain_ms=plain_ms,
                                                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel dprnn_intra_block_v2 x[{B * T},{Fq},{C}]: max_abs {err:.3e} with f32 xp "
             f"(tol {KERNEL_TOL:.0e}), {err_xb:.3e} with bf16 xp on exact-sum inputs (tol "
             f"{KERNEL_TOL:.0e}; the rounding itself moves the output by {moved:.3e}), "
-            f"vs the v1 kernel {v1_err:.3e}; ms {ms:.4f} (bf16 xp; f32 xp {ms_f:.4f}) "
-            f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            f"vs the v1 kernel {v1_err:.3e}; ms {spread(t['kernel'])} (bf16 xp; f32 xp "
+            f"{spread(t['f32 xp'])}) plain_ms {plain_ms:.4f} library_ms {spread(t['library'])} "
+            f"bound_ms {b_ms:.4f} ({b_by})")
 
         # ---- inter: [B, T, Fq, C] with a random carried h0 ----
         x = randn(B, T, Fq, C)
         h0 = randn(B, Fq, C, scale=0.5)
         err = check(f"dprnn_inter_block Fq={Fq}", gk.dprnn_inter_block(x, h0, *ea),
                     gk.dprnn_inter_block_plain(x, h0, *ea))
-        ms = cuda_ms(lambda: gk.dprnn_inter_block(x, h0, *ea))
+        t = yardstick({"kernel": lambda: gk.dprnn_inter_block(x, h0, *ea),
+                       "library": lambda: lib_inter(x, h0)})
+        ms, lib_ms = t["kernel"][0], t["library"][0]
         plain_ms = cuda_ms(lambda: gk.dprnn_inter_block_plain(x, h0, *ea), 3)
-        lib_ms = cuda_ms(lambda: lib_inter(x, h0))
         n = B * Fq * T
         hb = 2 * B * Fq * C * 4
         b_ms, b_by = bound(14 * C * C * n, 2 * C * 4 * n + hb + w_bytes(ea))
         rows[("dprnn_inter_block", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel dprnn_inter_block x[{B},{T},{Fq},{C}] h0 random: max_abs {err:.3e} "
-            f"(tol {KERNEL_TOL:.0e}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            f"(tol {KERNEL_TOL:.0e}) ms {spread(t['kernel'])} plain_ms {plain_ms:.4f} "
+            f"library_ms {spread(t['library'])} bound_ms {b_ms:.4f} ({b_by})")
         inter_ms = ms
         if Fq == cfg.dprnn_df_feat:
             xb = x.to(bf16)
             err_b = check_bf16("dprnn_inter_block bf16 plane", gk.dprnn_inter_block(xb, h0, *ea),
                                gk.dprnn_inter_block_plain(xb, h0, *ea))
-            ms_b = cuda_ms(lambda: gk.dprnn_inter_block(xb, h0, *ea))
+            t = yardstick({"kernel": lambda: gk.dprnn_inter_block(xb, h0, *ea),
+                           "library": lambda: lib_inter(x, h0)})
             log(f"kernel dprnn_inter_block bf16 plane x[{B},{T},{Fq},{C}]: max_abs {err_b:.3e} "
-                f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {ms_b:.4f} (f32 plane {ms:.4f})")
-            rows[("bf16", "dprnn_inter_block")] = dict(err=err_b, ms=ms_b)
+                f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {spread(t['kernel'])} (f32 plane "
+                f"{ms:.4f}) library_ms {spread(t['library'])}")
+            rows[("bf16", "dprnn_inter_block")] = dict(err=err_b, ms=t["kernel"][0])
 
         # ---- inter v2: the same plane, xp = x . Wi + bi in bf16 given ----
         def xp_of(x):
@@ -387,18 +399,19 @@ def kernel_phase(params, cfg, gk):
         xp = xp_of(x)
         err = check(f"dprnn_inter_block_v2 Fq={Fq}", gk.dprnn_inter_block_v2(xp, x, h0, *eva),
                     gk.dprnn_inter_block_v2_plain(xp, x, h0, *eva))
-        ms = cuda_ms(lambda: gk.dprnn_inter_block_v2(xp, x, h0, *eva))
-        ms_gemm = cuda_ms(lambda: gk.dprnn_inter_block_v2(xp_of(x), x, h0, *eva))
+        t = yardstick({"kernel": lambda: gk.dprnn_inter_block_v2(xp, x, h0, *eva),
+                       "with GEMM": lambda: gk.dprnn_inter_block_v2(xp_of(x), x, h0, *eva),
+                       "library": lambda: lib_inter(x, h0)})
+        ms, lib_ms = t["kernel"][0], t["library"][0]
         plain_ms = cuda_ms(lambda: gk.dprnn_inter_block_v2_plain(xp, x, h0, *eva), 3)
-        lib_ms = cuda_ms(lambda: lib_inter(x, h0))
         b_ms, b_by = bound(8 * C * C * n, (3 * C * 2 + 2 * C * 4) * n + hb + w_bytes(eva))
         bg_ms, bg_by = bound(14 * C * C * n, 2 * C * 4 * n + hb + w_bytes(ea))
         rows[("dprnn_inter_block_v2", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                                  library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel dprnn_inter_block_v2 x[{B},{T},{Fq},{C}] xp bf16, h0 random: max_abs "
-            f"{err:.3e} (tol {KERNEL_TOL:.0e}) ms {ms:.4f} alone, {ms_gemm:.4f} with its xp "
-            f"GEMM (v1 inter {inter_ms:.4f}) plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-            f"(cuDNN GRU + linear + LN) bound_ms {b_ms:.4f} ({b_by}; with the GEMM "
+            f"{err:.3e} (tol {KERNEL_TOL:.0e}) ms {spread(t['kernel'])} alone, "
+            f"{spread(t['with GEMM'])} with its xp GEMM (v1 inter {inter_ms:.4f}) plain_ms "
+            f"{plain_ms:.4f} library_ms {spread(t['library'])} (cuDNN GRU + linear + LN) bound_ms {b_ms:.4f} ({b_by}; with the GEMM "
             f"{bg_ms:.4f}, {bg_by})")
 
     # ---- gru_scan: [B, T, I=H] from h0, forward and reverse ----
@@ -410,44 +423,46 @@ def kernel_phase(params, cfg, gk):
     for reverse in (False, True):
         err = check(f"gru_scan reverse={reverse}", gk.gru_scan(x, h0, *ga, reverse=reverse),
                     gk.gru_scan_plain(x, h0, *ga, reverse=reverse))
-        ms = cuda_ms(lambda: gk.gru_scan(x, h0, *ga, reverse=reverse))
-        plain_ms = cuda_ms(lambda: gk.gru_scan_plain(x, h0, *ga, reverse=reverse), 3)
         lib = gru_module(*ga)
-        xin = x.flip(1) if reverse else x
-        lib_ms = cuda_ms(lambda: lib(xin, h0[None]))
+        xin = (x.flip(1) if reverse else x).contiguous()
+        t = yardstick({"kernel": lambda: gk.gru_scan(x, h0, *ga, reverse=reverse),
+                       "library": lambda: lib(xin, h0[None])})
+        ms, lib_ms = t["kernel"][0], t["library"][0]
+        plain_ms = cuda_ms(lambda: gk.gru_scan_plain(x, h0, *ga, reverse=reverse), 3)
         n = B * T
         b_ms, b_by = bound(6 * H * (I + H) * n,
                            (I + H) * 4 * n + 2 * B * H * 4 + w_bytes(ga))
         rows[("gru_scan", reverse)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         log(f"kernel gru_scan x[{B},{T},{I}] H={H} reverse={reverse}: max_abs {err:.3e} "
-            f"(tol {KERNEL_TOL:.0e}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms {lib_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+            f"(tol {KERNEL_TOL:.0e}) ms {spread(t['kernel'])} plain_ms {plain_ms:.4f} "
+            f"library_ms {spread(t['library'])} bound_ms {b_ms:.4f} ({b_by})")
     xb = x.to(bf16)
     err_b = check_bf16("gru_scan bf16 plane", gk.gru_scan(xb, h0, *ga),
                        gk.gru_scan_plain(xb, h0, *ga))
-    ms_b = cuda_ms(lambda: gk.gru_scan(xb, h0, *ga))
+    t = yardstick({"kernel": lambda: gk.gru_scan(xb, h0, *ga), "library": lambda: lib(x, h0[None])})
     log(f"kernel gru_scan bf16 plane x[{B},{T},{I}]: max_abs {err_b:.3e} "
-        f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {ms_b:.4f} (f32 plane "
-        f"{rows[('gru_scan', False)]['ms']:.4f})")
-    rows[("bf16", "gru_scan")] = dict(err=err_b, ms=ms_b)
+        f"(tol {KERNEL_TOL:.0e} + 1 bf16 ulp) ms {spread(t['kernel'])} (f32 plane "
+        f"{rows[('gru_scan', False)]['ms']:.4f}) library_ms {spread(t['library'])}")
+    rows[("bf16", "gru_scan")] = dict(err=err_b, ms=t["kernel"][0])
 
     # ---- gru_bidir: [B*T, Fq=48, C] rows from zero state ----
     Fq = cfg.dprnn_df_feat
     x = randn(B * T, Fq, C)
     ba = (pk["wi2"], pk["wh2"], pk["b2"])
     err = check("gru_bidir", gk.gru_bidir(x, *ba), gk.gru_bidir_plain(x, *ba))
-    ms = cuda_ms(lambda: gk.gru_bidir(x, *ba))
-    plain_ms = cuda_ms(lambda: gk.gru_bidir_plain(x, *ba), 3)
     lib = gru_module(intra["fw"]["wi"], intra["fw"]["bi"], intra["fw"]["wh"],
                      intra["fw"]["bh"], bidir=intra["bw"])
-    lib_ms = cuda_ms(lambda: lib(x))
+    t = yardstick({"kernel": lambda: gk.gru_bidir(x, *ba), "library": lambda: lib(x)})
+    ms, lib_ms = t["kernel"][0], t["library"][0]
+    plain_ms = cuda_ms(lambda: gk.gru_bidir_plain(x, *ba), 3)
     n = B * T * Fq
     b_ms, b_by = bound(24 * C * C * n, 3 * C * 4 * n + w_bytes(ba))
     rows[("gru_bidir", Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                    bound_ms=b_ms, bound_by=b_by)
     log(f"kernel gru_bidir x[{B * T},{Fq},{C}]: max_abs {err:.3e} (tol {KERNEL_TOL:.0e}) "
-        f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} (cuDNN bidir GRU) "
+        f"ms {spread(t['kernel'])} plain_ms {plain_ms:.4f} library_ms {spread(t['library'])} "
+        f"(cuDNN bidir GRU) "
         f"bound_ms {b_ms:.4f} ({b_by})")
 
     # ---- dprnn_stack: the streaming shape and the offline shape ----
@@ -459,7 +474,9 @@ def kernel_phase(params, cfg, gk):
             h0 = randn(K, Bs, Fq, C, scale=0.5)
             err = check(f"dprnn_stack {label} Fq={Fq}", gk.dprnn_stack(x, h0, stacked),
                         gk.dprnn_stack_plain(x, h0, stacked))
-            ms = cuda_ms(lambda: gk.dprnn_stack(x, h0, stacked), 10 if Ts == 1 else 3)
+            t = yardstick({"kernel": lambda: gk.dprnn_stack(x, h0, stacked)},
+                          21 if Ts == 1 else 5)
+            ms = t["kernel"][0]
             plain_ms = cuda_ms(lambda: gk.dprnn_stack_plain(x, h0, stacked), 3 if Ts == 1 else 1)
             n = Bs * Ts * Fq * K
             b_ms, b_by = bound(42 * C * C * n, 2 * (x.numel() + h0.numel()) * 4
@@ -468,7 +485,7 @@ def kernel_phase(params, cfg, gk):
                                                     library_ms=None, bound_ms=b_ms,
                                                     bound_by=b_by)
             log(f"kernel dprnn_stack {label} x[{Bs},{Ts},{Fq},{C}] K={K}: max_abs {err:.3e} "
-                f"(tol {KERNEL_TOL:.0e}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms none "
+                f"(tol {KERNEL_TOL:.0e}) ms {spread(t['kernel'])} plain_ms {plain_ms:.4f} library_ms none "
                 f"(no single PyTorch call runs a DPRNN stack) bound_ms {b_ms:.4f} ({b_by})")
     torch.cuda.synchronize()
     return rows
@@ -930,20 +947,20 @@ def relayout_phase(gk):
 
 
 def mode_off_phase(gk):
-    """Every kernel on the shared walk (DPRNN intra / inter and their v2
-    forms, gru_scan, gru_bidir, the stack) with its layout modes off,
-    against the committed digests of the kernels before the modes were
-    added (``tools/mode_off_digests.json``): bit-identical outputs."""
+    """Every DPRNN / GRU kernel (DPRNN intra / inter and their v2 forms,
+    gru_scan, gru_bidir, the stack) with its layout modes off, against the
+    committed digests (``tools/mode_off_digests.json``): bit-identical
+    outputs."""
     from dpdfnet_tpu_torch.tools import mode_off_digest as mod
 
     record = json.loads(mod.RECORD.read_text())
     here = mod.toolchain()
     bad = mod.compare(mod.kernel_digests(gk), record, here)
     if bad:
-        raise AssertionError("mode off: not bit-identical to the kernels before the layout "
-                             "modes:\n  " + "\n  ".join(bad))
-    log(f"mode off: {len(record['digests'])} cases of the walk kernels bit-identical (SHA-256 "
-        f"of their outputs, max_abs 0) to the record of the kernels before the layout modes "
+        raise AssertionError("mode off: not bit-identical to the committed digests:\n  "
+                             + "\n  ".join(bad))
+    log(f"mode off: {len(record['digests'])} cases of the DPRNN / GRU kernels bit-identical "
+        f"(SHA-256 of their outputs, max_abs 0) to the committed record "
         f"({json.dumps(record['toolchain'])})")
 
 
@@ -1292,6 +1309,9 @@ def main() -> int:
 
     # ---- phase 2: kernels vs plain versions ----
     kernel_rows = kernel_phase(prepare_inference_params(params, cfg), cfg, gk)
+    from dpdfnet_tpu_torch.tools import kernel_ab
+
+    kernel_ab.kernel_rows(gk, log)
 
     # ---- phase 3: the main path, card vs CPU ----
     rng = np.random.default_rng(0)

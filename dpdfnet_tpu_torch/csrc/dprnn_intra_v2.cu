@@ -47,8 +47,7 @@ dprnn_intra_v2_walk_kernel(const TP* __restrict__ xp, float* __restrict__ part,
   FusedWeights w{wh_big, b2 + 6 * C, 8 * C, d * C, 2 * C, d * C, 6 * C + d * C};
   XpRows xr{Rows{N, 0, (int64_t)L * 6 * C, 6 * C}, 2 * C, d * C};
   Epilogue<float> ep{nullptr, nullptr, nullptr, nullptr, part + (int64_t)d * N * L * C, 0.0f};
-  gru64_v2_walk<RPT, MODE_FC_PART>(xp, xr, static_cast<const float*>(nullptr), rows, N, L,
-                                   d == 1, w, ep, nullptr, nullptr);
+  gru64_v2_walk<RPT>(xp, xr, rows, N, L, d == 1, w, ep, nullptr, nullptr);
 }
 
 template <int RPT, typename TP>

@@ -1,9 +1,10 @@
-// Shared C = 64 "v2" GRU walk for dprnn_inter_v2.cu and dprnn_intra_v2.cu:
-// the input projections xp = x . Wi + bi arrive precomputed, and each step
-// runs ONE product of the new hidden with the fused [Wh | Wfc] (64 x 256):
-// its first 3C columns are the next step's raw h . Wh, its last C columns
-// this step's fc.  So the only dependent chain per step is gates -> h_new
-// -> one 64-deep product.
+// The C = 64 "v2" GRU walk of dprnn_intra_v2.cu: the input projections
+// xp = x . Wi + bi arrive precomputed, and each step runs ONE product of
+// the new hidden with the fused [Wh | Wfc] (64 x 256): its first 3C
+// columns are the next step's raw h . Wh, its last C columns this step's
+// fc partial.  So the only dependent chain per step is gates -> h_new ->
+// one 64-deep product.  (dprnn_inter_v2.cu has a walk of its own, one
+// warp per row group.)
 //
 // One thread block owns R = GROUPS * RPT rows; the 256 threads are 4 row
 // groups of 64, thread (grp, u) owns hidden unit u of rows grp, grp + 4,
@@ -12,15 +13,13 @@
 // a ping-pong shared buffer (one barrier per step).  [Wh | Wfc] (64 KB
 // f32) stays in shared memory for the whole walk.  xp is read straight
 // from device memory (each thread its own three gate columns, coalesced
-// across u) in float32 or bfloat16; the plane x / out likewise.  All
-// arithmetic is float32.
+// across u) in float32 or bfloat16.  All arithmetic is float32.
 //
 // Per step and row (bh added at use; bh_n inside r *, as in torch):
 //     r = sigma(xp_r + hh_r + bh_r) ; z = sigma(xp_z + hh_z + bh_z)
 //     n = tanh(xp_n + r * (hh_n + bh_n)) ; h = (1 - z) * n + z * h
 //     [hh | y] = h . [Wh | Wfc]
-// then MODE_LN_RESIDUAL: out = x + LN(y + bfc) * g + bln (inter v2), or
-// MODE_FC_PART: out = y, one direction's fc partial (intra v2).
+// then out = y, one direction's fc partial.
 #pragma once
 
 #include "gru64_walk.cuh"
@@ -44,29 +43,26 @@ struct XpRows {
 
 template <int RPT>
 constexpr int v2_smem_floats() {
-  // sw [C][4C], sh [2][R][C], sred [2][2][R][2]
-  return C * 4 * C + 2 * (GROUPS * RPT) * C + 8 * (GROUPS * RPT);
+  // sw [C][4C], sh [2][R][C]
+  return C * 4 * C + 2 * (GROUPS * RPT) * C;
 }
 
 // Walk S steps; h0 == nullptr starts from zeros, h_last == nullptr skips
-// the final hidden (both [N, C] f32).  x is read only in MODE_LN_RESIDUAL.
-template <int RPT, int MODE, typename TP, typename TX, typename TO>
-__device__ void gru64_v2_walk(const TP* __restrict__ xp, XpRows xr, const TX* __restrict__ x,
-                              Rows rows, int64_t N, int S, bool reverse, FusedWeights w,
-                              Epilogue<TO> ep, const float* __restrict__ h0,
-                              float* __restrict__ h_last) {
+// the final hidden (both [N, C] f32).  Step t's fc partial y goes to
+// ep.out at rows.off(n, t) + u.
+template <int RPT, typename TP, typename TO>
+__device__ void gru64_v2_walk(const TP* __restrict__ xp, XpRows xr, Rows rows, int64_t N, int S,
+                              bool reverse, FusedWeights w, Epilogue<TO> ep,
+                              const float* __restrict__ h0, float* __restrict__ h_last) {
   constexpr int R = GROUPS * RPT;
   constexpr int W4 = 4 * C;
   extern __shared__ __align__(16) float smem[];
   float* sw = smem;                  // [C][4C]
   float* sh = sw + C * W4;           // [2][R][C]
-  float* sred = sh + 2 * R * C;      // [2 parity][2 mean/var][R][2 halves]
 
   const int tid = threadIdx.x;
   const int u = tid % C;
   const int grp = tid / C;
-  const int half = (tid / 32) % 2;
-  const int lane = tid % 32;
   const int64_t row0 = (int64_t)blockIdx.x * R;
 
   for (int i = tid; i < C * W4; i += THREADS) {
@@ -83,12 +79,6 @@ __device__ void gru64_v2_walk(const TP* __restrict__ xp, XpRows xr, const TX* __
   }
   const float bhr = w.bh[w.col0 + u], bhz = w.bh[w.gstride + w.col0 + u],
               bhn = w.bh[2 * w.gstride + w.col0 + u];
-  float gain = 0.0f, shift = 0.0f, fcb = 0.0f;
-  if (MODE == MODE_LN_RESIDUAL) {
-    gain = ep.g[u];
-    shift = ep.bln[u];
-    fcb = ep.bfc[u];
-  }
   __syncthreads();
 
   // raw h0 . Wh for step 0 (zero for a zero start)
@@ -155,43 +145,10 @@ __device__ void gru64_v2_walk(const TP* __restrict__ xp, XpRows xr, const TX* __
       }
     }
 
-    if constexpr (MODE == MODE_FC_PART) {
 #pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int64_t n = row0 + grp + GROUPS * j;
-        if (n < N) store_f(ep.out + rows.off(n, t) + u, y[j]);
-      }
-    } else {
-      // LayerNorm over the 64 units of each row: two warps per row group
-      float* sm = sred + par * 4 * R;
-      float* sq = sm + 2 * R;
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        y[j] += fcb;
-        const float v = warp_sum(y[j]);
-        if (lane == 0) sm[(grp + GROUPS * j) * 2 + half] = v;
-      }
-      __syncthreads();
-      float dv[RPT];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int r = grp + GROUPS * j;
-        dv[j] = y[j] - (sm[r * 2] + sm[r * 2 + 1]) * (1.0f / C);
-        const float v = warp_sum(dv[j] * dv[j]);
-        if (lane == 0) sq[r * 2 + half] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        const int r = grp + GROUPS * j;
-        const int64_t n = row0 + r;
-        const float var = (sq[r * 2] + sq[r * 2 + 1]) * (1.0f / C);
-        const float yn = dv[j] * (1.0f / sqrtf(var + ep.eps));
-        if (n < N) {
-          const int64_t o = rows.off(n, t) + u;
-          store_f(ep.out + o, load_f(x + o) + (yn * gain + shift));
-        }
-      }
+    for (int j = 0; j < RPT; ++j) {
+      const int64_t n = row0 + grp + GROUPS * j;
+      if (n < N) store_f(ep.out + rows.off(n, t) + u, y[j]);
     }
   }
 

@@ -3,8 +3,11 @@
 // (gru_scan.cu, dprnn_intra_v2.cu).  X [M, K] is float32 or bfloat16, W
 // [K, Nc] and bias [Nc] float32; the sum is float32 and rounds once into Y
 // (float32 or bfloat16).  A 64 x 64 output tile per block of 256 threads,
-// 4 x 4 outputs per thread, K in steps of 16; the k order of every output
-// is fixed, so a row's result does not depend on M.
+// 4 x 4 outputs per thread, K in steps of 16, the next step's tiles loaded
+// into registers while the current one is multiplied (at small M, as one
+// exact streaming hop gives gru_scan, the kernel is bound by that load
+// latency); the k order of every output is fixed, so a row's result does
+// not depend on M.
 #pragma once
 
 #include "gru64_walk.cuh"
@@ -23,20 +26,31 @@ proj_gemm_kernel(const TX* __restrict__ X, const float* __restrict__ W,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int64_t m0 = (int64_t)blockIdx.y * PBM;
   const int n0 = blockIdx.x * PBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += PBK) {
-    for (int i = threadIdx.x; i < PBM * PBK; i += 256) {
-      const int mm = i / PBK, kk = i % PBK;
-      const int64_t m = m0 + mm;
-      const int k = k0 + kk;
-      sa[kk][mm] = (m < M && k < K) ? load_f(X + m * K + k) : 0.0f;
+  // this thread's 4 elements of each tile, fetched one tile ahead so the
+  // loads of tile k0 + PBK are in flight while tile k0 is multiplied
+  float ra[4], rb[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = threadIdx.x + 256 * e;
+      const int64_t m = m0 + i / PBK;
+      const int ka = k0 + i % PBK;
+      ra[e] = (m < M && ka < K) ? load_f(X + m * K + ka) : 0.0f;
+      const int kb = k0 + i / PBN, n = n0 + i % PBN;
+      rb[e] = (kb < K && n < Nc) ? W[(int64_t)kb * Nc + n] : 0.0f;
     }
-    for (int i = threadIdx.x; i < PBK * PBN; i += 256) {
-      const int kk = i / PBN, nn = i % PBN;
-      const int k = k0 + kk, n = n0 + nn;
-      sb[kk][nn] = (k < K && n < Nc) ? W[(int64_t)k * Nc + n] : 0.0f;
+  };
+  float acc[4][4] = {};
+  fetch(0);
+  for (int k0 = 0; k0 < K; k0 += PBK) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = threadIdx.x + 256 * e;
+      sa[i % PBK][i / PBK] = ra[e];
+      sb[i / PBN][i % PBN] = rb[e];
     }
     __syncthreads();
+    if (k0 + PBK < K) fetch(k0 + PBK);
 #pragma unroll
     for (int kk = 0; kk < PBK; ++kk) {
       float a[4], b[4];

@@ -66,7 +66,9 @@ hops), offline B=64 x 4 s within 1.5% (xRT 366.2 / 352.8 against 360.7 /
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -422,12 +424,13 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
     "dprnn_inter_launch": [_P] * 12 + [_I] * 8 + [_P],
-    "dprnn_inter_v2_launch": [_P] * 10 + [_I] * 6 + [_P],
+    "dprnn_inter_v2_launch": [_P] * 10 + [_I] * 8 + [_P],
     "dprnn_intra_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _P],
     "dprnn_intra_v2_launch": [_P] * 10 + [_L, _I, _I, _I, _I, _P],
     "dprnn_stack_launch": [_P] * 18 + [_I] * 5 + [_P],
     "gru_bidir_launch": [_P] * 6 + [_L, _I, _I, _I, _P],
-    "gru_scan_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "gru_scan_launch": [_P] * 9 + [_I] * 8 + [_P],
+    "gru_scan_max_clusters": [_I, ctypes.POINTER(ctypes.c_int)],
     "relayout_fm_launch": [_P, _P] + [_L] * 4 + [_I] * 3 + [_P],
 }
 _PLANE_DTYPES = (torch.float32, torch.bfloat16)
@@ -493,6 +496,99 @@ def _sm_count(dev: torch.device) -> int:
 def _walk_rows_per_block(rows: int, blocks_per_row_tile: int, dev) -> int:
     """8 rows per block while 16 would leave SMs idle, else 16."""
     return 16 if -(-rows // 16) * blocks_per_row_tile >= _sm_count(dev) else 8
+
+
+# --------------------------------------------------------------------------- #
+# Launch plans of the inter v2 walk and the cluster GRU scan (pure Python, so
+# the CPU tests check them; the kernels index rows exactly as ``rows`` says)
+# --------------------------------------------------------------------------- #
+
+SMEM_PER_BLOCK = 232448     # bytes of shared memory one H100 block may use (227 KB)
+CLUSTER_MAX = 8             # the portable thread-block cluster size
+GRU_SCAN_H_MAX = 32 * CLUSTER_MAX   # csrc/gru_scan.cu: one CTA per 32 hidden units
+
+
+@dataclass(frozen=True)
+class InterV2Plan:
+    """``csrc/dprnn_inter_v2.cu``: ``blocks`` blocks of ``warps`` warps,
+    each warp owning ``rows_per_warp`` consecutive rows of the plane."""
+    rows_per_warp: int
+    warps: int
+    blocks: int
+    smem_bytes: int
+
+    def rows(self, block: int, warp: int) -> range:
+        start = (block * self.warps + warp) * self.rows_per_warp
+        return range(start, start + self.rows_per_warp)
+
+
+def inter_v2_plan(N: int, sms: int) -> InterV2Plan:
+    """The launch plan of the inter v2 walk for ``N = B * Fq`` rows on a
+    card with ``sms`` SMs.  Rows per warp: 2 while that still gives every
+    SM two warps (each weight load then feeds two rows), else 1.  Warps per
+    block (up to 8): one block per SM while the grid has at most 4 warps
+    per SM, else two blocks per SM.  Each block stages the 64 KB of packed
+    weights once; with at most 72 KB of shared memory per block, 3 blocks
+    fit an SM.  On an H100 at 700 W this was the fastest plan of a sweep
+    over rows per warp and warps per block at B=8 (384 rows: 1 row per
+    warp, 3 warps per block) and B=64 (3072 rows: 2 rows per warp, 6
+    warps per block)."""
+    if N < 1 or sms < 1:
+        raise ValueError(f"inter_v2_plan: N={N}, sms={sms}")
+    R = 2 if -(-N // 2) >= 2 * sms else 1
+    warps_total = -(-N // R)
+    per_sm = 1 if warps_total <= 4 * sms else 2
+    warps = min(8, -(-warps_total // (per_sm * sms)))
+    smem = 4 * (64 * 256 + warps * 2 * R * 64)
+    return InterV2Plan(R, warps, -(-warps_total // warps), smem)
+
+
+@dataclass(frozen=True)
+class GruScanPlan:
+    """``csrc/gru_scan.cu``: ``clusters`` clusters of ``cluster`` CTAs (one
+    per 32 hidden units, ``threads`` = H threads each), cluster q walking
+    rows q * R .. q * R + R - 1 (``rows_per_cluster`` = R)."""
+    cluster: int
+    rows_per_cluster: int
+    clusters: int
+    threads: int
+    smem_bytes: int
+
+    def rows(self, q: int) -> range:
+        return range(q * self.rows_per_cluster, (q + 1) * self.rows_per_cluster)
+
+    def units(self, rank: int) -> range:
+        return range(32 * rank, 32 * rank + 32)
+
+
+def _check_scan_shape(N: int, H: int) -> None:
+    if H % 32 or not 32 <= H <= GRU_SCAN_H_MAX or N < 1:
+        raise ValueError(f"gru_scan: the kernel takes H a multiple of 32 from 32 to "
+                         f"{GRU_SCAN_H_MAX} and N >= 1; got H={H}, N={N}")
+
+
+def gru_scan_plan(N: int, H: int, sms: int, max_clusters: Optional[int] = None) -> GruScanPlan:
+    """The launch plan of the cluster GRU scan for N rows of hidden size H:
+    S = H / 32 CTAs per cluster, R rows per cluster the fewest of 1, 2, 4
+    and 8 that keep every cluster resident at once (``max_clusters``,
+    default ``sms // S``; the wrapper asks the device), else 8.  H must be
+    a multiple of 32 up to ``GRU_SCAN_H_MAX`` (256), where the cluster
+    reaches the portable size of 8."""
+    _check_scan_shape(N, H)
+    S = H // 32
+    cap = max(1, max_clusters if max_clusters is not None else sms // S)
+    R = next((r for r in (1, 2, 4) if -(-N // r) <= cap), 8)
+    smem = 4 * (2 * R * H + S * R * 3 * 32)
+    return GruScanPlan(S, R, -(-N // R), H, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _gru_scan_max_clusters(H: int, device_index: int) -> int:
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _check_rc(_fn("gru_scan", "gru_scan_max_clusters")(H, ctypes.byref(n)),
+                  "gru_scan_max_clusters")
+    return n.value
 
 
 def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
@@ -673,26 +769,28 @@ def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
 def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tensor,
              *, reverse: bool = False) -> Tuple[Tensor, Tensor]:
     """GRU over ``x [N, T, I]`` (batch-major) from ``h0 [N, H]``, forward
-    or reverse in time; returns ``(ys [N, T, H], h_last [N, H])``.
-    Replaces ``pallas_gru.gru_scan_tm``."""
+    or reverse in time; returns ``(ys [N, T, H], h_last [N, H])``.  The
+    kernel takes H a multiple of 32 from 32 to ``GRU_SCAN_H_MAX`` (256,
+    every shipped ``gru_dim``) and raises on any other.  Replaces
+    ``pallas_gru.gru_scan_tm``."""
     if x.device.type == "cpu":
         return gru_scan_plain(x, h0, wi, bi, wh, bh, reverse=reverse)
     dev = _require_cuda("gru_scan", {"x": x}, dict(h0=h0, wi=wi, bi=bi, wh=wh, bh=bh))
     N, T, I = x.shape
     H = wh.shape[0]
-    if H % 32 or H > 1024 or tuple(wi.shape) != (I, 3 * H) or tuple(wh.shape) != (H, 3 * H) \
-            or tuple(h0.shape) != (N, H):
-        raise ValueError(f"gru_scan: kernel takes H a multiple of 32 up to 1024 with "
-                         f"wi [I, 3H], wh [H, 3H]; got x {tuple(x.shape)}, wh {tuple(wh.shape)}")
+    if tuple(wi.shape) != (I, 3 * H) or tuple(wh.shape) != (H, 3 * H) \
+            or tuple(h0.shape) != (N, H) or T < 1:
+        raise ValueError(f"gru_scan: kernel takes wi [I, 3H], wh [H, 3H], h0 [N, H] and "
+                         f"T >= 1; got x {tuple(x.shape)}, wh {tuple(wh.shape)}")
+    _check_scan_shape(N, H)
+    plan = gru_scan_plan(N, H, _sm_count(dev), _gru_scan_max_clusters(H, dev.index))
     xp = torch.empty((N, T, 3 * H), device=dev, dtype=torch.float32)
     ys = torch.empty((N, T, H), device=dev, dtype=x.dtype)
     h_last = torch.empty((N, H), device=dev, dtype=torch.float32)
-    sms = _sm_count(dev)
-    rpb = next((r for r in (1, 2, 4) if -(-N // r) <= sms), 8)
     rc = _fn("gru_scan", "gru_scan_launch")(
         x.data_ptr(), h0.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
         bh.data_ptr(), xp.data_ptr(), ys.data_ptr(), h_last.data_ptr(), N, T, I, H,
-        int(reverse), rpb, _is_bf16(x), _stream())
+        int(reverse), plan.rows_per_cluster, plan.clusters, _is_bf16(x), _stream())
     _check_rc(rc, "gru_scan")
     gru_scan.launches += 1
     return ys, h_last
@@ -743,16 +841,21 @@ def dprnn_inter_block_v2(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Te
                         dict(h0=h0, whfc=whfc, bh=bh, bfc=bfc, g=g, bln=bln))
     B, T, Fq, C = x.shape
     if C != 64 or tuple(xp.shape) != (B, T, Fq, 3 * C) or tuple(h0.shape) != (B, Fq, C) \
-            or tuple(whfc.shape) != (C, 4 * C) or tuple(bh.shape) != (3 * C,):
+            or tuple(whfc.shape) != (C, 4 * C) or tuple(bh.shape) != (3 * C,) \
+            or B * T * Fq == 0:
         raise ValueError(f"dprnn_inter_block_v2: kernel takes C == 64, xp [B, T, Fq, 3C], "
-                         f"whfc [C, 4C]; got x {tuple(x.shape)}, xp {tuple(xp.shape)}, "
-                         f"whfc {tuple(whfc.shape)}")
+                         f"whfc [C, 4C] and B, T, Fq > 0; got x {tuple(x.shape)}, "
+                         f"xp {tuple(xp.shape)}, whfc {tuple(whfc.shape)}")
+    if whfc.data_ptr() % 16:
+        raise ValueError("dprnn_inter_block_v2: the kernel reads whfc 16-byte aligned")
+    plan = inter_v2_plan(B * Fq, _sm_count(dev))
     out = torch.empty_like(x)
     h_last = torch.empty_like(h0)
     rc = _fn("dprnn_inter_v2", "dprnn_inter_v2_launch")(
         xp.data_ptr(), x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
         whfc.data_ptr(), bh.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
-        B, T, Fq, _walk_rows_per_block(B * Fq, 1, dev), _is_bf16(xp), _is_bf16(x), _stream())
+        B, T, Fq, plan.rows_per_warp, plan.warps, plan.blocks, _is_bf16(xp), _is_bf16(x),
+        _stream())
     _check_rc(rc, "dprnn_inter_block_v2")
     dprnn_inter_block_v2.launches += 1
     return out, h_last

@@ -1,0 +1,318 @@
+"""The recurrent kernels gru_scan and dprnn_inter_block_v2, and the
+offline and streaming paths they sit on, measured for one checkout.
+
+    python3 dpdfnet_tpu_torch/tools/kernel_ab.py [--root DIR] [--out FILE] [--pairs N]
+        [--e2e] [--hops N]
+
+Imports ``dpdfnet_tpu_torch`` from ``--root`` (default: the checkout
+holding this file), as ``mode_off_digest.py`` does, so one command can
+measure an earlier commit unpacked under a ``.gitignore``d directory (the
+parent of a kernel change, from ``git archive``) beside the current tree,
+in turns on one card: parent, change, change, parent.
+
+For each kernel, at the shapes the main path gives it (B=8 offline, B=64 x
+112 frames offline, T=1 at 64 exact streams; bfloat16 planes where the
+``turbo`` path uses them): the kernel against its plain version (1e-4
+max-abs, beyond one bf16 ulp on bfloat16 outputs), then the kernel and one
+PyTorch library call of the same function (cuDNN's GRU, with linear +
+LayerNorm + residual for inter v2) timed alternately call by call
+(:func:`interleaved_ms`), and the roofline bound.  ``--e2e``: offline xRT
+of ``Engine.enhance_waveforms`` at B=64 x 4 s and exact ms per hop at 64
+streams, ``highest`` against ``turbo`` with ``DPDFNET_TPU_PALLAS_V2=1``,
+interleaved call by call, with the launches of each path.  Random weights
+and inputs from fixed seeds.  Prints a JSON object (and writes it to
+``--out``).  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Callable, Dict, Tuple
+
+import numpy as np
+
+PEAK_F32_FLOPS = 67e12      # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+KERNEL_TOL = 1e-4
+MODEL = "dpdfnet8_48khz_hr"
+V2 = "DPDFNET_TPU_PALLAS_V2"
+# A device-side spin before each timed call (about 2 ms at the H100's
+# clocks): the host enqueues the call while the card spins, so the events
+# around the call time the device's work and not the host's dispatch.
+SLEEP_CYCLES = 4_000_000
+
+
+def bound(flops: float, nbytes: float) -> Tuple[float, str]:
+    """(ms, what bounds it): the larger of FLOPs over the f32 peak and
+    bytes over the memory rate."""
+    t_f, t_b = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_f, "operations") if t_f >= t_b else (t_b, "bytes")
+
+
+def interleaved_ms(fns: Dict[str, Callable[[], object]], pairs: int = 21
+                   ) -> Dict[str, Tuple[float, float, float]]:
+    """Device ms of each function, timed alternately call by call: ``pairs``
+    rounds, each calling every function once (the order reversed every
+    other round), each call alone between two CUDA events behind a device
+    spin.  Returns name -> (median, min, max)."""
+    import torch
+
+    names = list(fns)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    events = {n: [] for n in names}
+    for i in range(pairs):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            e0.record()
+            fns[n]()
+            e1.record()
+            events[n].append((e0, e1))
+    torch.cuda.synchronize()
+    out = {}
+    for n, evs in events.items():
+        ts = [a.elapsed_time(b) for a, b in evs]
+        out[n] = (statistics.median(ts), min(ts), max(ts))
+    return out
+
+
+def _err(got, ref) -> float:
+    """Max-abs of got - ref beyond one bf16 ulp where ref is bfloat16."""
+    from dpdfnet_tpu_torch.ops.gru_kernels import err_beyond_bf16_ulp
+
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    ref = ref if isinstance(ref, (tuple, list)) else (ref,)
+    return max(err_beyond_bf16_ulp(a, b) for a, b in zip(got, ref))
+
+
+def _randn(rng, *shape, scale):
+    import torch
+
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
+
+
+# shapes: (label, N or B, T, plane)
+SCAN_CASES = (("B=8", 8, 112, "f32"), ("B=64", 64, 112, "f32"), ("B=64", 64, 112, "bf16"),
+              ("T=1 x 64", 64, 1, "f32"), ("T=1 x 64", 64, 1, "bf16"))
+INTER_V2_CASES = (("B=8", 8, 112, "f32"), ("B=8", 8, 112, "bf16"), ("B=64", 64, 112, "f32"),
+                  ("B=64", 64, 112, "bf16"), ("T=1 x 64", 64, 1, "f32"),
+                  ("T=1 x 64", 64, 1, "bf16"))
+
+
+def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0) -> list:
+    """Every case of SCAN_CASES (forward and reverse) and INTER_V2_CASES
+    (bf16 xp, and f32 xp on f32 planes): checked against the plain
+    version, then timed with its library call.  Raises on a mismatch."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    F = torch.nn.functional
+    rows = []
+    H = I = 256
+    wi, wh = _randn(rng, I, 3 * H, scale=I ** -0.5), _randn(rng, H, 3 * H, scale=H ** -0.5)
+    bi, bh = _randn(rng, 3 * H, scale=0.1), _randn(rng, 3 * H, scale=0.1)
+    lib_gru = torch.nn.GRU(I, H, batch_first=True).cuda()
+    with torch.no_grad():
+        lib_gru.weight_ih_l0.copy_(wi.T)
+        lib_gru.weight_hh_l0.copy_(wh.T)
+        lib_gru.bias_ih_l0.copy_(bi)
+        lib_gru.bias_hh_l0.copy_(bh)
+    for label, N, T, plane in SCAN_CASES:
+        dt = torch.bfloat16 if plane == "bf16" else torch.float32
+        x = _randn(rng, N, T, I, scale=1.0).to(dt)
+        h0 = _randn(rng, N, H, scale=0.5)
+        for reverse in (False, True):
+            err = _err(gk.gru_scan(x, h0, wi, bi, wh, bh, reverse=reverse),
+                       gk.gru_scan_plain(x, h0, wi, bi, wh, bh, reverse=reverse))
+            if not err <= KERNEL_TOL:
+                raise AssertionError(f"gru_scan {label} {plane} reverse={reverse}: {err:.3e} "
+                                     f"beyond the plain version")
+            xl = (x.flip(1) if reverse else x).float().contiguous()
+            t = interleaved_ms({"kernel": lambda: gk.gru_scan(x, h0, wi, bi, wh, bh,
+                                                              reverse=reverse),
+                                "library": lambda: lib_gru(xl, h0[None])}, pairs)
+            b_ms, b_by = bound(6 * H * (I + H) * N * T,
+                               (I + H) * x.element_size() * N * T + 2 * N * H * 4
+                               + 4 * (wi.numel() + wh.numel() + bi.numel() + bh.numel()))
+            rows.append(dict(kernel="gru_scan", shape=f"{label} x[{N},{T},{I}] H={H}",
+                             plane=plane, reverse=reverse, err=err, ms=t["kernel"],
+                             library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
+            log(_line(rows[-1]))
+
+    C, Fq = 64, 48
+    wi_t, wh_t = _randn(rng, C, 3 * C, scale=C ** -0.5), _randn(rng, C, 3 * C, scale=C ** -0.5)
+    bi_t, bh_t = _randn(rng, 3 * C, scale=0.1), _randn(rng, 3 * C, scale=0.1)
+    wfc, bfc = _randn(rng, C, C, scale=C ** -0.5), _randn(rng, C, scale=0.1)
+    g, bln = 1.0 + _randn(rng, C, scale=0.2), _randn(rng, C, scale=0.1)
+    whfc = torch.cat([wh_t, wfc], dim=1)
+    eva = (whfc, bh_t, bfc, g, bln)
+    lib_t = torch.nn.GRU(C, C, batch_first=True).cuda()
+    with torch.no_grad():
+        lib_t.weight_ih_l0.copy_(wi_t.T)
+        lib_t.weight_hh_l0.copy_(wh_t.T)
+        lib_t.bias_ih_l0.copy_(bi_t)
+        lib_t.bias_hh_l0.copy_(bh_t)
+    for label, B, T, plane in INTER_V2_CASES:
+        dt = torch.bfloat16 if plane == "bf16" else torch.float32
+        x = _randn(rng, B, T, Fq, C, scale=1.0).to(dt)
+        h0 = _randn(rng, B, Fq, C, scale=0.5)
+        xp32 = x.float() @ wi_t + bi_t
+        xp = xp32.to(torch.bfloat16)
+        errs = [_err(gk.dprnn_inter_block_v2(xp, x, h0, *eva),
+                     gk.dprnn_inter_block_v2_plain(xp, x, h0, *eva))]
+        if plane == "f32":
+            errs.append(_err(gk.dprnn_inter_block_v2(xp32, x, h0, *eva),
+                             gk.dprnn_inter_block_v2_plain(xp32, x, h0, *eva)))
+        err = max(errs)
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"dprnn_inter_block_v2 {label} {plane}: {err:.3e} beyond the "
+                                 f"plain version")
+        xl = x.float().transpose(1, 2).reshape(B * Fq, T, C).contiguous()
+        hl0 = h0.reshape(1, B * Fq, C)
+
+        def lib():
+            ys, _ = lib_t(xl, hl0)
+            return xl + F.layer_norm(F.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
+
+        t = interleaved_ms({"kernel": lambda: gk.dprnn_inter_block_v2(xp, x, h0, *eva),
+                            "library": lib}, pairs)
+        n = B * Fq * T
+        b_ms, b_by = bound(8 * C * C * n, (3 * C * 2 + 2 * C * x.element_size()) * n
+                           + 2 * B * Fq * C * 4 + 4 * sum(a.numel() for a in eva))
+        rows.append(dict(kernel="dprnn_inter_block_v2", shape=f"{label} x[{B},{T},{Fq},{C}] xp bf16",
+                         plane=plane, reverse=False, err=err, ms=t["kernel"],
+                         library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
+        log(_line(rows[-1]))
+    torch.cuda.synchronize()
+    return rows
+
+
+def _line(r: dict) -> str:
+    m, lo, hi = r["ms"]
+    lm, llo, lhi = r["library_ms"]
+    rev = " reverse" if r["reverse"] else ""
+    return (f"kernel {r['kernel']} {r['shape']} {r['plane']} plane{rev}: max_abs {r['err']:.3e} "
+            f"beyond the plain version (tol {KERNEL_TOL:.0e}); ms {m:.4f} [{lo:.4f}-{hi:.4f}] "
+            f"library_ms {lm:.4f} [{llo:.4f}-{lhi:.4f}] (median [min-max], interleaved) "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); kernel / library {m / lm:.3f}")
+
+
+def e2e(gk, log=print, hops: int = 200, rounds: int = 5, seed: int = 0) -> dict:
+    """Offline xRT (B=64 x 4 s) and exact ms per hop (64 streams, one
+    ``process_frames`` call per hop) of ``highest`` and ``turbo`` + V2,
+    interleaved call by call after a warm-up; the launches of one offline
+    call and of one hop of each."""
+    import torch
+
+    from dpdfnet_tpu_torch import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    cfg = get_config(MODEL)
+    params = contract_params(init_params(cfg, seed=seed, device="cuda"))
+    rng = np.random.default_rng(seed)
+    Bb, secs = 64, 4.0
+    big = (0.1 * rng.standard_normal((Bb, int(secs * cfg.sample_rate)))).astype(np.float32)
+    frames = (0.1 * rng.standard_normal((Bb, hops + 16, cfg.win_len))).astype(np.float32)
+    paths = {"highest": ("highest", False), "turbo+V2": ("turbo", True)}
+    engines = {}
+    for name, (q, v2) in paths.items():
+        os.environ[V2] = "1" if v2 else "0"
+        engines[name] = engine_from_quality(cfg, params, q, device="cuda")
+
+    def call(name, fn):
+        os.environ[V2] = "1" if paths[name][1] else "0"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(engines[name])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    res = {}
+    walls = {n: [] for n in paths}
+    for rnd in range(rounds + 1):                        # round 0 warms up
+        for name in paths:
+            t, y = call(name, lambda e: e.enhance_waveforms(big))
+            if not np.isfinite(y).all():
+                raise AssertionError(f"e2e {name}: offline output not finite")
+            if rnd:
+                walls[name].append(t)
+    states = {n: engines[n].init_stream_state(batch=Bb) for n in paths}
+    hop_ms = {n: [] for n in paths}
+    for i in range(hops + 16):                           # 16 warm-up hops
+        for name in paths:
+            t, (y, states[name]) = call(
+                name, lambda e: e.process_frames(frames[:, i:i + 1], states[name]))
+            if i >= 16:
+                hop_ms[name].append(t * 1e3)
+    for name in paths:
+        gk.reset_launch_counts()
+        call(name, lambda e: e.enhance_waveforms(big))
+        offline = {k: v for k, v in gk.launch_counts().items() if v}
+        gk.reset_launch_counts()
+        call(name, lambda e: e.process_frames(frames[:, :1], e.init_stream_state(batch=Bb)))
+        hop = {k: v for k, v in gk.launch_counts().items() if v}
+        med = statistics.median(walls[name])
+        res[name] = dict(xrt=Bb * secs / med, offline_ms=[w * 1e3 for w in walls[name]],
+                         hop_ms_median=statistics.median(hop_ms[name]),
+                         hop_ms_mean=statistics.fmean(hop_ms[name]),
+                         launches_offline=offline, launches_hop=hop)
+        log(f"e2e {name}: offline B={Bb} x {secs} s xRT {Bb * secs / med:.1f} (median of "
+            f"{rounds} interleaved calls, ms {[round(w * 1e3, 1) for w in walls[name]]}); exact "
+            f"{Bb} streams, {hops} interleaved hops: median {res[name]['hop_ms_median']:.3f} ms "
+            f"per hop, mean {res[name]['hop_ms_mean']:.3f}; launches per offline call "
+            f"{json.dumps(offline)}, per hop {json.dumps(hop)}")
+    os.environ.pop(V2, None)
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="checkout whose dpdfnet_tpu_torch is imported")
+    ap.add_argument("--out", help="also write the JSON result to this file")
+    ap.add_argument("--pairs", type=int, default=21)
+    ap.add_argument("--e2e", action="store_true", help="also time the two engine paths")
+    ap.add_argument("--hops", type=int, default=200)
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA device", file=sys.stderr)
+        return 2
+    torch.set_grad_enabled(False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dpdfnet_tpu_torch.ops import gru_kernels as gk
+
+    if not os.path.abspath(gk.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {gk.__file__}, not the package under {root}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
+    log(f"kernel_ab root {root} | {smi} | torch {torch.__version__}")
+    result = {"root": root, "card": smi, "kernels": kernel_rows(gk, log, args.pairs)}
+    if args.e2e:
+        result["e2e"] = e2e(gk, log, hops=args.hops)
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        Path(args.out).write_text(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,14 +10,17 @@ a seed (a hash of the case's name), through its wrapper's row-major call
 (no ``fm_batch``, ``h_bm`` or ``defer``), and each case's outputs are
 hashed with SHA-256 (their raw bytes, in order).  Equal digests mean bit-identical outputs (max-abs 0).
 
-``mode_off_digests.json`` beside this file holds the digests of the
+``mode_off_digests.json`` beside this file holds the digests taken on
+one H100 by running this script against an unpacked copy of a commit
+(``--root``); its ``note`` says which commit each case comes from: the
 kernels as they were before the freq-major layout modes were added
-(commit edaa86f), taken on one H100 by running this script against an
-unpacked copy of that commit (``--root``).  ``chip_smoke.py`` and the
-card tests hold the current kernels to it.  The record names the
-``nvcc`` release and the card it was taken with: a build by another
-compiler may round differently, and the comparison then says so.  A
-change that means to alter a kernel's arithmetic writes a new record.
+(commit edaa86f), except the cases of the kernels whose arithmetic was
+redesigned since, which were retaken on the commit of that redesign.
+``chip_smoke.py`` and the card tests hold the current kernels to it.  The
+record names the ``nvcc`` release and the card it was taken with: a build
+by another compiler may round differently, and the comparison then says
+so.  A change that means to alter a kernel's arithmetic rewrites that
+kernel's cases and leaves every other case as it was.
 
 The script is run by path, not with ``-m``, so that ``--root`` (default:
 the checkout holding it) decides which copy of ``dpdfnet_tpu_torch`` is

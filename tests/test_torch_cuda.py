@@ -84,7 +84,12 @@ def test_cuda_inter_matches_plain(dev, B, T, Fq):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("N,T,I,H", [(3, 9, 256, 256), (150, 5, 40, 64), (600, 3, 24, 32)])
+@pytest.mark.parametrize("N,T,I,H", [
+    (3, 9, 256, 256), (150, 5, 40, 64), (600, 3, 24, 32),
+    # the cluster plan's edges: one row, 1 / 2 / 4 / 8 rows per cluster,
+    # a cluster of 3 CTAs (H = 96), T == 1
+    (1, 7, 256, 256), (16, 4, 256, 256), (17, 3, 256, 256), (65, 2, 256, 256),
+    (64, 1, 256, 256), (9, 6, 50, 96), (33, 5, 128, 128)])
 def test_cuda_gru_scan_matches_plain(dev, reverse, N, T, I, H):
     rng = np.random.default_rng(8)
     p = _gru(rng, I, H, dev)
@@ -95,6 +100,40 @@ def test_cuda_gru_scan_matches_plain(dev, reverse, N, T, I, H):
                                                 reverse=reverse)
     assert (ys - ys_ref).abs().max().item() < TOL
     assert (hl - hl_ref).abs().max().item() < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cuda_gru_scan_batch_invariant(dev, reverse, plane):
+    """Row i of a batch of 64 (4 rows per cluster) equals the same row run
+    alone (1 row per cluster) and within a batch of 17: max-abs 0."""
+    rng = np.random.default_rng(20)
+    p = _gru(rng, 256, 256, dev)
+    x = _rand(rng, (64, 12, 256), dev).to(plane)
+    h0 = _rand(rng, (64, 256), dev, 0.2)
+    args = (p["wi"], p["bi"], p["wh"], p["bh"])
+    ys, hl = gru_kernels.gru_scan(x, h0, *args, reverse=reverse)
+    for i in (0, 5, 63):
+        ys1, hl1 = gru_kernels.gru_scan(x[i:i + 1].contiguous(), h0[i:i + 1].contiguous(), *args,
+                                        reverse=reverse)
+        assert torch.equal(ys1[0], ys[i]) and torch.equal(hl1[0], hl[i])
+    ys17, hl17 = gru_kernels.gru_scan(x[:17].contiguous(), h0[:17].contiguous(), *args,
+                                      reverse=reverse)
+    assert torch.equal(ys17, ys[:17]) and torch.equal(hl17, hl[:17])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [288, 512])
+def test_cuda_gru_scan_raises_above_its_h_limit(dev, H):
+    """H above 256 (a cluster of more than 8 CTAs) raises; nothing falls back."""
+    rng = np.random.default_rng(21)
+    p = _gru(rng, 32, H, dev)
+    gru_kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="from 32 to 256"):
+        gru_kernels.gru_scan(_rand(rng, (2, 3, 32), dev), _rand(rng, (2, H), dev), p["wi"],
+                             p["bi"], p["wh"], p["bh"])
+    assert gru_kernels.launch_counts()["gru_scan"] == 0
 
 
 @pytest.mark.cuda
@@ -267,7 +306,11 @@ def test_cuda_intra_v2_matches_plain(dev, N, L, plane):
 @pytest.mark.cuda
 @pytest.mark.parametrize("xp_dtype,plane", [(BF16, torch.float32), (BF16, BF16),
                                             (torch.float32, torch.float32)])
-@pytest.mark.parametrize("B,T,Fq", [(3, 10, 40), (1, 7, 48), (64, 1, 48)])
+@pytest.mark.parametrize("B,T,Fq", [
+    (3, 10, 40), (1, 7, 48), (64, 1, 48),
+    # the plan's edges: one row; 1 / 2 rows per warp at the threshold; one
+    # and two blocks per SM
+    (1, 5, 1), (11, 4, 48), (7, 6, 37), (22, 3, 48), (23, 3, 48)])
 def test_cuda_inter_v2_matches_plain(dev, B, T, Fq, xp_dtype, plane):
     rng = np.random.default_rng(17)
     C = 64
@@ -284,6 +327,30 @@ def test_cuda_inter_v2_matches_plain(dev, B, T, Fq, xp_dtype, plane):
     ref, hl_ref = gru_kernels.dprnn_inter_block_v2_plain(xp, x, h0, whfc, p["bh"], *epi)
     _close(out, ref)
     _close(hl, hl_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+def test_cuda_inter_v2_batch_invariant(dev, plane):
+    """Row (b, f) of a plane of 64 x 48 rows (2 rows per warp) equals the
+    same row run alone and within its batch entry's 48 rows (1 row per
+    warp), on the same xp: max-abs 0."""
+    rng = np.random.default_rng(22)
+    C = 64
+    p = _gru(rng, C, C, dev)
+    whfc = torch.cat([p["wh"], _rand(rng, (C, C), dev, 0.3)], dim=1)
+    epi = (_rand(rng, (C,), dev, 0.1), 1.0 + _rand(rng, (C,), dev, 0.5),
+           _rand(rng, (C,), dev, 0.1))
+    x = _rand(rng, (64, 9, 48, C), dev).to(plane)
+    xp = (x.float() @ p["wi"] + p["bi"]).to(BF16)
+    h0 = _rand(rng, (64, 48, C), dev, 0.2)
+    out, hl = gru_kernels.dprnn_inter_block_v2(xp, x, h0, whfc, p["bh"], *epi)
+    for b, f in ((0, 0), (37, 5), (63, 47)):
+        for fs in (slice(f, f + 1), slice(0, 48)):
+            o1, h1 = gru_kernels.dprnn_inter_block_v2(
+                xp[b:b + 1, :, fs].contiguous(), x[b:b + 1, :, fs].contiguous(),
+                h0[b:b + 1, fs].contiguous(), whfc, p["bh"], *epi)
+            assert torch.equal(o1[0], out[b, :, fs]) and torch.equal(h1[0], hl[b, fs])
 
 
 @pytest.mark.cuda
@@ -465,8 +532,8 @@ def test_cuda_ablation_specializations_match_plain(dev, plane):
 
 @pytest.mark.cuda
 def test_cuda_mode_off_bit_identical_to_record(dev):
-    """Every kernel on the shared walk with its layout modes off gives the
-    outputs recorded from the kernels before the modes were added."""
+    """Every DPRNN / GRU kernel with its layout modes off gives the outputs
+    of the committed record (its note names each case's commit)."""
     import json
 
     from dpdfnet_tpu_torch.tools import mode_off_digest

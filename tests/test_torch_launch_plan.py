@@ -1,0 +1,80 @@
+"""The launch plans of the inter v2 walk and the cluster GRU scan.
+
+``gru_kernels.inter_v2_plan`` and ``gru_kernels.gru_scan_plan`` are pure
+Python: the wrappers hand their numbers to ``csrc/dprnn_inter_v2.cu`` and
+``csrc/gru_scan.cu``, whose row indexing the plans' ``rows`` methods state.
+Here every plan covers every row (and, for the scan, every hidden unit)
+exactly once, stays within the limits it states, and fills the card as its
+docstring says.  Shapes: the plans' edges (N = 1, just below, at and above
+a multiple of the rows per warp or cluster, and of the thresholds in SMs),
+the main path's N = 320 / 384 (B=8) and 2560 / 3072 (B=64), an odd 600;
+H = 32, 64, 96 (a cluster of 3) and 256; SM counts of 132 (H100 SXM) and 8.
+"""
+
+import pytest
+
+from dpdfnet_tpu_torch.ops import gru_kernels as gk
+
+SMS = (132, 8)
+INTER_N = (1, 2, 7, 8, 9, 63, 64, 65, 263, 264, 265, 320, 384, 527, 528, 529, 600, 1056,
+           1057, 2560, 3072)
+SCAN_N = (1, 7, 8, 9, 15, 16, 17, 63, 64, 65, 384, 600, 3072)
+SCAN_H = (32, 64, 96, 256)
+
+
+def _covered_once(ranges, N):
+    seen = [0] * N
+    for r in ranges:
+        for n in r:
+            if n < N:
+                seen[n] += 1
+    assert seen == [1] * N
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("N", INTER_N)
+def test_inter_v2_plan_covers_every_row_once(N, sms):
+    p = gk.inter_v2_plan(N, sms)
+    _covered_once((p.rows(b, w) for b in range(p.blocks) for w in range(p.warps)), N)
+    # no block without a real row: the grid is no larger than it must be
+    assert p.rows(p.blocks - 1, 0).start < N
+    assert p.rows_per_warp in (1, 2) and 1 <= p.warps <= 8
+    assert p.smem_bytes == 4 * (64 * 256 + p.warps * 2 * p.rows_per_warp * 64)
+    assert 3 * p.smem_bytes <= gk.SMEM_PER_BLOCK     # 3 blocks fit an SM
+    warps_total = -(-N // p.rows_per_warp)
+    # 2 rows per warp exactly while every SM keeps 2 warps
+    assert (p.rows_per_warp == 2) == (-(-N // 2) >= 2 * sms)
+    if p.warps < 8:                  # below 8 warps: one block per SM, or two on a full grid
+        assert p.blocks <= (sms if warps_total <= 4 * sms else 2 * sms)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("N", SCAN_N)
+def test_gru_scan_plan_covers_every_row_and_unit_once(N, sms):
+    for H in SCAN_H:
+        p = gk.gru_scan_plan(N, H, sms)
+        _covered_once((p.rows(q) for q in range(p.clusters)), N)
+        _covered_once((p.units(c) for c in range(p.cluster)), H)
+        assert p.rows(p.clusters - 1).start < N
+        assert p.cluster == H // 32 <= gk.CLUSTER_MAX
+        assert p.threads == H <= 1024
+        assert p.rows_per_cluster in (1, 2, 4, 8)
+        assert p.smem_bytes == 4 * (2 * p.rows_per_cluster * H + p.cluster * p.rows_per_cluster * 96)
+        assert p.smem_bytes <= 48 * 1024 <= gk.SMEM_PER_BLOCK
+        cap = max(1, sms // p.cluster)
+        # the fewest rows per cluster that keep every cluster resident, else 8
+        assert p.clusters <= cap or p.rows_per_cluster == 8
+        if p.rows_per_cluster > 1:
+            assert -(-N // (p.rows_per_cluster // 2)) > cap
+
+
+def test_gru_scan_plan_takes_the_device_cluster_count():
+    assert gk.gru_scan_plan(64, 256, 132, max_clusters=16).rows_per_cluster == 4
+    assert gk.gru_scan_plan(64, 256, 132, max_clusters=8).rows_per_cluster == 8
+    assert gk.gru_scan_plan(8, 256, 132, max_clusters=16).clusters == 8
+
+
+@pytest.mark.parametrize("H", [16, 48, 288, 1024])
+def test_gru_scan_plan_raises_outside_its_h_range(H):
+    with pytest.raises(ValueError, match="from 32 to 256"):
+        gk.gru_scan_plan(8, H, 132)
