@@ -13,8 +13,9 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    tolerance, kernel ms, plain ms, the ms of one PyTorch library call of the
    same function (a yardstick the port never calls), and the roofline
    bound; the kernel and its library call are timed alternately call by
-   call, 21 pairs, median [min-max]; then gru_scan and
-   ``dprnn_inter_block_v2`` at every shape the main path gives them (B=8,
+   call, 21 pairs, median [min-max]; then gru_scan,
+   ``dprnn_inter_block_v2`` and the v1 ``dprnn_inter_block`` /
+   ``dprnn_intra_block`` at every shape the main path gives them (B=8,
    B=64 x 112, T=1 at 64 streams, bfloat16 planes; gru_scan forward and
    reverse; inter v2 with bfloat16 and float32 xp) against their plain
    versions and their library calls (``tools/kernel_ab.py``);

@@ -5,79 +5,102 @@
 // _inter_block_kernel_packed / _inter_block_kernel (TPU).
 //
 // What bounds it on the H100: the recurrence is sequential in T (112 steps
-// per segment), and only B * Fq rows run in parallel (384 at B=8, 3072 at
-// B=64), so the card cannot reach either roofline: each step is a chain of
-// dependent shared-memory dot products of length 64, then a LayerNorm.
-// Useful work is 14 C^2 FLOPs per row-step against 2 C * 4 bytes of plane
-// traffic, so its roofline bound is arithmetic.
+// per segment) and only B * Fq rows run in parallel (384 at B=8, 3072 at
+// B=64).  Useful work is 14 C^2 FLOPs per row-step against 2 C plane
+// elements, so the roofline bound is arithmetic; what the kernel pays is
+// the step's dependent chain and, per SM, the shared-memory reads of the
+// weights by every warp at every step.
 //
-// Design: one block owns 8 or 16 rows and loops over T.  Wi, Wh (64 x 192)
-// and Wfc (64 x 64) stay in shared memory (112 KB, dynamic, above the 48 KB
-// default) for the whole walk, so weights are read from device memory once
-// per block.  The carried hidden lives in shared memory; h0 is read from,
-// and h_last written to, the state's [B, Fq, C] layout (row n = b * Fq + f).
-// The plane is read and written in place through strides: no transpose.
-// The plane is float32 or bfloat16 (loads upcast, the store rounds once);
-// h0 / h_last, the weights and all arithmetic are float32.
+// Design: the warp-per-row walk of gru64_warp.cuh.  A warp owns 1 or 2
+// rows; the input projection x . Wi + bi runs off the recurrence, once per
+// chunk of TS steps, inside this launch (the TPU kernel's in-kernel hoist);
+// one product h . [Wh | Wfc] per step gives the next step's recurrent term
+// and this step's fc (the TPU kernel's fcfuse), so the step loop has one
+// __syncwarp and two warp-shuffle sums, and no block barrier.  Wi and
+// [Wh | Wfc] (112 KB) are staged once per block.  One block per SM (up to
+// 12 warps); the plan (rows per warp, warps, TS, blocks) is
+// gru_kernels.inter_v1_plan.  h0 is read from, and h_last written to, the
+// state's [B, Fq, C] layout (row n = b * Fq + f); the plane is read and
+// written in place through strides.
 //
 // Modes (the TPU kernel's fm_batch, h_bm and defer), each a stride set or
-// a template flag of the same walk, with the arithmetic unchanged:
+// an output kind of the same walk, with the arithmetic unchanged:
 //   fm_batch = B  x is the freq-major [T, Fq * B, C] (rows f-major,
 //                 n = f * B + b) and out the freq-leading [Fq, T, B, C]
 //                 that the next fm intra stage reads;
 //   h_bm          (with fm_batch) h0 / h_last in the state's [B, Fq, C]
 //                 instead of the rows' [Fq * B, C];
-//   defer         the walk stores the raw hidden h_t (MODE_YS) in out's
-//                 layout at the plane's dtype; the fc + LayerNorm +
-//                 residual tail runs outside the kernel.
-#include "gru64_walk.cuh"
+//   defer         the walk stores the raw hidden h_t in out's layout at
+//                 the plane's dtype; the fc + LayerNorm + residual tail
+//                 runs outside the kernel.
+#include "gru64_warp.cuh"
 
 using namespace dpdf;
 
-template <int RPT, int MODE, typename TX>
-__global__ void __launch_bounds__(THREADS)
+namespace {
+
+constexpr int MAX_WARPS = 12;
+
+template <int R, int TS, int OUT, typename TX>
+__global__ void __launch_bounds__(MAX_WARPS * ww::LANES, 1)
 dprnn_inter_kernel(const TX* __restrict__ x, TX* __restrict__ out,
-                   const float* __restrict__ h0, float* __restrict__ h_last,
-                   GruWeights w, Epilogue<TX> ep, Rows rows, Rows orows, Rows hrows, int64_t N,
-                   int T) {
-  ep.out = out;
-  gru64_walk_io<RPT, MODE>(x, rows, orows, hrows, N, T, false, w, ep, h0, h_last);
+                   const float* __restrict__ h0, float* __restrict__ h_last, GruWeights w,
+                   const float* __restrict__ wfc, const float* __restrict__ bfc,
+                   const float* __restrict__ g, const float* __restrict__ bln, Rows rows,
+                   Rows orows, Rows hrows, int64_t N, int T) {
+  extern __shared__ __align__(16) float smem[];
+  ww::stage_weights(smem, w, wfc);
+  __syncthreads();                       // the only block-wide barrier
+  const int warp = threadIdx.x / ww::LANES, lane = threadIdx.x % ww::LANES;
+  const int warps = blockDim.x / ww::LANES;
+  const int64_t row0 = ((int64_t)blockIdx.x * warps + warp) * R;
+  if (row0 >= N) return;
+  const ww::LaneParams p = ww::lane_params(w, bfc, g, bln, lane);
+  ww::walk<R, TS, OUT>(smem, smem + ww::W_FLOATS + warp * ww::warp_floats(R, TS), x, rows,
+                       orows, hrows, row0, N, T, false, p, out, nullptr, 0, h0, h_last, lane);
 }
 
-template <int RPT, int MODE, typename TX>
-static cudaError_t launch(const TX* x, TX* out, const float* h0, float* h_last,
-                          GruWeights w, Epilogue<TX> ep, Rows rows, Rows orows, Rows hrows,
-                          int64_t N, int T, cudaStream_t stream) {
-  constexpr int R = GROUPS * RPT;
-  const size_t smem = sizeof(float) * walk_smem_floats<RPT>();
-  cudaError_t err = cudaFuncSetAttribute(dprnn_inter_kernel<RPT, MODE, TX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int R, int TS, int OUT, typename TX>
+cudaError_t launch(const TX* x, TX* out, const float* h0, float* h_last, GruWeights w,
+                   const float* wfc, const float* bfc, const float* g, const float* bln,
+                   Rows rows, Rows orows, Rows hrows, int64_t N, int T, int warps, int blocks,
+                   cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (ww::W_FLOATS + (size_t)warps * ww::warp_floats(R, TS));
+  cudaError_t err = cudaFuncSetAttribute(dprnn_inter_kernel<R, TS, OUT, TX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((N + R - 1) / R);
-  dprnn_inter_kernel<RPT, MODE, TX><<<blocks, THREADS, smem, stream>>>(
-      x, out, h0, h_last, w, ep, rows, orows, hrows, N, T);
+  dprnn_inter_kernel<R, TS, OUT, TX><<<blocks, warps * ww::LANES, smem, stream>>>(
+      x, out, h0, h_last, w, wfc, bfc, g, bln, rows, orows, hrows, N, T);
   return cudaGetLastError();
 }
 
-template <int MODE, typename TX>
-static cudaError_t launch_rpb(const TX* x, TX* out, const float* h0, float* h_last,
-                              GruWeights w, Epilogue<TX> ep, Rows rows, Rows orows, Rows hrows,
-                              int64_t N, int T, int rows_per_block, cudaStream_t st) {
-  return rows_per_block == 16
-             ? launch<4, MODE>(x, out, h0, h_last, w, ep, rows, orows, hrows, N, T, st)
-             : launch<2, MODE>(x, out, h0, h_last, w, ep, rows, orows, hrows, N, T, st);
+template <int OUT, typename TX>
+cudaError_t dispatch(const TX* x, TX* out, const float* h0, float* h_last, GruWeights w,
+                     const float* wfc, const float* bfc, const float* g, const float* bln,
+                     Rows rows, Rows orows, Rows hrows, int64_t N, int T, int rows_per_warp,
+                     int ts, int warps, int blocks, cudaStream_t st) {
+#define DPDF_LAUNCH(R, TS)                                                                    \
+  launch<R, TS, OUT>(x, out, h0, h_last, w, wfc, bfc, g, bln, rows, orows, hrows, N, T, warps, \
+                     blocks, st)
+  if (rows_per_warp == 1 && ts == 1) return DPDF_LAUNCH(1, 1);
+  if (rows_per_warp == 1 && ts == 8) return DPDF_LAUNCH(1, 8);
+  if (rows_per_warp == 2 && ts == 1) return DPDF_LAUNCH(2, 1);
+  if (rows_per_warp == 2 && ts == 4) return DPDF_LAUNCH(2, 4);
+  return cudaErrorInvalidValue;
+#undef DPDF_LAUNCH
 }
 
 template <typename TX>
-static cudaError_t run(const TX* x, TX* out, const float* h0, float* h_last, const float* wi,
-                       const float* bi, const float* wh, const float* bh, const float* wfc,
-                       const float* bfc, const float* g, const float* bln, int B, int T,
-                       int Fq, int rows_per_block, int fm, int h_bm, int defer,
-                       cudaStream_t st) {
-  GruWeights w{wi, wh, bi, bh, G3, 0, C, 0};
-  Epilogue<TX> ep{wfc, bfc, g, bln, out, 1e-5f};
+cudaError_t run(const TX* x, TX* out, const float* h0, float* h_last, const float* wi,
+                const float* bi, const float* wh, const float* bh, const float* wfc,
+                const float* bfc, const float* g, const float* bln, int B, int T, int Fq,
+                int rows_per_warp, int ts, int warps, int blocks, int fm, int h_bm, int defer,
+                cudaStream_t st) {
   const int64_t N = (int64_t)B * Fq;
+  if (warps < 1 || warps > MAX_WARPS || blocks < 1 || T < 1 || N < 1 ||
+      (int64_t)blocks * warps * rows_per_warp < N)
+    return cudaErrorInvalidConfiguration;
+  GruWeights w{wi, wh, bi, bh, G3, 0, C, 0};
   Rows rows, orows, hrows;
   if (fm) {
     // row n = f * B + b; x[t, n] at t*N*C + n*C; out[f, t, b] at
@@ -91,28 +114,35 @@ static cudaError_t run(const TX* x, TX* out, const float* h0, float* h_last, con
     orows = rows;
     hrows = dense_rows(N);
   }
-  return defer ? launch_rpb<MODE_YS>(x, out, h0, h_last, w, ep, rows, orows, hrows, N, T,
-                                     rows_per_block, st)
-               : launch_rpb<MODE_LN_RESIDUAL>(x, out, h0, h_last, w, ep, rows, orows, hrows, N,
-                                              T, rows_per_block, st);
+  return defer ? dispatch<ww::OUT_HIDDEN>(x, out, h0, h_last, w, wfc, bfc, g, bln, rows, orows,
+                                          hrows, N, T, rows_per_warp, ts, warps, blocks, st)
+               : dispatch<ww::OUT_LN_RESIDUAL>(x, out, h0, h_last, w, wfc, bfc, g, bln, rows,
+                                               orows, hrows, N, T, rows_per_warp, ts, warps,
+                                               blocks, st);
 }
+
+}  // namespace
 
 // fm_batch == 0: x, out [B, T, Fq, C]; h0, h_last [B, Fq, C].  fm_batch:
 // x [T, Fq * B, C] (f-major rows), out [Fq, T, B, C]; h0, h_last
 // [Fq * B, C], or [B, Fq, C] with h_bm.  defer: out holds the raw hidden.
-// Planes float32, or bfloat16 when plane_bf16; hiddens float32.
+// Planes float32, or bfloat16 when plane_bf16; hiddens and weights
+// float32, the weights 16-byte aligned.  The plan (rows per warp 1 / 2,
+// TS 1 or 8 / rows per warp, warps 1..12, blocks) comes from
+// gru_kernels.inter_v1_plan.
 extern "C" int dprnn_inter_launch(const void* x, void* out, const float* h0,
                                   float* h_last, const float* wi, const float* bi,
                                   const float* wh, const float* bh, const float* wfc,
                                   const float* bfc, const float* g, const float* bln,
-                                  int B, int T, int Fq, int rows_per_block, int plane_bf16,
-                                  int fm_batch, int h_bm, int defer, void* stream) {
+                                  int B, int T, int Fq, int rows_per_warp, int ts, int warps,
+                                  int blocks, int plane_bf16, int fm_batch, int h_bm, int defer,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (plane_bf16)
     return (int)run(static_cast<const bf16*>(x), static_cast<bf16*>(out), h0, h_last, wi, bi,
-                    wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_block, fm_batch, h_bm, defer,
-                    st);
+                    wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_warp, ts, warps, blocks,
+                    fm_batch, h_bm, defer, st);
   return (int)run(static_cast<const float*>(x), static_cast<float*>(out), h0, h_last, wi, bi,
-                  wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_block, fm_batch, h_bm, defer,
-                  st);
+                  wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_warp, ts, warps, blocks,
+                  fm_batch, h_bm, defer, st);
 }

@@ -1,4 +1,8 @@
-// Shared C = 64 GRU walk for dprnn_inter.cu, dprnn_intra.cu and gru_bidir.cu.
+// The block-wide C = 64 GRU walk of gru_bidir.cu and of the two step-ablation
+// kernels (intra_step_ablation.cu, inter_step_ablation.cu).  Its helpers
+// (plane loads and stores, Rows / RowMap, GruWeights, warp_sum) and the
+// intra epilogue kernel serve the other kernels too; DPRNN inter and intra
+// walk with gru64_warp.cuh.
 //
 // Planes (x, and the out / ys plane) are float32 or bfloat16 (TX / TO):
 // loads upcast, stores round once, every value in between is float32.

@@ -1,0 +1,395 @@
+// The warp-per-row C = 64 GRU walk of dprnn_inter.cu and dprnn_intra.cu.
+//
+// Replaces, for those two kernels, the block-wide walk of gru64_walk.cuh
+// (which gru_bidir.cu and the two step-ablation kernels still run).  The
+// TPU kernels it stands in for compute the same way: the fc of step s
+// folded into step s + 1's hidden product (_inter_block_kernel_packed's
+// fcfuse) and the input projection hoisted off the recurrence
+// (_inter_hoist, the hoist branch of _intra_block_kernel), both in
+// dpdfnet_tpu/ops/pallas_gru.py.
+//
+// What bounds a C = 64 walk on the H100: the step is a dependent chain
+// (gates -> h_new -> a 64-deep product), and every warp that walks rows
+// reads its weight columns from shared memory once per step, so per SM the
+// weights' shared-memory traffic (64 KB of [Wh | Wfc] per warp and step)
+// and the chain's latency set the step time; the f32 FMA rate is far off.
+//
+// Design.  One warp owns R rows (R = 1 or 2); lane l owns hidden units l
+// and l + 32, so a row's 64 units, its gates and its LayerNorm live in one
+// warp and the step loop has no block barrier:
+//  - h_new goes through a warp-private double-buffered slice behind one
+//    __syncwarp and is read back as float4 broadcasts;
+//  - one product h . [Wh | Wfc] per step (64 x 256, k ascending) gives the
+//    next step's raw h . Wh and this step's fc columns (the LayerNorm is
+//    two warp sums);
+//  - x . Wi + bi is hoisted off the chain: per chunk of TS steps the warp
+//    stages its rows' x into a warp-private slice, then one pass over Wi
+//    (read once for all TS x R row-steps) computes every xp of the chunk
+//    into the slice, each lane its own six columns (r, z, n of its two
+//    units) beside its residual x, as one float4 per unit;
+//  - the next chunk's x is loaded into registers while this chunk walks.
+// Wi (48 KB, [k][gate][lane] float2 of units l, l + 32) and [Wh | Wfc]
+// (64 KB, [k][half][lane][r z n fc]) are staged once per block with
+// 16-byte loads, 8 in flight per thread, and stay in shared memory.
+// Every row runs the same instruction sequence (k ascending, the same
+// shuffle tree) whatever R, TS, the warp count or the row layout, so a
+// row's bits do not depend on the launch plan or on the batch.
+// Planes are float32 or bfloat16 (loads upcast, stores round once); the
+// weights, the carried hidden and all arithmetic are float32.
+#pragma once
+
+#include "gru64_walk.cuh"
+
+namespace dpdf {
+namespace ww {
+
+constexpr int LANES = 32;
+constexpr int WI_FLOATS = C * 3 * LANES * 2;      // packed Wi: 48 KB
+constexpr int WHF_FLOATS = C * 2 * LANES * 4;     // packed [Wh | Wfc]: 64 KB
+constexpr int W_FLOATS = WI_FLOATS + WHF_FLOATS;
+constexpr int SLOT = 8 * LANES;                   // floats of one (step, row) chunk slot
+
+// Shared floats of one warp: the chunk slots [TS][R][SLOT] and h [2][R][C].
+__host__ __device__ constexpr int warp_floats(int R, int TS) { return TS * R * SLOT + 2 * R * C; }
+
+// What the walk does with each step's result.
+enum WalkOut {
+  OUT_LN_RESIDUAL = 0,   // out[t] = x[t] + LN(h_t . Wfc + bfc) * g + bln (DPRNN inter)
+  OUT_HIDDEN = 1,        // out[t] = h_t (the inter defer mode)
+  OUT_FC_PART = 2,       // part[row][t] = h_t . Wfc_d (one direction of DPRNN intra)
+};
+
+// One lane's biases and LayerNorm parameters for units lane, lane + 32.
+struct LaneParams {
+  float bi[3][2], bh[3][2], fcb[2], gain[2], shift[2];
+};
+
+__device__ __forceinline__ LaneParams lane_params(const GruWeights& w, const float* bfc,
+                                                  const float* g, const float* bln, int lane) {
+  LaneParams p;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int u = lane + LANES * q;
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      p.bi[gt][q] = w.bi[gt * w.gstride + w.col0 + u];
+      p.bh[gt][q] = w.bh[gt * w.gstride + w.col0 + u];
+    }
+    p.fcb[q] = bfc[u];
+    p.gain[q] = g[u];
+    p.shift[q] = bln[u];
+  }
+  return p;
+}
+
+// Stage Wi and [Wh | Wfc] of one GRU (element addressing of GruWeights;
+// wfc [C][C] row-major) into smem in the lanes' read order.  Every
+// pointer and offset is 16-byte aligned (the wrappers check the bases).
+__device__ __forceinline__ void stage_weights(float* smem, const GruWeights& w,
+                                              const float* __restrict__ wfc) {
+  constexpr int NWI = C * G3 / 4;       // float4s of Wi
+  constexpr int NWH = C * 4 * C / 4;    // float4s of [Wh | Wfc]
+  float* swh = smem + WI_FLOATS;
+  const int nt = blockDim.x;
+  for (int base = threadIdx.x; base < NWI + NWH; base += 8 * nt) {
+    float4 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = base + e * nt;
+      if (i < NWI) {
+        const int k = i / (G3 / 4), c4 = i % (G3 / 4);
+        const int gt = c4 / (C / 4), u0 = (c4 % (C / 4)) * 4;
+        v[e] = *reinterpret_cast<const float4*>(w.wi + (int64_t)(w.row0 + k) * w.ld +
+                                                gt * w.gstride + w.col0 + u0);
+      } else if (i < NWI + NWH) {
+        const int j = i - NWI;
+        const int k = j / C, c = (j % C) / (C / 4), u0 = (j % (C / 4)) * 4;
+        const float* src = c < 3 ? w.wh + (int64_t)(w.row0 + k) * w.ld + c * w.gstride +
+                                       w.col0 + u0
+                                 : wfc + k * C + u0;
+        v[e] = *reinterpret_cast<const float4*>(src);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = base + e * nt;
+      if (i < NWI) {
+        const int k = i / (G3 / 4), c4 = i % (G3 / 4);
+        const int gt = c4 / (C / 4), u0 = (c4 % (C / 4)) * 4;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int u = u0 + f;
+          smem[((k * 3 + gt) * LANES + u % LANES) * 2 + u / LANES] = (&v[e].x)[f];
+        }
+      } else if (i < NWI + NWH) {
+        const int j = i - NWI;
+        const int k = j / C, c = (j % C) / (C / 4), u0 = (j % (C / 4)) * 4;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int u = u0 + f;
+          swh[((k * 2 + u / LANES) * LANES + u % LANES) * 4 + c] = (&v[e].x)[f];
+        }
+      }
+    }
+  }
+}
+
+// acc[j][0..3] = h_j . [Wh_r Wh_z Wh_n Wfc] at unit lane, acc[j][4..7] at
+// unit lane + 32; h_j from the warp's slice sh [R][C].  k ascends.
+template <int R>
+__device__ __forceinline__ void product(const float4* __restrict__ sw,
+                                        const float* __restrict__ sh, int lane,
+                                        float (&acc)[R][8]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C; k += 4) {
+    float4 hv[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) hv[j] = *reinterpret_cast<const float4*>(&sh[j * C + k]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 a = sw[((k + kk) * 2) * LANES + lane];
+      const float4 b = sw[((k + kk) * 2 + 1) * LANES + lane];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float hs = (&hv[j].x)[kk];
+        acc[j][0] = fmaf(hs, a.x, acc[j][0]);
+        acc[j][1] = fmaf(hs, a.y, acc[j][1]);
+        acc[j][2] = fmaf(hs, a.z, acc[j][2]);
+        acc[j][3] = fmaf(hs, a.w, acc[j][3]);
+        acc[j][4] = fmaf(hs, b.x, acc[j][4]);
+        acc[j][5] = fmaf(hs, b.y, acc[j][5]);
+        acc[j][6] = fmaf(hs, b.z, acc[j][6]);
+        acc[j][7] = fmaf(hs, b.w, acc[j][7]);
+      }
+    }
+  }
+}
+
+// out = x + LN(y + bfc) * g + bln for the two units of this lane, with
+// y = (y0, y1) of the row: the mean and the variance are warp sums.
+// Stored only where ``store`` (the shuffles run on every lane regardless).
+template <typename TO>
+__device__ __forceinline__ void ln_store(float y0, float y1, float x0, float x1,
+                                         const LaneParams& p, TO* __restrict__ o, int lane,
+                                         bool store = true) {
+  y0 += p.fcb[0];
+  y1 += p.fcb[1];
+  const float mu = warp_sum(y0 + y1) * (1.0f / C);
+  const float d0 = y0 - mu, d1 = y1 - mu;
+  const float var = warp_sum(fmaf(d0, d0, d1 * d1)) * (1.0f / C);
+  const float inv = 1.0f / sqrtf(var + 1e-5f);
+  if (store) {
+    store_f(o + lane, x0 + fmaf(d0 * inv, p.gain[0], p.shift[0]));
+    store_f(o + lane + LANES, x1 + fmaf(d1 * inv, p.gain[1], p.shift[1]));
+  }
+}
+
+// Walk S steps of rows row0 .. row0 + R - 1 (those < N live; the others
+// are walked on row N - 1's data and store nothing).  sw: the staged
+// weights; wbuf: this warp's warp_floats(R, TS).  x element c of row n at
+// step t: rows.off(n, t) + c; the step's output at orows.off(n, t) + c
+// (OUT_LN_RESIDUAL, OUT_HIDDEN) or part[j * part_row + t * C + c]
+// (OUT_FC_PART, j the row's index in the warp); h0 / h_last at
+// hrows.off(n, 0) + c (h0 == nullptr: zeros; h_last == nullptr: not
+// stored).  reverse walks t = S - 1 .. 0.
+template <int R, int TS, int OUT, typename TX, typename TO>
+__device__ __forceinline__ void walk(const float* __restrict__ sw, float* __restrict__ wbuf,
+                                     const TX* __restrict__ x, Rows rows, Rows orows,
+                                     Rows hrows, int64_t row0, int64_t N, int S, bool reverse,
+                                     const LaneParams& p, TO* __restrict__ out,
+                                     float* __restrict__ part, int part_row,
+                                     const float* __restrict__ h0, float* __restrict__ h_last,
+                                     int lane) {
+  constexpr bool RES = OUT == OUT_LN_RESIDUAL;
+  const float2* swi = reinterpret_cast<const float2*>(sw);
+  const float4* swh = reinterpret_cast<const float4*>(sw + WI_FLOATS);
+  float* slots = wbuf;                            // [TS][R][SLOT]
+  float* sh = wbuf + TS * R * SLOT;               // [2][R][C]
+
+  bool live[R];
+  int64_t xo[R], oo[R], ho[R];
+  float h[R][2];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    live[j] = row0 + j < N;
+    const int64_t n = live[j] ? row0 + j : N - 1;
+    xo[j] = rows.off(n, 0);
+    oo[j] = orows.off(n, 0);
+    ho[j] = hrows.off(n, 0);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      h[j][q] = (h0 != nullptr && live[j]) ? h0[ho[j] + lane + LANES * q] : 0.0f;
+      sh[j * C + lane + LANES * q] = h[j][q];
+    }
+  }
+  __syncwarp();
+  float acc[R][8];                                // raw h . Wh for the next step, and its fc
+  if (h0 != nullptr) {
+    product<R>(swh, sh, lane, acc);
+  } else {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
+  }
+
+  // x of a chunk's steps (clamped to step S - 1), this lane's two channels
+  float xn[TS][R][2];
+  auto load_chunk = [&](int c0) {
+#pragma unroll
+    for (int tt = 0; tt < TS; ++tt) {
+      const int s = c0 + tt < S ? c0 + tt : S - 1;
+      const int64_t t = reverse ? S - 1 - s : s;
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          xn[tt][j][q] = load_f(x + xo[j] + t * rows.ss + lane + LANES * q);
+    }
+  };
+  load_chunk(0);
+
+  float xr[R][2] = {};                            // the residual of the previous step
+  for (int c0 = 0; c0 < S; c0 += TS) {
+    float res[TS][R][2];
+    __syncwarp();                                 // the previous chunk's slots are read
+#pragma unroll
+    for (int tt = 0; tt < TS; ++tt)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          slots[(tt * R + j) * SLOT + lane + LANES * q] = xn[tt][j][q];
+          res[tt][j][q] = xn[tt][j][q];
+        }
+    __syncwarp();
+    if (c0 + TS < S) load_chunk(c0 + TS);         // in flight while this chunk runs
+
+    // xp of the chunk: [step][row][r0 r1 z0 z1 n0 n1], k ascending
+    float a[TS][R][6];
+#pragma unroll
+    for (int tt = 0; tt < TS; ++tt)
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int i = 0; i < 6; ++i) a[tt][j][i] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < C; k += 4) {
+      float4 xv[TS][R];
+#pragma unroll
+      for (int tt = 0; tt < TS; ++tt)
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          xv[tt][j] = *reinterpret_cast<const float4*>(&slots[(tt * R + j) * SLOT + k]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float2 wr = swi[((k + kk) * 3) * LANES + lane];
+        const float2 wz = swi[((k + kk) * 3 + 1) * LANES + lane];
+        const float2 wn = swi[((k + kk) * 3 + 2) * LANES + lane];
+#pragma unroll
+        for (int tt = 0; tt < TS; ++tt)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float xs = (&xv[tt][j].x)[kk];
+            a[tt][j][0] = fmaf(xs, wr.x, a[tt][j][0]);
+            a[tt][j][1] = fmaf(xs, wr.y, a[tt][j][1]);
+            a[tt][j][2] = fmaf(xs, wz.x, a[tt][j][2]);
+            a[tt][j][3] = fmaf(xs, wz.y, a[tt][j][3]);
+            a[tt][j][4] = fmaf(xs, wn.x, a[tt][j][4]);
+            a[tt][j][5] = fmaf(xs, wn.y, a[tt][j][5]);
+          }
+      }
+    }
+    __syncwarp();                                 // every lane has read the chunk's x
+#pragma unroll
+    for (int tt = 0; tt < TS; ++tt)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float4* sp = reinterpret_cast<float4*>(&slots[(tt * R + j) * SLOT]);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          sp[q * LANES + lane] = make_float4(a[tt][j][q] + p.bi[0][q], a[tt][j][2 + q] + p.bi[1][q],
+                              a[tt][j][4 + q] + p.bi[2][q], res[tt][j][q]);
+      }
+    // each lane reads back only its own slot entries: no barrier before the walk
+
+    const int c1 = c0 + TS < S ? c0 + TS : S;
+    for (int s = c0; s < c1; ++s) {
+      const int64_t t = reverse ? S - 1 - s : s;
+      float4 xp[R][2];
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          xp[j][q] = reinterpret_cast<const float4*>(
+              &slots[((s - c0) * R + j) * SLOT])[q * LANES + lane];
+      float* shp = sh + ((s + 1) & 1) * R * C;
+#pragma unroll
+      for (int j = 0; j < R; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float rg = sigmoid_f(xp[j][q].x + (acc[j][4 * q] + p.bh[0][q]));
+          const float zg = sigmoid_f(xp[j][q].y + (acc[j][4 * q + 1] + p.bh[1][q]));
+          const float ng = tanhf(fmaf(rg, acc[j][4 * q + 2] + p.bh[2][q], xp[j][q].z));
+          h[j][q] = fmaf(zg, h[j][q], (1.0f - zg) * ng);
+          shp[j * C + lane + LANES * q] = h[j][q];
+        }
+      __syncwarp();
+      if constexpr (OUT == OUT_LN_RESIDUAL) {
+        // step s - 1's LayerNorm (its fc came out of the last product),
+        // ahead of this step's product so the shuffles overlap its loads
+        const int64_t tp = reverse ? t + 1 : t - 1;
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          ln_store(acc[j][3], acc[j][7], xr[j][0], xr[j][1], p, out + oo[j] + tp * orows.ss,
+                   lane, s > 0 && live[j]);
+      } else if constexpr (OUT == OUT_HIDDEN) {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          if (live[j]) {
+            store_f(out + oo[j] + t * orows.ss + lane, h[j][0]);
+            store_f(out + oo[j] + t * orows.ss + lane + LANES, h[j][1]);
+          }
+      }
+      product<R>(swh, shp, lane, acc);
+      if constexpr (OUT == OUT_FC_PART) {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          if (live[j]) {
+            part[j * part_row + t * C + lane] = acc[j][3];
+            part[j * part_row + t * C + lane + LANES] = acc[j][7];
+          }
+      }
+      if constexpr (RES) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          xr[j][0] = xp[j][0].w;
+          xr[j][1] = xp[j][1].w;
+        }
+      }
+    }
+  }
+  if constexpr (OUT == OUT_LN_RESIDUAL) {
+    const int64_t tl = reverse ? 0 : S - 1;
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      ln_store(acc[j][3], acc[j][7], xr[j][0], xr[j][1], p, out + oo[j] + tl * orows.ss, lane,
+               live[j]);
+  }
+
+  if (h_last != nullptr) {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (live[j]) {
+        h_last[ho[j] + lane] = h[j][0];
+        h_last[ho[j] + lane + LANES] = h[j][1];
+      }
+  }
+}
+
+}  // namespace ww
+}  // namespace dpdf

@@ -25,9 +25,9 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # library name -> (main source, headers it includes)
 SOURCES: Dict[str, tuple] = {
-    "dprnn_inter": ("dprnn_inter.cu", ("gru64_walk.cuh",)),
+    "dprnn_inter": ("dprnn_inter.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
     "dprnn_inter_v2": ("dprnn_inter_v2.cu", ("gru64_walk.cuh",)),
-    "dprnn_intra": ("dprnn_intra.cu", ("gru64_walk.cuh",)),
+    "dprnn_intra": ("dprnn_intra.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
     "dprnn_intra_v2": ("dprnn_intra_v2.cu", ("gru64_v2.cuh", "gru64_walk.cuh",
                                              "proj_gemm.cuh")),
     "dprnn_stack": ("dprnn_stack.cu", ("gru64_walk.cuh",)),

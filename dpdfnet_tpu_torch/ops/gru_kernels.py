@@ -423,9 +423,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = {
-    "dprnn_inter_launch": [_P] * 12 + [_I] * 8 + [_P],
+    "dprnn_inter_launch": [_P] * 12 + [_I] * 11 + [_P],
     "dprnn_inter_v2_launch": [_P] * 10 + [_I] * 8 + [_P],
-    "dprnn_intra_launch": [_P] * 10 + [_L, _I, _I, _I, _L, _P],
+    "dprnn_intra_launch": [_P] * 10 + [_L, _I, _L] + [_I] * 5 + [_P],
     "dprnn_intra_v2_launch": [_P] * 10 + [_L, _I, _I, _I, _I, _P],
     "dprnn_stack_launch": [_P] * 18 + [_I] * 5 + [_P],
     "gru_bidir_launch": [_P] * 6 + [_L, _I, _I, _I, _P],
@@ -493,6 +493,13 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def _require_aligned(what: str, **tensors: Tensor) -> None:
+    """The warp walk stages these weights with 16-byte loads."""
+    bad = [k for k, t in tensors.items() if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{what}: the kernel reads {', '.join(bad)} 16-byte aligned")
+
+
 def _walk_rows_per_block(rows: int, blocks_per_row_tile: int, dev) -> int:
     """8 rows per block while 16 would leave SMs idle, else 16."""
     return 16 if -(-rows // 16) * blocks_per_row_tile >= _sm_count(dev) else 8
@@ -541,6 +548,111 @@ def inter_v2_plan(N: int, sms: int) -> InterV2Plan:
     warps = min(8, -(-warps_total // (per_sm * sms)))
     smem = 4 * (64 * 256 + warps * 2 * R * 64)
     return InterV2Plan(R, warps, -(-warps_total // warps), smem)
+
+
+# csrc/gru64_warp.cuh: the staged Wi + [Wh | Wfc] of one direction, and one
+# warp's chunk slots [TS][R][8 * 32] and hidden [2][R][C] (floats, C = 64)
+_WARP_WALK_W_FLOATS = 64 * 3 * 32 * 2 + 64 * 2 * 32 * 4
+
+
+def _warp_walk_floats(R: int, ts: int) -> int:
+    return ts * R * 8 * 32 + 2 * R * 64
+
+
+@dataclass(frozen=True)
+class InterV1Plan:
+    """``csrc/dprnn_inter.cu``: ``blocks`` blocks (one per SM) of ``warps``
+    warps, each warp owning ``rows_per_warp`` consecutive rows and
+    hoisting the input projection ``ts`` steps at a time."""
+    rows_per_warp: int
+    warps: int
+    blocks: int
+    ts: int
+    smem_bytes: int
+
+    def rows(self, block: int, warp: int) -> range:
+        start = (block * self.warps + warp) * self.rows_per_warp
+        return range(start, start + self.rows_per_warp)
+
+
+INTER_V1_MAX_WARPS = 12     # csrc/dprnn_inter.cu
+
+
+def inter_v1_plan(N: int, T: int, sms: int) -> InterV1Plan:
+    """The launch plan of the v1 inter walk for ``N = B * Fq`` rows over T
+    steps on a card with ``sms`` SMs.  The 112 KB of staged weights allow
+    one block per SM, so the rows are spread over every SM first: up to 8
+    rows per SM one row per warp, above that two rows per warp (each
+    weight load then feeds two rows) and up to 12 warps per block, then
+    further blocks.  TS, the steps whose input projections one pass over
+    Wi computes: 1 at T == 1, else 8 / rows per warp (48 accumulators per
+    lane either way)."""
+    if N < 1 or T < 1 or sms < 1:
+        raise ValueError(f"inter_v1_plan: N={N}, T={T}, sms={sms}")
+    per_sm = -(-N // sms)
+    R = 1 if per_sm <= 8 else 2
+    warps = max(1, min(8 if R == 1 else INTER_V1_MAX_WARPS, -(-per_sm // R)))
+    ts = 1 if T == 1 else 8 // R
+    smem = 4 * (_WARP_WALK_W_FLOATS + warps * _warp_walk_floats(R, ts))
+    return InterV1Plan(R, warps, -(-N // (warps * R)), ts, smem)
+
+
+@dataclass(frozen=True)
+class IntraPlan:
+    """``csrc/dprnn_intra.cu``: ``clusters`` clusters of ``cluster`` CTAs
+    (CTA rank d walks direction d) of ``warps`` warps, persistent over the
+    ``tiles`` row tiles: cluster q walks tiles q, q + clusters, ...; warp
+    w < ``walk_warps`` of a tile owns ``rows_per_warp`` consecutive rows
+    (every warp stages weights and runs the epilogue); ``ts`` steps of
+    input projection per pass over Wi."""
+    cluster: int
+    rows_per_warp: int
+    walk_warps: int
+    warps: int
+    ts: int
+    tiles: int
+    clusters: int
+    smem_bytes: int
+
+    @property
+    def rows_per_tile(self) -> int:
+        return self.walk_warps * self.rows_per_warp
+
+    def rows(self, tile: int, warp: int) -> range:
+        start = tile * self.rows_per_tile + warp * self.rows_per_warp
+        return range(start, start + self.rows_per_warp)
+
+    def tiles_of(self, q: int) -> range:
+        return range(q, self.tiles, self.clusters)
+
+
+INTRA_MAX_WARPS = 8         # csrc/dprnn_intra.cu
+INTRA_MIN_WARPS = 4         # warps per CTA that stage the weights and share the epilogue
+INTRA_TS = 4
+
+
+def intra_plan(N: int, Fq: int, sms: int) -> IntraPlan:
+    """The launch plan of the intra walk for ``N = B * T`` rows of ``Fq``
+    positions on a card with ``sms`` SMs.  Each CTA stages 112 KB of one
+    direction's weights, so one CTA fits an SM and a tile holds up to 8
+    walking warps.  Rows per warp: 1 up to 8 rows per tile, else 2 (each
+    weight load then feeds two rows).  The tiles are balanced over the
+    ``sms // 2`` clusters the card runs at once: the fewest rounds of
+    tiles that the largest tile allows, then the smallest tile that keeps
+    to that many rounds.  A CTA has at least ``INTRA_MIN_WARPS`` warps, so
+    small tiles still stage their weights and run their epilogue with four
+    warps.  The fc partials go to a device-memory scratch."""
+    if N < 1 or Fq < 1 or sms < 2:
+        raise ValueError(f"intra_plan: N={N}, Fq={Fq}, sms={sms}")
+    pairs = sms // 2
+    rounds = -(-N // (pairs * 2 * INTRA_MAX_WARPS))
+    want = -(-N // (pairs * rounds))                    # rows per tile
+    R = 1 if want <= INTRA_MAX_WARPS else 2
+    walk = -(-want // R)
+    tiles = -(-N // (walk * R))
+    smem = 4 * (_WARP_WALK_W_FLOATS + walk * _warp_walk_floats(R, INTRA_TS))
+    return IntraPlan(2, R, walk, max(walk, INTRA_MIN_WARPS), INTRA_TS, tiles,
+                     min(tiles, pairs), smem)
 
 
 @dataclass(frozen=True)
@@ -614,13 +726,16 @@ def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
             or tuple(b2.shape) != (2, 6 * C) or tuple(wfc.shape) != (2 * C, C):
         raise ValueError(f"dprnn_intra_block: kernel takes C == 64 with packed weights; "
                          f"got x {tuple(x.shape)}, wi2 {tuple(wi2.shape)}")
+    _require_aligned("dprnn_intra_block", wi2=wi2, wh2=wh2, wfc=wfc)
     out = (torch.empty((N // fm_batch, Fq, fm_batch, C), device=dev, dtype=x.dtype)
            if fm_batch else torch.empty_like(x))
+    plan = intra_plan(N, Fq, _sm_count(dev))
     part = torch.empty((2, N, Fq, C), device=dev, dtype=torch.float32)
     rc = _fn("dprnn_intra", "dprnn_intra_launch")(
         x.data_ptr(), out.data_ptr(), part.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
-        b2.data_ptr(), wfc.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
-        N, Fq, _walk_rows_per_block(N, 2, dev), _is_bf16(x), fm_batch or 0, _stream())
+        b2.data_ptr(), wfc.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(), N, Fq,
+        fm_batch or 0, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
+        _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_intra_block")
     dprnn_intra_block.launches += 1
     return out
@@ -676,12 +791,14 @@ def _inter_launch(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, fm_batch, h_bm, defer
             or tuple(wh.shape) != (C, 3 * C) or tuple(wfc.shape) != (C, C):
         raise ValueError(f"dprnn_inter_block: kernel takes C == 64 and h0 {h_shape}; got "
                          f"x {tuple(x.shape)}, h0 {tuple(h0.shape)}, wi {tuple(wi.shape)}")
+    _require_aligned("dprnn_inter_block", wi=wi, wh=wh, wfc=wfc)
     h_last = torch.empty_like(h0)
+    plan = inter_v1_plan(B * Fq, T, _sm_count(dev))
     rc = _fn("dprnn_inter", "dprnn_inter_launch")(
         x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(), wi.data_ptr(),
         bi.data_ptr(), wh.data_ptr(), bh.data_ptr(), wfc.data_ptr(), bfc.data_ptr(),
-        g.data_ptr(), bln.data_ptr(), B, T, Fq, _walk_rows_per_block(B * Fq, 1, dev),
-        _is_bf16(x), int(bool(fm_batch)), int(h_bm), int(bool(defer)), _stream())
+        g.data_ptr(), bln.data_ptr(), B, T, Fq, plan.rows_per_warp, plan.ts, plan.warps,
+        plan.blocks, _is_bf16(x), int(bool(fm_batch)), int(h_bm), int(bool(defer)), _stream())
     _check_rc(rc, "dprnn_inter_block")
     dprnn_inter_block.launches += 1
     return out, h_last

@@ -1,8 +1,9 @@
-"""The recurrent kernels gru_scan and dprnn_inter_block_v2, and the
-offline and streaming paths they sit on, measured for one checkout.
+"""The recurrent kernels gru_scan, dprnn_inter_block_v2 and the v1 DPRNN
+stages dprnn_inter_block and dprnn_intra_block, and the offline and
+streaming paths they sit on, measured for one checkout.
 
     python3 dpdfnet_tpu_torch/tools/kernel_ab.py [--root DIR] [--out FILE] [--pairs N]
-        [--e2e] [--hops N]
+        [--kernels gru_scan,inter_v2,inter,intra] [--e2e] [--hops N]
 
 Imports ``dpdfnet_tpu_torch`` from ``--root`` (default: the checkout
 holding this file), as ``mode_off_digest.py`` does, so one command can
@@ -15,7 +16,7 @@ For each kernel, at the shapes the main path gives it (B=8 offline, B=64 x
 ``turbo`` path uses them): the kernel against its plain version (1e-4
 max-abs, beyond one bf16 ulp on bfloat16 outputs), then the kernel and one
 PyTorch library call of the same function (cuDNN's GRU, with linear +
-LayerNorm + residual for inter v2) timed alternately call by call
+LayerNorm + residual for the DPRNN stages, bidirectional for intra) timed alternately call by call
 (:func:`interleaved_ms`), and the roofline bound.  ``--e2e``: offline xRT
 of ``Engine.enhance_waveforms`` at B=64 x 4 s and exact ms per hop at 64
 streams, ``highest`` against ``turbo`` with ``DPDFNET_TPU_PALLAS_V2=1``,
@@ -107,16 +108,39 @@ SCAN_CASES = (("B=8", 8, 112, "f32"), ("B=64", 64, 112, "f32"), ("B=64", 64, 112
 INTER_V2_CASES = (("B=8", 8, 112, "f32"), ("B=8", 8, 112, "bf16"), ("B=64", 64, 112, "f32"),
                   ("B=64", 64, 112, "bf16"), ("T=1 x 64", 64, 1, "f32"),
                   ("T=1 x 64", 64, 1, "bf16"))
+# the v1 DPRNN stages: inter (label, B, T, plane) on [B, T, 48, 64]; intra
+# (label, rows B * T, plane) on [rows, 48, 64]
+INTER_CASES = (("B=8", 8, 112, "f32"), ("B=8", 8, 112, "bf16"), ("B=64", 64, 112, "f32"),
+               ("B=64", 64, 112, "bf16"), ("T=1 x 64", 64, 1, "f32"))
+INTRA_CASES = (("B=8", 8 * 112, "f32"), ("B=8", 8 * 112, "bf16"), ("B=64", 64 * 112, "f32"),
+               ("B=64", 64 * 112, "bf16"), ("T=1 x 64", 64, "f32"))
+KERNELS = ("gru_scan", "inter_v2", "inter", "intra")
 
 
-def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0) -> list:
-    """Every case of SCAN_CASES (forward and reverse) and INTER_V2_CASES
-    (bf16 xp, and f32 xp on f32 planes): checked against the plain
-    version, then timed with its library call.  Raises on a mismatch."""
+def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0, kernels=KERNELS) -> list:
+    """Every case of SCAN_CASES (forward and reverse), INTER_V2_CASES
+    (bf16 xp, and f32 xp on f32 planes), INTER_CASES and INTRA_CASES, for
+    the kernels named in ``kernels``: checked against the plain version,
+    then timed with its library call.  Raises on a mismatch."""
     import torch
 
     rng = np.random.default_rng(seed)
-    F = torch.nn.functional
+    rows = []
+    if "gru_scan" in kernels:
+        rows += _scan_rows(gk, log, pairs, rng)
+    if "inter_v2" in kernels:
+        rows += _inter_v2_rows(gk, log, pairs, rng)
+    if "inter" in kernels:
+        rows += _inter_rows(gk, log, pairs, rng)
+    if "intra" in kernels:
+        rows += _intra_rows(gk, log, pairs, rng)
+    torch.cuda.synchronize()
+    return rows
+
+
+def _scan_rows(gk, log, pairs, rng) -> list:
+    import torch
+
     rows = []
     H = I = 256
     wi, wh = _randn(rng, I, 3 * H, scale=I ** -0.5), _randn(rng, H, 3 * H, scale=H ** -0.5)
@@ -148,7 +172,118 @@ def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0) -> list:
                              plane=plane, reverse=reverse, err=err, ms=t["kernel"],
                              library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
             log(_line(rows[-1]))
+    return rows
 
+
+def _dprnn_weights(rng, C):
+    """One inter GRU (wi, bi, wh, bh), an fc (wfc, bfc) and a LayerNorm
+    (g, bln), float32 on the card."""
+    wi, wh = _randn(rng, C, 3 * C, scale=C ** -0.5), _randn(rng, C, 3 * C, scale=C ** -0.5)
+    bi, bh = _randn(rng, 3 * C, scale=0.1), _randn(rng, 3 * C, scale=0.1)
+    wfc, bfc = _randn(rng, C, C, scale=C ** -0.5), _randn(rng, C, scale=0.1)
+    g, bln = 1.0 + _randn(rng, C, scale=0.2), _randn(rng, C, scale=0.1)
+    return wi, bi, wh, bh, wfc, bfc, g, bln
+
+
+def _cudnn_gru(wi, bi, wh, bh, bidir=None):
+    """cuDNN's GRU holding the same weights (bidir: the backward set)."""
+    import torch
+
+    m = torch.nn.GRU(wi.shape[0], wh.shape[0], batch_first=True,
+                     bidirectional=bidir is not None).cuda()
+    with torch.no_grad():
+        sets = [("", (wi, bi, wh, bh))] + ([("_reverse", bidir)] if bidir is not None else [])
+        for sfx, (a, b, c, d) in sets:
+            getattr(m, f"weight_ih_l0{sfx}").copy_(a.T)
+            getattr(m, f"bias_ih_l0{sfx}").copy_(b)
+            getattr(m, f"weight_hh_l0{sfx}").copy_(c.T)
+            getattr(m, f"bias_hh_l0{sfx}").copy_(d)
+    return m
+
+
+def _inter_rows(gk, log, pairs, rng) -> list:
+    """v1 ``dprnn_inter_block`` against its plain version and cuDNN's GRU +
+    linear + LayerNorm + residual."""
+    import torch
+
+    F = torch.nn.functional
+    C, Fq = 64, 48
+    ea = _dprnn_weights(rng, C)
+    wi, bi, wh, bh, wfc, bfc, g, bln = ea
+    lib_gru = _cudnn_gru(wi, bi, wh, bh)
+    rows = []
+    for label, B, T, plane in INTER_CASES:
+        dt = torch.bfloat16 if plane == "bf16" else torch.float32
+        x = _randn(rng, B, T, Fq, C, scale=1.0).to(dt)
+        h0 = _randn(rng, B, Fq, C, scale=0.5)
+        err = _err(gk.dprnn_inter_block(x, h0, *ea), gk.dprnn_inter_block_plain(x, h0, *ea))
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"dprnn_inter_block {label} {plane}: {err:.3e} beyond the "
+                                 f"plain version")
+        xl = x.float().transpose(1, 2).reshape(B * Fq, T, C).contiguous()
+        hl0 = h0.reshape(1, B * Fq, C)
+
+        def lib():
+            ys, _ = lib_gru(xl, hl0)
+            return xl + F.layer_norm(F.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
+
+        t = interleaved_ms({"kernel": lambda: gk.dprnn_inter_block(x, h0, *ea),
+                            "library": lib}, pairs)
+        n = B * Fq * T
+        b_ms, b_by = bound(14 * C * C * n, 2 * C * x.element_size() * n + 2 * B * Fq * C * 4
+                           + 4 * sum(a.numel() for a in ea))
+        rows.append(dict(kernel="dprnn_inter_block", shape=f"{label} x[{B},{T},{Fq},{C}]",
+                         plane=plane, reverse=False, err=err, ms=t["kernel"],
+                         library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
+        log(_line(rows[-1]))
+    return rows
+
+
+def _intra_rows(gk, log, pairs, rng) -> list:
+    """``dprnn_intra_block`` against its plain version and cuDNN's
+    bidirectional GRU + linear + LayerNorm + residual."""
+    import torch
+
+    F = torch.nn.functional
+    C, Fq = 64, 48
+    fw, bw = _dprnn_weights(rng, C)[:4], _dprnn_weights(rng, C)[:4]
+    wi2, wh2, b2 = gk._pack_bidir(dict(zip(("wi", "bi", "wh", "bh"), fw)),
+                                  dict(zip(("wi", "bi", "wh", "bh"), bw)))
+    wfc, bfc = _randn(rng, 2 * C, C, scale=(2 * C) ** -0.5), _randn(rng, C, scale=0.1)
+    g, bln = 1.0 + _randn(rng, C, scale=0.2), _randn(rng, C, scale=0.1)
+    ia = (wi2, wh2, b2, wfc, bfc, g, bln)
+    lib_gru = _cudnn_gru(*fw, bidir=bw)
+    rows = []
+    for label, N, plane in INTRA_CASES:
+        dt = torch.bfloat16 if plane == "bf16" else torch.float32
+        x = _randn(rng, N, Fq, C, scale=1.0).to(dt)
+        err = _err(gk.dprnn_intra_block(x, *ia), gk.dprnn_intra_block_plain(x, *ia))
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"dprnn_intra_block {label} {plane}: {err:.3e} beyond the "
+                                 f"plain version")
+        xl = x.float()
+
+        def lib():
+            ys, _ = lib_gru(xl)
+            return xl + F.layer_norm(F.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
+
+        t = interleaved_ms({"kernel": lambda: gk.dprnn_intra_block(x, *ia), "library": lib},
+                           pairs)
+        n = N * Fq
+        b_ms, b_by = bound(28 * C * C * n, 2 * C * x.element_size() * n
+                           + 4 * sum(a.numel() for a in ia))
+        rows.append(dict(kernel="dprnn_intra_block", shape=f"{label} x[{N},{Fq},{C}]",
+                         plane=plane, reverse=False, err=err, ms=t["kernel"],
+                         library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
+        log(_line(rows[-1]))
+    return rows
+
+
+def _inter_v2_rows(gk, log, pairs, rng) -> list:
+    import torch
+
+    F = torch.nn.functional
+    rows = []
     C, Fq = 64, 48
     wi_t, wh_t = _randn(rng, C, 3 * C, scale=C ** -0.5), _randn(rng, C, 3 * C, scale=C ** -0.5)
     bi_t, bh_t = _randn(rng, 3 * C, scale=0.1), _randn(rng, 3 * C, scale=0.1)
@@ -193,7 +328,6 @@ def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0) -> list:
                          plane=plane, reverse=False, err=err, ms=t["kernel"],
                          library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
         log(_line(rows[-1]))
-    torch.cuda.synchronize()
     return rows
 
 
@@ -284,6 +418,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pairs", type=int, default=21)
     ap.add_argument("--e2e", action="store_true", help="also time the two engine paths")
     ap.add_argument("--hops", type=int, default=200)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated subset of {', '.join(KERNELS)}")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -304,7 +440,8 @@ def main(argv=None) -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
     log(f"kernel_ab root {root} | {smi} | torch {torch.__version__}")
-    result = {"root": root, "card": smi, "kernels": kernel_rows(gk, log, args.pairs)}
+    result = {"root": root, "card": smi, "kernels": kernel_rows(gk, log, args.pairs,
+                                                                kernels=args.kernels.split(","))}
     if args.e2e:
         result["e2e"] = e2e(gk, log, hops=args.hops)
     text = json.dumps(result, indent=1)

@@ -3,9 +3,8 @@
     python3 dpdfnet_tpu_torch/tools/mode_off_digest.py [--root DIR] [--write FILE]
         [--against FILE]
 
-Every kernel built on the shared walk (``csrc/gru64_walk.cuh``: DPRNN
-intra and inter, their v2 forms, gru_scan, gru_bidir, the DPRNN stack)
-runs once per case of :data:`CASES` on fixed inputs drawn with numpy from
+Every DPRNN and GRU kernel (DPRNN intra and inter, their v2 forms,
+gru_scan, gru_bidir, the DPRNN stack) runs once per case of :data:`CASES` on fixed inputs drawn with numpy from
 a seed (a hash of the case's name), through its wrapper's row-major call
 (no ``fm_batch``, ``h_bm`` or ``defer``), and each case's outputs are
 hashed with SHA-256 (their raw bytes, in order).  Equal digests mean bit-identical outputs (max-abs 0).
@@ -45,8 +44,8 @@ RECORD = Path(__file__).resolve().parent / "mode_off_digests.json"
 C = 64
 
 # case -> (kernel, plane dtype, shape, extra); shapes as each wrapper takes
-# them.  Row counts cover both rows-per-block choices of the walk (8 rows
-# per block while 16 would leave SMs idle) and T == 1 (streaming).
+# them.  Row counts cover the main path's B=8 and B=64 plans of each walk
+# and T == 1 (streaming).
 CASES = {
     "dprnn_intra f32 x[896,48,64]": ("intra", "f32", (896, 48), {}),
     "dprnn_intra f32 x[7168,40,64]": ("intra", "f32", (7168, 40), {}),

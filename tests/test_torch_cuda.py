@@ -541,3 +541,161 @@ def test_cuda_mode_off_bit_identical_to_record(dev):
     record = json.loads(mode_off_digest.RECORD.read_text())
     got = mode_off_digest.kernel_digests(gru_kernels)
     assert mode_off_digest.compare(got, record, mode_off_digest.toolchain()) == []
+
+
+# --------------------------------------------------------------------------- #
+# The warp-walk v1 DPRNN kernels (csrc/gru64_warp.cuh): main-path shapes,
+# plan edges, batch invariance and run-to-run repeatability
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("B,T,Fq", [(8, 112, 48), (64, 112, 48), (64, 1, 48), (64, 112, 40)])
+def test_cuda_inter_main_path_shapes(dev, B, T, Fq, plane):
+    """B=8, B=64 x 112 (Fq 48 and 40) and T=1 x 64 streams against the plain
+    version, with one launch per call."""
+    rng = np.random.default_rng(40)
+    args = _inter_args(rng, dev)
+    x = _rand(rng, (B, T, Fq, 64), dev).to(plane)
+    h0 = _rand(rng, (B, Fq, 64), dev, 0.2)
+    gru_kernels.reset_launch_counts()
+    out, hl = gru_kernels.dprnn_inter_block(x, h0, *args, defer=False)
+    assert gru_kernels.launch_counts()["dprnn_inter_block"] == 1
+    ref, hl_ref = gru_kernels.dprnn_inter_block_plain(x, h0, *args)
+    _close(out, ref)
+    _close(hl, hl_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("N,Fq", [(896, 48), (7168, 48), (64, 48), (7168, 40)])
+def test_cuda_intra_main_path_shapes(dev, N, Fq, plane):
+    """B=8 (896 rows), B=64 x 112 (7168 rows, Fq 48 and 40) and T=1 x 64
+    streams against the plain version, with one launch per call."""
+    rng = np.random.default_rng(41)
+    args = _intra_args(rng, dev)
+    x = _rand(rng, (N, Fq, 64), dev).to(plane)
+    gru_kernels.reset_launch_counts()
+    got = gru_kernels.dprnn_intra_block(x, *args)
+    assert gru_kernels.launch_counts()["dprnn_intra_block"] == 1
+    _close(got, gru_kernels.dprnn_intra_block_plain(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Fq", [
+    # one row; fewer rows than SMs; a ragged last warp (2 rows per warp,
+    # odd N); more rows than one wave of blocks; T below and at the chunk
+    (1, 5, 1), (3, 2, 7), (133, 3, 9), (150, 9, 21), (1, 1, 3), (2, 4, 48)])
+def test_cuda_inter_plan_edges(dev, B, T, Fq):
+    rng = np.random.default_rng(42)
+    args = _inter_args(rng, dev)
+    x = _rand(rng, (B, T, Fq, 64), dev)
+    h0 = _rand(rng, (B, Fq, 64), dev, 0.2)
+    out, hl = gru_kernels.dprnn_inter_block(x, h0, *args, defer=False)
+    ref, hl_ref = gru_kernels.dprnn_inter_block_plain(x, h0, *args)
+    _close(out, ref)
+    _close(hl, hl_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,Fq", [
+    # one row; rows below one cluster per SM pair; a ragged last tile and
+    # warp; several rounds of tiles; Fq below, at and off the chunk
+    (1, 48), (5, 3), (67, 4), (401, 5), (1001, 40), (13, 1)])
+def test_cuda_intra_plan_edges(dev, N, Fq):
+    rng = np.random.default_rng(43)
+    args = _intra_args(rng, dev)
+    x = _rand(rng, (N, Fq, 64), dev)
+    _close(gru_kernels.dprnn_intra_block(x, *args), gru_kernels.dprnn_intra_block_plain(x, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+def test_cuda_v1_dprnn_batch_invariant(dev, plane):
+    """A row alone gives the bits it has in a batch of 64 x 112 (another
+    plan: rows per warp, warps, TS, tiles): max-abs 0, for inter (rows
+    (b, f)) and intra (rows b * T + t)."""
+    rng = np.random.default_rng(44)
+    ea, ia = _inter_args(rng, dev), _intra_args(rng, dev)
+    x = _rand(rng, (64, 12, 48, 64), dev).to(plane)
+    h0 = _rand(rng, (64, 48, 64), dev, 0.2)
+    out, hl = gru_kernels.dprnn_inter_block(x, h0, *ea, defer=False)
+    rows = x.reshape(64 * 12, 48, 64)
+    intra = gru_kernels.dprnn_intra_block(rows, *ia)
+    for b, f in ((0, 0), (37, 5), (63, 47)):
+        for fs in (slice(f, f + 1), slice(0, 48)):
+            o1, h1 = gru_kernels.dprnn_inter_block(x[b:b + 1, :, fs].contiguous(),
+                                                   h0[b:b + 1, fs].contiguous(), *ea, defer=False)
+            assert torch.equal(o1[0], out[b, :, fs]) and torch.equal(h1[0], hl[b, fs])
+    for n in (0, 100, 767):
+        assert torch.equal(gru_kernels.dprnn_intra_block(rows[n:n + 1].contiguous(), *ia)[0],
+                           intra[n])
+    assert torch.equal(gru_kernels.dprnn_intra_block(rows[:70].contiguous(), *ia), intra[:70])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["inter", "intra", "gru_bidir"])
+def test_cuda_walk_kernels_repeat_bit_exact(dev, kernel):
+    """The same seeded input 50 times in one process, every other call
+    after NaN has gone through the caching allocator and another walk
+    kernel through shared memory: the same bits every time (a race or a
+    read of an unwritten buffer would show here).  gru_bidir runs the
+    block-wide walk of gru64_walk.cuh, the other two the warp walk."""
+    rng = np.random.default_rng(45)
+    ia = _intra_args(rng, dev)
+    if kernel == "inter":
+        ea = _inter_args(rng, dev)
+        x, h0 = _rand(rng, (6, 4, 16, 64), dev), _rand(rng, (6, 16, 64), dev, 0.2)
+        x_fm = x.permute(1, 2, 0, 3).reshape(4, 96, 64).contiguous()
+        h_fm = h0.transpose(0, 1).reshape(96, 64).contiguous()
+        call = lambda: gru_kernels.dprnn_inter_block(x_fm, h_fm, *ea, fm_batch=6, defer=False)  # noqa: E731
+    elif kernel == "intra":
+        x = _rand(rng, (30, 40, 64), dev)
+        call = lambda: (gru_kernels.dprnn_intra_block(x, *ia),)  # noqa: E731
+    else:
+        x = _rand(rng, (30, 40, 64), dev)
+        call = lambda: gru_kernels.gru_bidir(x, *ia[:3])  # noqa: E731
+    other = _rand(rng, (50, 48, 64), dev)
+    first = [t.clone() for t in call()]
+    for i in range(50):
+        if i % 2:
+            junk = torch.full((1 << 22,), float("nan"), device=dev)
+            del junk
+            gru_kernels.dprnn_intra_block(other, *ia)
+        for a, b in zip(call(), first):
+            assert torch.equal(a, b), f"call {i} differs by {(a - b).abs().max().item():.3e}"
+
+
+@pytest.mark.cuda
+def test_cuda_exact_streaming_states_match_cpu(dev):
+    """Exact streaming of the flagship on speech-shaped input, card against
+    CPU (``highest``): the output and every carried state leaf within
+    rel_rms 1e-3.  The recurrent kernels carry their hiddens over every
+    hop, so a gate approximation that stays within the kernel tolerance
+    on random inputs but drifts on a real signal shows here (a fast
+    exp / division in the DPRNN gates put the erb hiddens at rel_rms 0.9)."""
+    from dpdfnet_tpu_torch import Engine, get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.quality import speechlike_test_signal
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("dpdfnet8_48khz_hr")
+    params = contract_params(init_params(cfg, seed=0, device=dev))
+    sr = cfg.sample_rate
+    sp = speechlike_test_signal(1.0, sr, seed=5, batch=2)
+    frames = sp[:, sr // 4 + np.arange(16)[:, None] * cfg.hop + np.arange(cfg.win_len)[None, :]]
+    outs = {}
+    for where, p in (("cuda", params), ("cpu", tree_map(lambda _, t: t.cpu(), params))):
+        eng = Engine(cfg, p, device=where)
+        outs[where] = eng.process_frames(frames, eng.init_stream_state(batch=2))
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.sqrt(np.mean((a - b) ** 2) / max(np.mean(b ** 2), 1e-30)))
+
+    (y, st), (ref, st_ref) = outs["cuda"], outs["cpu"]
+    assert rel(y, ref) < 1e-3
+    ref_leaves = dict(tree_leaves(st_ref))
+    worst = max((rel(v.float().cpu().numpy(), ref_leaves[k].float().numpy()), k)
+                for k, v in tree_leaves(st))
+    assert worst[0] < 1e-3, worst

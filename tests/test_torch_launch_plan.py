@@ -1,14 +1,18 @@
-"""The launch plans of the inter v2 walk and the cluster GRU scan.
+"""The launch plans of the warp walks and the cluster GRU scan.
 
-``gru_kernels.inter_v2_plan`` and ``gru_kernels.gru_scan_plan`` are pure
-Python: the wrappers hand their numbers to ``csrc/dprnn_inter_v2.cu`` and
-``csrc/gru_scan.cu``, whose row indexing the plans' ``rows`` methods state.
+``gru_kernels.inter_v2_plan``, ``inter_v1_plan``, ``intra_plan`` and
+``gru_scan_plan`` are pure Python: the wrappers hand their numbers to
+``csrc/dprnn_inter_v2.cu``, ``csrc/dprnn_inter.cu``, ``csrc/dprnn_intra.cu``
+and ``csrc/gru_scan.cu``, whose row indexing the plans' ``rows`` methods state.
 Here every plan covers every row (and, for the scan, every hidden unit)
 exactly once, stays within the limits it states, and fills the card as its
 docstring says.  Shapes: the plans' edges (N = 1, just below, at and above
 a multiple of the rows per warp or cluster, and of the thresholds in SMs),
 the main path's N = 320 / 384 (B=8) and 2560 / 3072 (B=64), an odd 600;
 H = 32, 64, 96 (a cluster of 3) and 256; SM counts of 132 (H100 SXM) and 8.
+The v1 DPRNN plans at N = 1, 64 (one exact hop's intra rows), 96, 384
+(inter at B=8), 896 (intra at B=8), 3072 (inter at B=64) and 7168 (intra
+at B=64 x 112), Fq 40 and 48.
 """
 
 import pytest
@@ -78,3 +82,57 @@ def test_gru_scan_plan_takes_the_device_cluster_count():
 def test_gru_scan_plan_raises_outside_its_h_range(H):
     with pytest.raises(ValueError, match="from 32 to 256"):
         gk.gru_scan_plan(8, H, 132)
+
+
+# ---- the v1 DPRNN walks (csrc/gru64_warp.cuh): inter_v1_plan, intra_plan ----
+
+V1_N = (1, 64, 96, 384, 896, 3072, 7168)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("N", V1_N)
+def test_inter_v1_plan_covers_every_row_once(N, sms):
+    for T in (1, 2, 112):
+        p = gk.inter_v1_plan(N, T, sms)
+        _covered_once((p.rows(b, w) for b in range(p.blocks) for w in range(p.warps)), N)
+        assert p.rows(p.blocks - 1, 0).start < N
+        assert p.rows_per_warp in (1, 2) and 1 <= p.warps <= gk.INTER_V1_MAX_WARPS
+        assert p.smem_bytes <= gk.SMEM_PER_BLOCK
+        # T == 1 hoists a one-step chunk; else 8 row-steps per pass over Wi
+        assert p.ts == (1 if T == 1 else 8 // p.rows_per_warp)
+        # one block per SM while 24 rows per SM hold every row
+        if N <= 24 * sms:
+            assert p.blocks <= sms
+        # two rows per warp only where one per warp would need more than 8 warps
+        assert (p.rows_per_warp == 2) == (-(-N // sms) > 8)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("Fq", (40, 48))
+@pytest.mark.parametrize("N", V1_N)
+def test_intra_plan_covers_every_row_and_direction_once(N, Fq, sms):
+    p = gk.intra_plan(N, Fq, sms)
+    assert p.cluster == 2 and p.ts == gk.INTRA_TS
+    seen = {}
+    for q in range(p.clusters):
+        for d in range(p.cluster):              # CTA rank d walks direction d
+            for tile in p.tiles_of(q):
+                for w in range(p.walk_warps):
+                    for n in p.rows(tile, w):
+                        if n < N:
+                            seen[(n, d)] = seen.get((n, d), 0) + 1
+    assert seen == {(n, d): 1 for n in range(N) for d in range(2)}
+    assert p.rows(p.tiles - 1, 0).start < N
+    assert p.rows_per_warp in (1, 2)
+    assert 1 <= p.walk_warps <= p.warps <= gk.INTRA_MAX_WARPS
+    assert p.warps == max(p.walk_warps, gk.INTRA_MIN_WARPS)
+    assert p.smem_bytes <= gk.SMEM_PER_BLOCK
+    assert p.clusters == min(p.tiles, sms // 2)
+    # the fewest rounds of tiles the largest tile allows
+    rounds = -(-p.tiles // p.clusters)
+    assert rounds == -(-N // ((sms // 2) * 2 * gk.INTRA_MAX_WARPS))
+    # two rows per warp only where one per warp would need more than 8 warps
+    assert (p.rows_per_warp == 2) == (-(-N // ((sms // 2) * rounds)) > gk.INTRA_MAX_WARPS)
+    if N <= sms // 2:
+        assert p.rows_per_tile == 1 and p.tiles == N
+
