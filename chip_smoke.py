@@ -13,12 +13,19 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    tolerance, kernel ms, plain ms, the ms of one PyTorch library call of the
    same function (a yardstick the port never calls), and the roofline
    bound; the kernel and its library call are timed alternately call by
-   call, 21 pairs, median [min-max]; then gru_scan,
-   ``dprnn_inter_block_v2`` and the v1 ``dprnn_inter_block`` /
-   ``dprnn_intra_block`` at every shape the main path gives them (B=8,
-   B=64 x 112, T=1 at 64 streams, bfloat16 planes; gru_scan forward and
-   reverse; inter v2 with bfloat16 and float32 xp) against their plain
-   versions and their library calls (``tools/kernel_ab.py``);
+   call, 21 pairs, median [min-max]; the DPRNN stack (one exact hop of 64
+   streams and the offline B=8 plane) also bit for bit against the
+   per-stage chain it replaces, K x (intra + inter) with the model's
+   weights (float32; the run fails at the exact hop if a bit differs), and
+   timed against that chain; then gru_scan,
+   ``dprnn_inter_block_v2``, the v1 ``dprnn_inter_block`` /
+   ``dprnn_intra_block``, ``gru_bidir`` and the stack at every shape the
+   main path gives them (B=8, B=64 x 112, T=1 at 64 streams, bfloat16
+   planes; gru_scan forward and reverse; inter v2 with bfloat16 and float32
+   xp; the stack at one exact hop of both branches, a throughput call, the
+   offline shape and the pool's edges) against their plain versions and
+   their library calls, the stack's against its per-stage chain
+   (``tools/kernel_ab.py``);
 3. the main path: ``Engine.enhance_waveforms`` on dpdfnet8_48khz_hr with
    random contracted weights, 3 utterances (1.3, 2.0, 3.1 s) with
    ``lengths``, on the card and on the CPU with the same weights; checks
@@ -89,7 +96,7 @@ import numpy as np
 import torch
 
 # the roofline bound, and kernel / library timed alternately call by call
-from dpdfnet_tpu_torch.tools.kernel_ab import bound, interleaved_ms as yardstick
+from dpdfnet_tpu_torch.tools.kernel_ab import bound, interleaved_ms as yardstick, stack_chain
 
 # Tolerances (max-abs, float32 everywhere, TF32 off).
 # Kernel vs plain version: the same f32 arithmetic summed in another order;
@@ -468,15 +475,36 @@ def kernel_phase(params, cfg, gk):
 
     # ---- dprnn_stack: the streaming shape and the offline shape ----
     K = cfg.dprnn_blocks
+
     for branch, Fq in (("dprnn_erb", cfg.dprnn_erb_feat), ("dprnn_df", cfg.dprnn_df_feat)):
-        stacked = pack_stack(params["enc"][branch])
+        blocks = params["enc"][branch]
+        stacked = pack_stack(blocks)
+        # the per-stage chain the stack replaces: K x (intra + inter)
+        intra_k = [(b["intra"]["packed"]["wi2"], b["intra"]["packed"]["wh2"],
+                    b["intra"]["packed"]["b2"], b["intra"]["fc"]["w"], b["intra"]["fc"]["b"],
+                    b["intra"]["ln"]["g"], b["intra"]["ln"]["b"]) for b in blocks]
+        inter_k = [(b["inter"]["gru"]["wi"], b["inter"]["gru"]["bi"], b["inter"]["gru"]["wh"],
+                    b["inter"]["gru"]["bh"], b["inter"]["fc"]["w"], b["inter"]["fc"]["b"],
+                    b["inter"]["ln"]["g"], b["inter"]["ln"]["b"]) for b in blocks]
+
+        def chain(x, h0):
+            out, hs = stack_chain(gk, x, h0, intra_k, inter_k)
+            return out, torch.stack(hs)
+
         for Bs, Ts, label in ((64, 1, "stream"), (B, T, "offline")):
             x = randn(Bs, Ts, Fq, C)
             h0 = randn(K, Bs, Fq, C, scale=0.5)
-            err = check(f"dprnn_stack {label} Fq={Fq}", gk.dprnn_stack(x, h0, stacked),
-                        gk.dprnn_stack_plain(x, h0, stacked))
-            t = yardstick({"kernel": lambda: gk.dprnn_stack(x, h0, stacked)},
-                          21 if Ts == 1 else 5)
+            got = gk.dprnn_stack(x, h0, stacked)
+            err = check(f"dprnn_stack {label} Fq={Fq}", got, gk.dprnn_stack_plain(x, h0, stacked))
+            ref = chain(x, h0)
+            bits = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            if Ts == 1 and not bits:
+                raise AssertionError(
+                    f"dprnn_stack {label} Fq={Fq}: not bit-identical to {K} x (intra + inter) "
+                    f"(out {(got[0] - ref[0]).abs().max().item():.3e}, h_last "
+                    f"{(got[1] - ref[1]).abs().max().item():.3e})")
+            t = yardstick({"kernel": lambda: gk.dprnn_stack(x, h0, stacked),
+                           "chain": lambda: chain(x, h0)}, 21 if Ts == 1 else 5)
             ms = t["kernel"][0]
             plain_ms = cuda_ms(lambda: gk.dprnn_stack_plain(x, h0, stacked), 3 if Ts == 1 else 1)
             n = Bs * Ts * Fq * K
@@ -484,9 +512,11 @@ def kernel_phase(params, cfg, gk):
                                + w_bytes(stacked.values()))
             rows[("dprnn_stack", label, Fq)] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                                     library_ms=None, bound_ms=b_ms,
-                                                    bound_by=b_by)
+                                                    bound_by=b_by, chain_ms=t["chain"][0])
             log(f"kernel dprnn_stack {label} x[{Bs},{Ts},{Fq},{C}] K={K}: max_abs {err:.3e} "
-                f"(tol {KERNEL_TOL:.0e}) ms {spread(t['kernel'])} plain_ms {plain_ms:.4f} library_ms none "
+                f"(tol {KERNEL_TOL:.0e}); bit-identical to the per-stage chain: {bits}; ms "
+                f"{spread(t['kernel'])} against the chain's {2 * K} launches "
+                f"{spread(t['chain'])}; plain_ms {plain_ms:.4f} library_ms none "
                 f"(no single PyTorch call runs a DPRNN stack) bound_ms {b_ms:.4f} ({b_by})")
     torch.cuda.synchronize()
     return rows

@@ -1,8 +1,10 @@
-// The warp-per-row C = 64 GRU walk of dprnn_inter.cu and dprnn_intra.cu.
+// The warp-per-row C = 64 GRU walk of dprnn_inter.cu, dprnn_intra.cu and
+// gru_bidir.cu; dprnn_stack.cu runs its step (gru_unit) and its LayerNorm
+// (ln_store) in a walk of its own, so the stack gives these kernels' bits.
 //
-// Replaces, for those two kernels, the block-wide walk of gru64_walk.cuh
-// (which gru_bidir.cu and the two step-ablation kernels still run).  The
-// TPU kernels it stands in for compute the same way: the fc of step s
+// Replaces the original block-wide walk (gru64_block_walk.cuh, which only
+// the two step-ablation kernels still run).  The TPU kernels it stands in
+// for compute the same way: the fc of step s
 // folded into step s + 1's hidden product (_inter_block_kernel_packed's
 // fcfuse) and the input projection hoisted off the recurrence
 // (_inter_hoist, the hoist branch of _intra_block_kernel), both in
@@ -21,7 +23,8 @@
 //    __syncwarp and is read back as float4 broadcasts;
 //  - one product h . [Wh | Wfc] per step (64 x 256, k ascending) gives the
 //    next step's raw h . Wh and this step's fc columns (the LayerNorm is
-//    two warp sums);
+//    two warp sums); with OUT_YS (a plain GRU layer, no fc) the product is
+//    h . Wh alone (64 x 192), Wh staged in Wi's layout;
 //  - x . Wi + bi is hoisted off the chain: per chunk of TS steps the warp
 //    stages its rows' x into a warp-private slice, then one pass over Wi
 //    (read once for all TS x R row-steps) computes every xp of the chunk
@@ -57,6 +60,7 @@ enum WalkOut {
   OUT_LN_RESIDUAL = 0,   // out[t] = x[t] + LN(h_t . Wfc + bfc) * g + bln (DPRNN inter)
   OUT_HIDDEN = 1,        // out[t] = h_t (the inter defer mode)
   OUT_FC_PART = 2,       // part[row][t] = h_t . Wfc_d (one direction of DPRNN intra)
+  OUT_YS = 3,            // out[t] = h_t, product h . Wh only (a plain GRU layer: gru_bidir)
 };
 
 // One lane's biases and LayerNorm parameters for units lane, lane + 32.
@@ -64,6 +68,7 @@ struct LaneParams {
   float bi[3][2], bh[3][2], fcb[2], gain[2], shift[2];
 };
 
+// bfc == nullptr (OUT_YS: no fc, no LayerNorm) leaves those fields zero.
 __device__ __forceinline__ LaneParams lane_params(const GruWeights& w, const float* bfc,
                                                   const float* g, const float* bln, int lane) {
   LaneParams p;
@@ -75,11 +80,27 @@ __device__ __forceinline__ LaneParams lane_params(const GruWeights& w, const flo
       p.bi[gt][q] = w.bi[gt * w.gstride + w.col0 + u];
       p.bh[gt][q] = w.bh[gt * w.gstride + w.col0 + u];
     }
-    p.fcb[q] = bfc[u];
-    p.gain[q] = g[u];
-    p.shift[q] = bln[u];
+    p.fcb[q] = bfc != nullptr ? bfc[u] : 0.0f;
+    p.gain[q] = bfc != nullptr ? g[u] : 0.0f;
+    p.shift[q] = bfc != nullptr ? bln[u] : 0.0f;
   }
   return p;
+}
+
+// One hidden unit's GRU update from its hoisted xp = x . Wi + bi (r, z, n),
+// its raw h . Wh products (r, z, n), bh and the previous h.  The one
+// expression of the step: every kernel that must give the walk's bits
+// calls it.
+// (The two sigmoids are sigmoid_f with both exponentials first, so the
+// two divisions' branch regions do not serialize the exponentials.)
+__device__ __forceinline__ float gru_unit(float xr, float xz, float xn, float ar, float az,
+                                          float an, float br, float bz, float bn, float h) {
+  const float er = expf(-(xr + (ar + br)));
+  const float ez = expf(-(xz + (az + bz)));
+  const float rg = 1.0f / (1.0f + er);
+  const float zg = 1.0f / (1.0f + ez);
+  const float ng = tanhf(fmaf(rg, an + bn, xn));
+  return fmaf(zg, h, (1.0f - zg) * ng);
 }
 
 // Stage Wi and [Wh | Wfc] of one GRU (element addressing of GruWeights;
@@ -134,6 +155,43 @@ __device__ __forceinline__ void stage_weights(float* smem, const GruWeights& w,
   }
 }
 
+// OUT_YS: stage Wi and Wh of one GRU, both in Wi's layout ([k][gate][lane]
+// float2 of units lane, lane + 32; 96 KB), with stage_weights' loads.
+__device__ __forceinline__ void stage_weights_ys(float* smem, const GruWeights& w) {
+  constexpr int NW = C * G3 / 4;        // float4s of one matrix
+  const int nt = blockDim.x;
+  for (int base = threadIdx.x; base < 2 * NW; base += 8 * nt) {
+    float4 v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = base + e * nt;
+      if (i < 2 * NW) {
+        const int m = i / NW, j = i % NW;
+        const int k = j / (G3 / 4), c4 = j % (G3 / 4);
+        const int gt = c4 / (C / 4), u0 = (c4 % (C / 4)) * 4;
+        v[e] = *reinterpret_cast<const float4*>((m == 0 ? w.wi : w.wh) +
+                                                (int64_t)(w.row0 + k) * w.ld + gt * w.gstride +
+                                                w.col0 + u0);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = base + e * nt;
+      if (i < 2 * NW) {
+        const int m = i / NW, j = i % NW;
+        const int k = j / (G3 / 4), c4 = j % (G3 / 4);
+        const int gt = c4 / (C / 4), u0 = (c4 % (C / 4)) * 4;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int u = u0 + f;
+          smem[m * WI_FLOATS + ((k * 3 + gt) * LANES + u % LANES) * 2 + u / LANES] =
+              (&v[e].x)[f];
+        }
+      }
+    }
+  }
+}
+
 // acc[j][0..3] = h_j . [Wh_r Wh_z Wh_n Wfc] at unit lane, acc[j][4..7] at
 // unit lane + 32; h_j from the warp's slice sh [R][C].  k ascends.
 template <int R>
@@ -167,6 +225,51 @@ __device__ __forceinline__ void product(const float4* __restrict__ sw,
       }
     }
   }
+}
+
+// OUT_YS: acc[j][0..2] = h_j . [Wh_r Wh_z Wh_n] at unit lane, acc[j][4..6]
+// at unit lane + 32 (acc[j][3], acc[j][7] stay zero); Wh in Wi's layout.
+template <int R>
+__device__ __forceinline__ void product_h(const float2* __restrict__ sw,
+                                          const float* __restrict__ sh, int lane,
+                                          float (&acc)[R][8]) {
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C; k += 4) {
+    float4 hv[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) hv[j] = *reinterpret_cast<const float4*>(&sh[j * C + k]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float2 wr = sw[((k + kk) * 3) * LANES + lane];
+      const float2 wz = sw[((k + kk) * 3 + 1) * LANES + lane];
+      const float2 wn = sw[((k + kk) * 3 + 2) * LANES + lane];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float hs = (&hv[j].x)[kk];
+        acc[j][0] = fmaf(hs, wr.x, acc[j][0]);
+        acc[j][1] = fmaf(hs, wz.x, acc[j][1]);
+        acc[j][2] = fmaf(hs, wn.x, acc[j][2]);
+        acc[j][4] = fmaf(hs, wr.y, acc[j][4]);
+        acc[j][5] = fmaf(hs, wz.y, acc[j][5]);
+        acc[j][6] = fmaf(hs, wn.y, acc[j][6]);
+      }
+    }
+  }
+}
+
+// The step's product: h . [Wh | Wfc], or h . Wh alone for OUT_YS.
+template <int R, int OUT>
+__device__ __forceinline__ void step_product(const float* __restrict__ sw,
+                                             const float* __restrict__ sh, int lane,
+                                             float (&acc)[R][8]) {
+  if constexpr (OUT == OUT_YS)
+    product_h<R>(reinterpret_cast<const float2*>(sw + WI_FLOATS), sh, lane, acc);
+  else
+    product<R>(reinterpret_cast<const float4*>(sw + WI_FLOATS), sh, lane, acc);
 }
 
 // out = x + LN(y + bfc) * g + bln for the two units of this lane, with
@@ -206,7 +309,6 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
                                      int lane) {
   constexpr bool RES = OUT == OUT_LN_RESIDUAL;
   const float2* swi = reinterpret_cast<const float2*>(sw);
-  const float4* swh = reinterpret_cast<const float4*>(sw + WI_FLOATS);
   float* slots = wbuf;                            // [TS][R][SLOT]
   float* sh = wbuf + TS * R * SLOT;               // [2][R][C]
 
@@ -229,7 +331,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
   __syncwarp();
   float acc[R][8];                                // raw h . Wh for the next step, and its fc
   if (h0 != nullptr) {
-    product<R>(swh, sh, lane, acc);
+    step_product<R, OUT>(sw, sh, lane, acc);
   } else {
 #pragma unroll
     for (int j = 0; j < R; ++j)
@@ -332,10 +434,9 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
       for (int j = 0; j < R; ++j)
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          const float rg = sigmoid_f(xp[j][q].x + (acc[j][4 * q] + p.bh[0][q]));
-          const float zg = sigmoid_f(xp[j][q].y + (acc[j][4 * q + 1] + p.bh[1][q]));
-          const float ng = tanhf(fmaf(rg, acc[j][4 * q + 2] + p.bh[2][q], xp[j][q].z));
-          h[j][q] = fmaf(zg, h[j][q], (1.0f - zg) * ng);
+          h[j][q] = gru_unit(xp[j][q].x, xp[j][q].y, xp[j][q].z, acc[j][4 * q],
+                             acc[j][4 * q + 1], acc[j][4 * q + 2], p.bh[0][q], p.bh[1][q],
+                             p.bh[2][q], h[j][q]);
           shp[j * C + lane + LANES * q] = h[j][q];
         }
       __syncwarp();
@@ -347,7 +448,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
         for (int j = 0; j < R; ++j)
           ln_store(acc[j][3], acc[j][7], xr[j][0], xr[j][1], p, out + oo[j] + tp * orows.ss,
                    lane, s > 0 && live[j]);
-      } else if constexpr (OUT == OUT_HIDDEN) {
+      } else if constexpr (OUT == OUT_HIDDEN || OUT == OUT_YS) {
 #pragma unroll
         for (int j = 0; j < R; ++j)
           if (live[j]) {
@@ -355,7 +456,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
             store_f(out + oo[j] + t * orows.ss + lane + LANES, h[j][1]);
           }
       }
-      product<R>(swh, shp, lane, acc);
+      step_product<R, OUT>(sw, shp, lane, acc);
       if constexpr (OUT == OUT_FC_PART) {
 #pragma unroll
         for (int j = 0; j < R; ++j)

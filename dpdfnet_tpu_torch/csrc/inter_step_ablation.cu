@@ -11,10 +11,11 @@
 // (14 C^2 FLOPs per row-step for `full`); the wrong-math specializations
 // drop pieces of that work and have no bound of their own.
 //
-// Design: every specialization is the production inter walk of
-// gru64_walk.cuh (as dprnn_inter.cu: Wi, Wh, Wfc in shared memory, 16 rows
-// per block, the hidden carried in shared memory) with a different step
-// body (Step), output (Mode) or LayerNorm (LnVariant):
+// Design: every specialization is the original block-wide inter walk of
+// gru64_block_walk.cuh (Wi, Wh, Wfc in shared memory, 16 rows per block,
+// the hidden carried in shared memory; the production inter kernel now
+// walks with gru64_warp.cuh) with a different step body
+// (Step), output (Mode) or LayerNorm (LnVariant):
 //   E_FULL     the production step: GRU, fc, two-pass LayerNorm, residual;
 //   E_FLOOR    STEP_SUM (h += x), out = h: loads, stores and barriers only;
 //   E_DOT      STEP_RSUM_ACC (the products, h += r-column sum), out = h;
@@ -26,7 +27,7 @@
 //              terms (the TPU's one-pass bf16 MXU statistics).
 // The weights arrive unpacked (wi, wh [C, 3C], bi, bh [3C]): the tool
 // unpacks the JAX tool's packed [x | h] gate matrix.
-#include "gru64_walk.cuh"
+#include "gru64_block_walk.cuh"
 
 using namespace dpdf;
 

@@ -11,10 +11,11 @@
 // (28 C^2 FLOPs per row-step for `full`); the wrong-math specializations
 // drop pieces of that work and have no bound of their own.
 //
-// Design: every specialization is the production walk of gru64_walk.cuh
-// (the same shared-memory weights, row groups and barriers as
-// dprnn_intra.cu, one direction per grid.y block) with a different step
-// body (Step) and output (Mode):
+// Design: every specialization is the original block-wide walk of
+// gru64_block_walk.cuh (shared-memory weights, four row groups, block
+// barriers, one direction per grid.y block; the production intra kernel
+// now walks with gru64_warp.cuh) with a different step body
+// (Step) and output (Mode):
 //   I_FULL         the production intra stage: STEP_GRU, fc partials per
 //                  step, then the production epilogue kernel;
 //   I_HLAST        STEP_GRU with no per-step output; out = the forward
@@ -31,7 +32,7 @@
 // production's two-direction work shape.  x is read through strides in
 // either the row-major [rows, T, C] layout or the freq-leading
 // [T, rows, C] one (`tm`).
-#include "gru64_walk.cuh"
+#include "gru64_block_walk.cuh"
 
 using namespace dpdf;
 

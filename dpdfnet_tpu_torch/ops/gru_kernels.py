@@ -427,14 +427,14 @@ _ARGTYPES = {
     "dprnn_inter_v2_launch": [_P] * 10 + [_I] * 8 + [_P],
     "dprnn_intra_launch": [_P] * 10 + [_L, _I, _L] + [_I] * 5 + [_P],
     "dprnn_intra_v2_launch": [_P] * 10 + [_L, _I, _I, _I, _I, _P],
-    "dprnn_stack_launch": [_P] * 18 + [_I] * 5 + [_P],
-    "gru_bidir_launch": [_P] * 6 + [_L, _I, _I, _I, _P],
+    "dprnn_stack_launch": [_P] * 18 + [_I] * 7 + [_P],
+    "gru_bidir_launch": [_P] * 6 + [_L] + [_I] * 6 + [_P],
     "gru_scan_launch": [_P] * 9 + [_I] * 8 + [_P],
     "gru_scan_max_clusters": [_I, ctypes.POINTER(ctypes.c_int)],
     "relayout_fm_launch": [_P, _P] + [_L] * 4 + [_I] * 3 + [_P],
 }
 _PLANE_DTYPES = (torch.float32, torch.bfloat16)
-_STACK_FQ_MAX = 50          # csrc/dprnn_stack.cu: the block's shared memory
+_STACK_FQ_MAX = 50          # csrc/dprnn_stack.cu (129 KB of shared memory at Fq = 50)
 
 
 def _stack_shapes(K: int, C: int) -> Dict[str, tuple]:
@@ -631,28 +631,137 @@ INTRA_MIN_WARPS = 4         # warps per CTA that stage the weights and share the
 INTRA_TS = 4
 
 
+def _tiles(N: int, ctas: int, max_warps: int) -> Tuple[int, int, int]:
+    """(rows per warp, walking warps, tiles) of a persistent warp walk of N
+    rows on ``ctas`` CTAs of up to ``max_warps`` walking warps: the fewest
+    rounds of tiles that the largest tile (two rows per warp) allows, then
+    the smallest tile that keeps to that many rounds; one row per warp up
+    to ``max_warps`` rows per tile, else two (each weight load then feeds
+    two rows)."""
+    rounds = -(-N // (ctas * 2 * max_warps))
+    want = -(-N // (ctas * rounds))                     # rows per tile
+    R = 1 if want <= max_warps else 2
+    walk = -(-want // R)
+    return R, walk, -(-N // (walk * R))
+
+
 def intra_plan(N: int, Fq: int, sms: int) -> IntraPlan:
     """The launch plan of the intra walk for ``N = B * T`` rows of ``Fq``
     positions on a card with ``sms`` SMs.  Each CTA stages 112 KB of one
     direction's weights, so one CTA fits an SM and a tile holds up to 8
-    walking warps.  Rows per warp: 1 up to 8 rows per tile, else 2 (each
-    weight load then feeds two rows).  The tiles are balanced over the
-    ``sms // 2`` clusters the card runs at once: the fewest rounds of
-    tiles that the largest tile allows, then the smallest tile that keeps
-    to that many rounds.  A CTA has at least ``INTRA_MIN_WARPS`` warps, so
-    small tiles still stage their weights and run their epilogue with four
-    warps.  The fc partials go to a device-memory scratch."""
+    walking warps.  The tiles are balanced over the ``sms // 2`` clusters
+    the card runs at once (:func:`_tiles`).  A CTA has at least
+    ``INTRA_MIN_WARPS`` warps, so small tiles still stage their weights and
+    run their epilogue with four warps.  The fc partials go to a
+    device-memory scratch."""
     if N < 1 or Fq < 1 or sms < 2:
         raise ValueError(f"intra_plan: N={N}, Fq={Fq}, sms={sms}")
     pairs = sms // 2
-    rounds = -(-N // (pairs * 2 * INTRA_MAX_WARPS))
-    want = -(-N // (pairs * rounds))                    # rows per tile
-    R = 1 if want <= INTRA_MAX_WARPS else 2
-    walk = -(-want // R)
-    tiles = -(-N // (walk * R))
+    R, walk, tiles = _tiles(N, pairs, INTRA_MAX_WARPS)
     smem = 4 * (_WARP_WALK_W_FLOATS + walk * _warp_walk_floats(R, INTRA_TS))
     return IntraPlan(2, R, walk, max(walk, INTRA_MIN_WARPS), INTRA_TS, tiles,
                      min(tiles, pairs), smem)
+
+
+# csrc/gru_bidir.cu: the staged Wi and Wh of one direction (floats)
+_BIDIR_W_FLOATS = 2 * 64 * 3 * 32 * 2
+
+
+def gru_bidir_plan(N: int, L: int, sms: int) -> IntraPlan:
+    """The launch plan of the bidirectional GRU walk (``csrc/gru_bidir.cu``)
+    for N rows of L steps on a card with ``sms`` SMs: intra's plan without
+    the fc.  Each CTA stages 96 KB of one direction's Wi and Wh, so one CTA
+    fits an SM; ``clusters`` pairs of CTAs (CTA 2q + d walks direction d of
+    pair q's tiles; no hardware cluster: the directions share nothing)
+    split the rows into tiles of up to 8 walking warps (:func:`_tiles`),
+    with at least ``INTRA_MIN_WARPS`` warps per CTA to stage the weights."""
+    if N < 1 or L < 1 or sms < 2:
+        raise ValueError(f"gru_bidir_plan: N={N}, L={L}, sms={sms}")
+    pairs = sms // 2
+    R, walk, tiles = _tiles(N, pairs, INTRA_MAX_WARPS)
+    smem = 4 * (_BIDIR_W_FLOATS + walk * _warp_walk_floats(R, INTRA_TS))
+    return IntraPlan(2, R, walk, max(walk, INTRA_MIN_WARPS), INTRA_TS, tiles,
+                     min(tiles, pairs), smem)
+
+
+@dataclass(frozen=True)
+class StackPlan:
+    """``csrc/dprnn_stack.cu``: ``ctas`` CTAs of ``threads`` threads,
+    ``cluster`` (1 or 2) per stream: CTA i runs stream ``i // cluster``
+    through every frame and block.  One CTA per stream walks both
+    directions (threads 0-127 forward, 128-255 backward); a two-CTA cluster
+    walks direction r in CTA rank r (threads 0-127) while threads 128-255
+    compute the inter h . Wh columns.  A walking lane pair owns one hidden
+    unit, the even thread its r and z columns of [Wh_d | Wfc_d], the odd
+    one its n and fc columns (``walk_columns``), ``weight_regs`` weights in
+    registers; every CTA runs the LayerNorms of all positions, warp w taking
+    w, w + warps, ... (``ln_positions``); the inter gates and the output
+    store of a cluster are split between its CTAs (``own_positions``).
+    Either way a row's arithmetic is the same, so both give the same bits
+    (those of the per-stage kernels on float32 planes)."""
+    cluster: int
+    ctas: int
+    threads: int
+    smem_bytes: int
+    weight_regs: int
+    reg_budget: int
+
+    @property
+    def warps(self) -> int:
+        return self.threads // 32
+
+    def stream(self, cta: int) -> int:
+        return cta // self.cluster
+
+    def ln_positions(self, warp: int, Fq: int) -> range:
+        return range(warp, Fq, self.warps)
+
+    def own_positions(self, cta: int, Fq: int) -> range:
+        if self.cluster == 1:
+            return range(Fq)
+        hf = (Fq + 1) // 2
+        return range(0, hf) if cta % 2 == 0 else range(hf, Fq)
+
+    def walk_columns(self, cta: int, thread: int) -> Optional[Tuple[int, int, Tuple[str, str]]]:
+        """(direction, unit, the thread's two columns of [Wh_d | Wfc_d]), or
+        None for a thread that does not walk."""
+        half = self.threads // 2
+        if self.cluster == 1:
+            d, i = divmod(thread, half)
+        elif thread < half:
+            d, i = cta % 2, thread
+        else:
+            return None
+        return d, i // 2, (("n", "fc") if i % 2 else ("r", "z"))
+
+
+STACK_THREADS = 256         # csrc/dprnn_stack.cu
+REGS_PER_SM = 65536
+
+
+def _stack_smem_floats(Fq: int) -> int:
+    # scur [Fq][C], sxp [2][Fq][3C], spart [2][Fq][C], sh [Fq][C], shb [2][2][C]
+    C = 64
+    return Fq * C + 2 * Fq * 3 * C + 2 * Fq * C + Fq * C + 4 * C
+
+
+def stack_plan(B: int, Fq: int, K: int, sms: int) -> StackPlan:
+    """The launch plan of the DPRNN stack for B streams of Fq positions and
+    K blocks on a card with ``sms`` SMs: a two-CTA cluster per stream while
+    every cluster is resident at once (2 B <= sms), which halves each
+    stream's column work per SM and gives the inter h . Wh product to the
+    CTA's non-walking warps during the walk; else one 256-thread CTA per
+    stream (more streams per wave).  On an H100 at 700 W the cluster took
+    0.38 against 0.48 ms for one exact hop of 64 streams (K = 8, Fq = 48)
+    and 1.50 against 0.98 ms at 256 streams.  The walk's 128 column weights per thread sit in
+    registers, so one CTA fits an SM (the register file gives each thread
+    at most 255)."""
+    if B < 1 or K < 1 or sms < 1 or not 1 <= Fq <= _STACK_FQ_MAX:
+        raise ValueError(f"stack_plan: B={B}, Fq={Fq} (1 .. {_STACK_FQ_MAX}), K={K}, "
+                         f"sms={sms}")
+    cluster = 2 if 2 * B <= sms else 1
+    return StackPlan(cluster, cluster * B, STACK_THREADS, 4 * _stack_smem_floats(Fq), 2 * 64,
+                     min(255, REGS_PER_SM // STACK_THREADS))
 
 
 @dataclass(frozen=True)
@@ -832,8 +941,8 @@ def relayout_fm(x: Tensor, *, out_dtype: Optional[torch.dtype] = None) -> Tensor
 def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
               ) -> Tuple[Tensor, Tensor]:
     """Bidirectional GRU along L of ``x [N, L, I]`` from zero state with
-    packed weights; returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``.
-    Replaces ``pallas_gru.gru_bidir_tm``."""
+    packed weights; returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``
+    (:func:`gru_bidir_plan`).  Replaces ``pallas_gru.gru_bidir_tm``."""
     if x.device.type == "cpu":
         return gru_bidir_plain(x, wi2, wh2, b2)
     dev = _require_cuda("gru_bidir", {"x": x}, dict(wi2=wi2, wh2=wh2, b2=b2))
@@ -842,11 +951,14 @@ def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
             or tuple(wh2.shape) != (2 * C, 6 * C) or tuple(b2.shape) != (2, 6 * C):
         raise ValueError(f"gru_bidir: kernel takes I == H == 64 with packed weights and "
                          f"N, L > 0; got x {tuple(x.shape)}, wh2 {tuple(wh2.shape)}")
+    _require_aligned("gru_bidir", wi2=wi2, wh2=wh2)
     ys_fw = torch.empty_like(x)
     ys_bw = torch.empty_like(x)
+    plan = gru_bidir_plan(N, L, _sm_count(dev))
     rc = _fn("gru_bidir", "gru_bidir_launch")(
         x.data_ptr(), ys_fw.data_ptr(), ys_bw.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
-        b2.data_ptr(), N, L, _walk_rows_per_block(N, 2, dev), _is_bf16(x), _stream())
+        b2.data_ptr(), N, L, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
+        _is_bf16(x), _stream())
     _check_rc(rc, "gru_bidir")
     gru_bidir.launches += 1
     return ys_fw, ys_bw
@@ -855,16 +967,17 @@ def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
 def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
                 ) -> Tuple[Tensor, Tensor]:
     """The whole DPRNN stack over ``x [B, T, Fq, C]`` from the carried
-    ``h0 [K, B, Fq, C]`` with ``pack_stack`` weights, in one launch.
-    Returns ``(out [B, T, Fq, C], h_last [K, B, Fq, C])``.  Replaces
-    ``pallas_gru.dprnn_stack``."""
+    ``h0 [K, B, Fq, C]`` with ``pack_stack`` weights, in one launch
+    (:func:`stack_plan`).  Returns ``(out [B, T, Fq, C], h_last [K, B, Fq,
+    C])``; on float32 planes bit-identical to K x (:func:`dprnn_intra_block`
+    + :func:`dprnn_inter_block`).  Replaces ``pallas_gru.dprnn_stack``."""
     if x.device.type == "cpu":
         return dprnn_stack_plain(x, h0, stacked)
     B, T, Fq, C = x.shape
     K = h0.shape[0]
     shapes = _stack_shapes(K, C)
     ws = {k: stacked[k] for k in shapes}
-    _require_cuda("dprnn_stack", {"x": x}, dict(h0=h0, **ws))
+    dev = _require_cuda("dprnn_stack", {"x": x}, dict(h0=h0, **ws))
     bad = [k for k, shape in shapes.items() if tuple(ws[k].shape) != shape]
     if C != 64 or not 1 <= Fq <= _STACK_FQ_MAX or B == 0 or T == 0 or K == 0 \
             or tuple(h0.shape) != (K, B, Fq, C) or bad:
@@ -873,11 +986,13 @@ def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
                          f"h0 {tuple(h0.shape)}, misshapen {bad}")
     if any(t.data_ptr() % 16 for t in (x, h0, *ws.values())):
         raise ValueError("dprnn_stack: the kernel reads 16-byte aligned tensors")
+    plan = stack_plan(B, Fq, K, _sm_count(dev))
     out = torch.empty_like(x)
     h_last = torch.empty_like(h0)
     rc = _fn("dprnn_stack", "dprnn_stack_launch")(
         x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
-        *(w.data_ptr() for w in ws.values()), B, T, Fq, K, _is_bf16(x), _stream())
+        *(w.data_ptr() for w in ws.values()), B, T, Fq, K, plan.ctas, plan.threads,
+        _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_stack")
     dprnn_stack.launches += 1
     return out, h_last

@@ -16,9 +16,10 @@ advances one step together.  ``--tile`` and ``--TS`` are accepted and
 unused: the Hopper kernel walks all T steps in one block of 16 rows.
 
 The kernel is ``csrc/inter_step_ablation.cu``: one template per distinct
-function (a specialization), each the production walk of
-``csrc/gru64_walk.cuh`` with another step, output or LayerNorm, so
-``full`` times the production inter step.  The JAX tool packs the gate
+function (a specialization), each the original block-wide walk of
+``csrc/gru64_block_walk.cuh`` with another step, output or LayerNorm, so
+``full`` times that walk's inter step (the production kernel now walks with
+``csrc/gru64_warp.cuh``).  The JAX tool packs the gate
 weights as one ``wp [2H, 5H]`` against ``[x_t | h]`` (columns ``r | z |
 n_x | n_h | fc``); this tool draws it the same way with the blocks that
 production's packing (``pallas_gru._pack_inter``) keeps zero set to zero

@@ -18,8 +18,9 @@ steps).  ``--tile`` is accepted and unused: the Hopper kernel picks its own
 row tile (16 rows per block, as the production kernel at these shapes).
 
 The kernel is ``csrc/intra_step_ablation.cu``: one template per distinct
-function (a specialization), each built on the production walk of
-``csrc/gru64_walk.cuh``, so ``full`` times the production intra step.  The
+function (a specialization), each built on the original block-wide walk
+of ``csrc/gru64_block_walk.cuh``, so ``full`` times that walk's intra
+step (the production kernel now walks with ``csrc/gru64_warp.cuh``).  The
 tool's weights are the production kernel's packed direction-blockdiag
 ``wi2 / wh2 [2C, 6C]`` and ``b2 [2, 6C]`` (``_pack_bidir`` of two random
 GRUs): the JAX tool draws dense random ``wi / wh`` as a timing stand-in;

@@ -1,9 +1,11 @@
-"""The recurrent kernels gru_scan, dprnn_inter_block_v2 and the v1 DPRNN
-stages dprnn_inter_block and dprnn_intra_block, and the offline and
-streaming paths they sit on, measured for one checkout.
+"""The recurrent kernels gru_scan, dprnn_inter_block_v2, the v1 DPRNN
+stages dprnn_inter_block and dprnn_intra_block, gru_bidir and the DPRNN
+stack, and the offline and streaming paths they sit on, measured for one
+checkout.
 
     python3 dpdfnet_tpu_torch/tools/kernel_ab.py [--root DIR] [--out FILE] [--pairs N]
-        [--kernels gru_scan,inter_v2,inter,intra] [--e2e] [--hops N]
+        [--kernels gru_scan,inter_v2,inter,intra,gru_bidir,stack] [--e2e] [--e2e-stack]
+        [--hops N]
 
 Imports ``dpdfnet_tpu_torch`` from ``--root`` (default: the checkout
 holding this file), as ``mode_off_digest.py`` does, so one command can
@@ -16,13 +18,20 @@ For each kernel, at the shapes the main path gives it (B=8 offline, B=64 x
 ``turbo`` path uses them): the kernel against its plain version (1e-4
 max-abs, beyond one bf16 ulp on bfloat16 outputs), then the kernel and one
 PyTorch library call of the same function (cuDNN's GRU, with linear +
-LayerNorm + residual for the DPRNN stages, bidirectional for intra) timed alternately call by call
-(:func:`interleaved_ms`), and the roofline bound.  ``--e2e``: offline xRT
-of ``Engine.enhance_waveforms`` at B=64 x 4 s and exact ms per hop at 64
+LayerNorm + residual for the DPRNN stages, bidirectional for intra and
+gru_bidir) timed alternately call by call (:func:`interleaved_ms`), and the
+roofline bound.  The stack has no single PyTorch call: its yardstick is
+the per-stage chain it replaces, K x (``dprnn_intra_block`` +
+``dprnn_inter_block``) at the same shape, and on float32 planes the row
+says whether the two are bit-identical.  ``--e2e``: offline xRT of
+``Engine.enhance_waveforms`` at B=64 x 4 s and exact ms per hop at 64
 streams, ``highest`` against ``turbo`` with ``DPDFNET_TPU_PALLAS_V2=1``,
-interleaved call by call, with the launches of each path.  Random weights
-and inputs from fixed seeds.  Prints a JSON object (and writes it to
-``--out``).  Needs a CUDA device.
+interleaved call by call, with the launches of each path.
+``--e2e-stack``: exact ms per hop at 64 streams, per-stage against the
+stack kernel (``DPDFNET_TPU_STACK``), in ``highest`` and in ``turbo`` +
+V2, interleaved call by call.  Random weights and inputs from fixed
+seeds.  Prints a JSON object (and writes it to ``--out``).  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -114,7 +123,19 @@ INTER_CASES = (("B=8", 8, 112, "f32"), ("B=8", 8, 112, "bf16"), ("B=64", 64, 112
                ("B=64", 64, 112, "bf16"), ("T=1 x 64", 64, 1, "f32"))
 INTRA_CASES = (("B=8", 8 * 112, "f32"), ("B=8", 8 * 112, "bf16"), ("B=64", 64 * 112, "f32"),
                ("B=64", 64 * 112, "bf16"), ("T=1 x 64", 64, "f32"))
-KERNELS = ("gru_scan", "inter_v2", "inter", "intra")
+# gru_bidir (label, rows, L, plane) on [rows, L, 64]: B=8, B=64 x 112 (df and
+# erb widths) and T=1 x 64 streams
+BIDIR_CASES = tuple((label, N, L, plane) for label, N, L in (
+    ("B=8", 8 * 112, 48), ("B=64", 64 * 112, 48), ("B=64 erb", 64 * 112, 40),
+    ("T=1 x 64", 64, 48)) for plane in ("f32", "bf16"))
+# the DPRNN stack (label, B, T, Fq, K, plane): one exact hop of 64 streams
+# (both branches), a throughput-mode call, the table's offline shape, the
+# pool's edges
+STACK_CASES = tuple((label, B, T, Fq, 8, plane) for label, B, T, Fq in (
+    ("exact hop", 64, 1, 48), ("exact hop erb", 64, 1, 40), ("throughput", 64, 8, 48),
+    ("offline B=8", 8, 112, 48), ("pool B=1", 1, 1, 48), ("pool B=256", 256, 1, 48))
+    for plane in ("f32", "bf16"))
+KERNELS = ("gru_scan", "inter_v2", "inter", "intra", "gru_bidir", "stack")
 
 
 def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0, kernels=KERNELS) -> list:
@@ -134,6 +155,10 @@ def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0, kernels=KERNELS) 
         rows += _inter_rows(gk, log, pairs, rng)
     if "intra" in kernels:
         rows += _intra_rows(gk, log, pairs, rng)
+    if "gru_bidir" in kernels:
+        rows += _bidir_rows(gk, log, pairs, rng)
+    if "stack" in kernels:
+        rows += _stack_rows(gk, log, pairs, rng)
     torch.cuda.synchronize()
     return rows
 
@@ -279,6 +304,116 @@ def _intra_rows(gk, log, pairs, rng) -> list:
     return rows
 
 
+def _bidir_rows(gk, log, pairs, rng) -> list:
+    """``gru_bidir`` against its plain version and cuDNN's bidirectional
+    GRU."""
+    import torch
+
+    C = 64
+    fw, bw = _dprnn_weights(rng, C)[:4], _dprnn_weights(rng, C)[:4]
+    wa = gk._pack_bidir(dict(zip(("wi", "bi", "wh", "bh"), fw)),
+                        dict(zip(("wi", "bi", "wh", "bh"), bw)))
+    lib_gru = _cudnn_gru(*fw, bidir=bw)
+    rows = []
+    for label, N, L, plane in BIDIR_CASES:
+        dt = torch.bfloat16 if plane == "bf16" else torch.float32
+        x = _randn(rng, N, L, C, scale=1.0).to(dt)
+        err = _err(gk.gru_bidir(x, *wa), gk.gru_bidir_plain(x, *wa))
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"gru_bidir {label} {plane}: {err:.3e} beyond the plain version")
+        xl = x.float()
+        t = interleaved_ms({"kernel": lambda: gk.gru_bidir(x, *wa), "library": lambda: lib_gru(xl)},
+                           pairs)
+        n = N * L
+        b_ms, b_by = bound(24 * C * C * n, 3 * C * x.element_size() * n
+                           + 4 * sum(a.numel() for a in wa))
+        rows.append(dict(kernel="gru_bidir", shape=f"{label} x[{N},{L},{C}]", plane=plane,
+                         reverse=False, err=err, ms=t["kernel"], library_ms=t["library"],
+                         bound_ms=b_ms, bound_by=b_by))
+        log(_line(rows[-1]))
+    return rows
+
+
+def _stack_args(gk, rng, K: int, C: int = 64):
+    """K random DPRNN blocks (f32 on the card): their ``pack_stack`` dict,
+    each block's ``dprnn_intra_block`` weights and its ``dprnn_inter_block``
+    weights."""
+    import torch
+
+    keys = ("wi", "bi", "wh", "bh")
+    intra, inter = [], []
+    for _ in range(K):
+        fw, bw = _dprnn_weights(rng, C)[:4], _dprnn_weights(rng, C)[:4]
+        ea = _dprnn_weights(rng, C)
+        wfc_i, bfc_i = _randn(rng, 2 * C, C, scale=(2 * C) ** -0.5), _randn(rng, C, scale=0.1)
+        g_i, bln_i = 1.0 + _randn(rng, C, scale=0.2), _randn(rng, C, scale=0.1)
+        wi2, wh2, b2 = gk._pack_bidir(dict(zip(keys, fw)), dict(zip(keys, bw)))
+        intra.append((wi2, wh2, b2, wfc_i, bfc_i, g_i, bln_i))
+        inter.append(ea)
+    stk = lambda xs: torch.stack(xs).contiguous()          # noqa: E731
+    row = lambda xs: torch.stack([v.reshape(1, -1) for v in xs]).contiguous()  # noqa: E731
+    st = {"wi2": stk([a[0] for a in intra]), "wh2": stk([a[1] for a in intra]),
+          "b2": stk([a[2] for a in intra]), "wfc_i": stk([a[3] for a in intra]),
+          "bfc_i": row([a[4] for a in intra]), "g_i": row([a[5] for a in intra]),
+          "bln_i": row([a[6] for a in intra]), "wi_t": stk([e[0] for e in inter]),
+          "wh_t": stk([e[2] for e in inter]),
+          "b2_t": stk([torch.stack([e[1], e[3]]) for e in inter]),
+          "wfc_t": stk([e[4] for e in inter]), "bfc_t": row([e[5] for e in inter]),
+          "g_t": row([e[6] for e in inter]), "bln_t": row([e[7] for e in inter])}
+    return st, intra, inter
+
+
+def stack_chain(gk, x, h0, intra, inter):
+    """The per-stage chain the stack replaces: K x (``dprnn_intra_block`` +
+    ``dprnn_inter_block``) over ``x [B, T, Fq, C]`` from ``h0 [K, B, Fq,
+    C]``, as the model runs it block by block."""
+    B, T, Fq, C = x.shape
+    cur, hs = x, []
+    for k, (ia, ea) in enumerate(zip(intra, inter)):
+        cur = gk.dprnn_intra_block(cur.reshape(B * T, Fq, C), *ia).reshape(B, T, Fq, C)
+        cur, h = gk.dprnn_inter_block(cur, h0[k], *ea, defer=False)
+        hs.append(h)
+    return cur, hs
+
+
+def _stack_rows(gk, log, pairs, rng) -> list:
+    """``dprnn_stack`` against its plain version, bit for bit against the
+    per-stage chain on float32 planes (reported, not enforced: an earlier
+    design of the stack kept its own arithmetic), and timed call by call
+    against that chain."""
+    import torch
+
+    C, K = 64, 8
+    st, intra, inter = _stack_args(gk, rng, K, C)
+    wbytes = 4 * sum(v.numel() for v in st.values())
+    rows = []
+    for label, B, T, Fq, K_, plane in STACK_CASES:
+        dt = torch.bfloat16 if plane == "bf16" else torch.float32
+        x = _randn(rng, B, T, Fq, C, scale=1.0).to(dt)
+        h0 = _randn(rng, K, B, Fq, C, scale=0.5)
+        out, hl = gk.dprnn_stack(x, h0, st)
+        err = _err((out, hl), gk.dprnn_stack_plain(x, h0, st))
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"dprnn_stack {label} {plane}: {err:.3e} beyond the plain version")
+        bits = None
+        if plane == "f32":
+            co, ch = stack_chain(gk, x, h0, intra, inter)
+            bits = bool(torch.equal(out, co) and torch.equal(hl, torch.stack(ch)))
+        t = interleaved_ms({"kernel": lambda: gk.dprnn_stack(x, h0, st),
+                            "library": lambda: stack_chain(gk, x, h0, intra, inter)},
+                           pairs if T == 1 else max(3, pairs // 4))
+        n = B * T * Fq * K
+        b_ms, b_by = bound(42 * C * C * n, 2 * (x.numel() * x.element_size() + h0.numel() * 4)
+                           + wbytes)
+        rows.append(dict(kernel="dprnn_stack", shape=f"{label} x[{B},{T},{Fq},{C}] K={K}",
+                         plane=plane, reverse=False, err=err, ms=t["kernel"],
+                         library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
+                         bits_equal_chain=bits))
+        log(_line(rows[-1]) + f" (library: the per-stage chain, {2 * K} launches; bit-identical "
+            f"to it: {bits})")
+    return rows
+
+
 def _inter_v2_rows(gk, log, pairs, rng) -> list:
     import torch
 
@@ -410,6 +545,64 @@ def e2e(gk, log=print, hops: int = 200, rounds: int = 5, seed: int = 0) -> dict:
     return res
 
 
+def e2e_stack(gk, log=print, hops: int = 200, seed: int = 0) -> dict:
+    """Exact ms per hop at 64 streams (one ``process_frames`` call per hop),
+    the per-stage DPRNN kernels against the stack kernel, in ``highest`` and
+    in ``turbo`` + V2: the four paths interleaved call by call after 16
+    warm-up hops, with the launches of one hop of each."""
+    import torch
+
+    from dpdfnet_tpu_torch import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    cfg = get_config(MODEL)
+    params = contract_params(init_params(cfg, seed=seed, device="cuda"))
+    rng = np.random.default_rng(seed)
+    Bb = 64
+    frames = (0.1 * rng.standard_normal((Bb, hops + 16, cfg.win_len))).astype(np.float32)
+    paths = {f"{q} {d}": (q, v2, st) for q, v2 in (("highest", False), ("turbo", True))
+             for d, st in (("per-stage", False), ("stack", True))}
+
+    def env(v2, st):
+        os.environ[V2] = "1" if v2 else "0"
+        os.environ["DPDFNET_TPU_STACK"] = "1" if st else "0"
+
+    engines = {}
+    for name, (q, v2, st) in paths.items():
+        env(v2, st)
+        engines[name] = engine_from_quality(cfg, params, q, device="cuda")
+    states = {n: engines[n].init_stream_state(batch=Bb) for n in paths}
+    hop_ms = {n: [] for n in paths}
+    names = list(paths)
+    for i in range(hops + 16):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            env(*paths[name][1:])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, states[name] = engines[name].process_frames(frames[:, i:i + 1], states[name])
+            torch.cuda.synchronize()
+            if i >= 16:
+                hop_ms[name].append((time.perf_counter() - t0) * 1e3)
+    res = {}
+    for name in names:
+        env(*paths[name][1:])
+        e = engines[name]
+        gk.reset_launch_counts()
+        e.process_frames(frames[:, :1], e.init_stream_state(batch=Bb))
+        torch.cuda.synchronize()
+        hop = {k: v for k, v in gk.launch_counts().items() if v}
+        res[name] = dict(hop_ms_median=statistics.median(hop_ms[name]),
+                         hop_ms_min=min(hop_ms[name]), hop_ms_max=max(hop_ms[name]),
+                         launches_hop=hop)
+        log(f"e2e-stack {name}: exact {Bb} streams, {hops} interleaved hops: median "
+            f"{res[name]['hop_ms_median']:.3f} ms per hop [{res[name]['hop_ms_min']:.3f}-"
+            f"{res[name]['hop_ms_max']:.3f}]; launches per hop {json.dumps(hop)}")
+    os.environ.pop(V2, None)
+    os.environ.pop("DPDFNET_TPU_STACK", None)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -417,6 +610,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the JSON result to this file")
     ap.add_argument("--pairs", type=int, default=21)
     ap.add_argument("--e2e", action="store_true", help="also time the two engine paths")
+    ap.add_argument("--e2e-stack", action="store_true",
+                    help="also time the exact hop per-stage against the stack kernel")
     ap.add_argument("--hops", type=int, default=200)
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help=f"comma-separated subset of {', '.join(KERNELS)}")
@@ -440,10 +635,13 @@ def main(argv=None) -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     log = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
     log(f"kernel_ab root {root} | {smi} | torch {torch.__version__}")
+    picked = [k for k in args.kernels.split(",") if k and k != "none"]
     result = {"root": root, "card": smi, "kernels": kernel_rows(gk, log, args.pairs,
-                                                                kernels=args.kernels.split(","))}
+                                                                kernels=picked)}
     if args.e2e:
         result["e2e"] = e2e(gk, log, hops=args.hops)
+    if args.e2e_stack:
+        result["e2e_stack"] = e2e_stack(gk, log, hops=args.hops)
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

@@ -6,8 +6,11 @@
 Every DPRNN and GRU kernel (DPRNN intra and inter, their v2 forms,
 gru_scan, gru_bidir, the DPRNN stack) runs once per case of :data:`CASES` on fixed inputs drawn with numpy from
 a seed (a hash of the case's name), through its wrapper's row-major call
-(no ``fm_batch``, ``h_bm`` or ``defer``), and each case's outputs are
-hashed with SHA-256 (their raw bytes, in order).  Equal digests mean bit-identical outputs (max-abs 0).
+(no ``fm_batch``, ``h_bm`` or ``defer``), and so does every specialization
+of the two step-ablation kernels (``tools/*_step_ablation.py``, inputs from
+the tools' own ``make_inputs`` with a seed from the case's name); each
+case's outputs are hashed with SHA-256 (their raw bytes, in order).  Equal
+digests mean bit-identical outputs (max-abs 0).
 
 ``mode_off_digests.json`` beside this file holds the digests taken on
 one H100 by running this script against an unpacked copy of a commit
@@ -67,6 +70,14 @@ CASES = {
     "dprnn_inter_v2 f32 x[8,112,48,64] bf16 xp": ("inter_v2", "f32", (8, 112, 48), {}),
     "dprnn_inter_v2 bf16 x[64,112,40,64] bf16 xp": ("inter_v2", "bf16", (64, 112, 40), {}),
 }
+# the step-ablation kernels: every specialization at the tools' check shapes
+_INTRA_ABL = ("full", "hlast", "dots", "indep", "gates", "floor", "floor_fb", "floor_fb_bf16")
+_INTER_ABL = ("full", "floor", "dot", "gru", "nogates", "noln", "ln1pass", "ln_bf16")
+CASES.update({f"intra_step_ablation {spec}{' tm' if tm else ''} bf16 x[40,16,64]":
+              ("intra_abl", "bf16", (40, 16), {"spec": spec, "tm": tm})
+              for spec in _INTRA_ABL for tm in (False, True)})
+CASES.update({f"inter_step_ablation {spec} bf16 x[9,40,64]":
+              ("inter_abl", "bf16", (40, 9), {"spec": spec}) for spec in _INTER_ABL})
 
 
 def _case_outputs(gk, kernel: str, plane: str, shape: tuple, extra: dict, rng, device):
@@ -118,6 +129,20 @@ def _case_outputs(gk, kernel: str, plane: str, shape: tuple, extra: dict, rng, d
         p = gru(H, H)
         return gk.gru_scan(plane_of(N, T, H), w(N, H, scale=0.5), p["wi"], p["bi"], p["wh"],
                            p["bh"], **extra)
+    if kernel == "intra_abl":
+        from dpdfnet_tpu_torch.tools import intra_step_ablation as abl
+
+        rows, T = shape
+        x, ws = abl.make_inputs(rows, T, C, device, dtype=dt, seed=int(rng.integers(1 << 31)))
+        xin = x.transpose(0, 1).contiguous() if extra["tm"] else x
+        return (abl.run_intra(extra["spec"], xin, *ws, tm=extra["tm"]),)
+    if kernel == "inter_abl":
+        from dpdfnet_tpu_torch.tools import inter_step_ablation as abl
+
+        rows, T = shape
+        x, h0, wp, bp, tail = abl.make_inputs(rows, T, C, device, dtype=dt,
+                                              seed=int(rng.integers(1 << 31)))
+        return abl.run_inter(extra["spec"], x, h0, *abl.unpack_wp(wp, bp), *tail)
     if kernel == "stack":
         B, T, Fq, K = shape
         stacked = {k: w(*s) for k, s in gk._stack_shapes(K, C).items()}

@@ -47,6 +47,7 @@ CASES = {
     "inter f32 B=3 T=10 Fq=40": ("inter", 7, (3, 10, 40)),
     "intra f32 N=30 Fq=40": ("intra", 6, (30, 40)),
     "gru_bidir f32 N=30 L=40": ("bidir", 9, (30, 40)),
+    "stack f32 B=5 T=3 Fq=40 K=3": ("stack", 45, (5, 3, 40, 3)),
 }
 
 
@@ -84,6 +85,28 @@ def _inputs(kernel: str, seed: int, shape: tuple, dev):
         xd, hd, ad = x.to(dev), h0.to(dev), on(args)
         return (lambda: gk.dprnn_inter_block(xd, hd, *ad, **kw),
                 lambda: gk.dprnn_inter_block(x, h0, *args, **kw))
+    if kernel == "stack":
+        from dpdfnet_tpu_torch.models.fuse import pack_stack
+
+        B, T, Fq, K = shape
+        blocks = []
+        for _ in range(K):
+            wi2, wh2, b2 = gk._pack_bidir(dict(zip(("wi", "bi", "wh", "bh"), gru())),
+                                          dict(zip(("wi", "bi", "wh", "bh"), gru())))
+            wi, bi, wh, bh = gru()
+            blocks.append({
+                "intra": {"packed": {"wi2": wi2, "wh2": wh2, "b2": b2},
+                          "fc": {"w": t((2 * C, C), 0.3), "b": t((C,), 0.1)},
+                          "ln": {"g": 1.0 + t((C,), 0.5), "b": t((C,), 0.1)}},
+                "inter": {"gru": {"wi": wi, "bi": bi, "wh": wh, "bh": bh},
+                          "fc": {"w": t((C, C), 0.3), "b": t((C,), 0.1)},
+                          "ln": {"g": 1.0 + t((C,), 0.5), "b": t((C,), 0.1)}}})
+        stacked = pack_stack(blocks)
+        x, h0 = t((B, T, Fq, C), 1.0), t((K, B, Fq, C), 0.2)
+        xd, hd = x.to(dev), h0.to(dev)
+        sd = {k: v.to(dev) for k, v in stacked.items()}
+        return (lambda: gk.dprnn_stack(xd, hd, sd),
+                lambda: gk.dprnn_stack(x, h0, stacked))
     N, L = shape
     wi2, wh2, b2 = gk._pack_bidir(dict(zip(("wi", "bi", "wh", "bh"), gru())),
                                   dict(zip(("wi", "bi", "wh", "bh"), gru())))

@@ -149,18 +149,26 @@ def test_cuda_gru_bidir_matches_plain(dev, N, L):
         assert (a - b).abs().max().item() < TOL
 
 
-def _stacked(rng, K, C, dev):
+def _stacked(rng, K, C, dev, scale=0.3):
+    """K random DPRNN blocks in pack_stack form, weights at ``scale``
+    (LayerNorm gains 1 + N(0, scale + 0.2); the other tests draw at 0.3)."""
+    def gru():
+        g = _gru(rng, C, C, dev)
+        if scale != 0.3:
+            g["wi"], g["wh"] = g["wi"] * (scale / 0.3), g["wh"] * (scale / 0.3)
+        return g
+
     blocks = []
     for _ in range(K):
-        fw, bw = _gru(rng, C, C, dev), _gru(rng, C, C, dev)
+        fw, bw = gru(), gru()
         wi2, wh2, b2 = _pack_bidir(fw, bw)
         blocks.append({
             "intra": {"packed": {"wi2": wi2, "wh2": wh2, "b2": b2},
-                      "fc": {"w": _rand(rng, (2 * C, C), dev, 0.3), "b": _rand(rng, (C,), dev, 0.1)},
-                      "ln": {"g": 1.0 + _rand(rng, (C,), dev, 0.5), "b": _rand(rng, (C,), dev, 0.1)}},
-            "inter": {"gru": _gru(rng, C, C, dev),
-                      "fc": {"w": _rand(rng, (C, C), dev, 0.3), "b": _rand(rng, (C,), dev, 0.1)},
-                      "ln": {"g": 1.0 + _rand(rng, (C,), dev, 0.5), "b": _rand(rng, (C,), dev, 0.1)}},
+                      "fc": {"w": _rand(rng, (2 * C, C), dev, scale), "b": _rand(rng, (C,), dev, 0.1)},
+                      "ln": {"g": 1.0 + _rand(rng, (C,), dev, scale + 0.2), "b": _rand(rng, (C,), dev, 0.1)}},
+            "inter": {"gru": gru(),
+                      "fc": {"w": _rand(rng, (C, C), dev, scale), "b": _rand(rng, (C,), dev, 0.1)},
+                      "ln": {"g": 1.0 + _rand(rng, (C,), dev, scale + 0.2), "b": _rand(rng, (C,), dev, 0.1)}},
         })
     return pack_stack(blocks)
 
@@ -634,16 +642,21 @@ def test_cuda_v1_dprnn_batch_invariant(dev, plane):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["inter", "intra", "gru_bidir"])
+@pytest.mark.parametrize("kernel", ["inter", "intra", "gru_bidir", "stack"])
 def test_cuda_walk_kernels_repeat_bit_exact(dev, kernel):
     """The same seeded input 50 times in one process, every other call
     after NaN has gone through the caching allocator and another walk
     kernel through shared memory: the same bits every time (a race or a
-    read of an unwritten buffer would show here).  gru_bidir runs the
-    block-wide walk of gru64_walk.cuh, the other two the warp walk."""
+    read of an unwritten buffer would show here).  inter, intra and
+    gru_bidir run the warp walk of gru64_warp.cuh, the stack its own walk
+    with a named barrier per direction."""
     rng = np.random.default_rng(45)
     ia = _intra_args(rng, dev)
-    if kernel == "inter":
+    if kernel == "stack":
+        stacked = _stacked(rng, 3, 64, dev)
+        x, h0 = _rand(rng, (5, 3, 40, 64), dev), _rand(rng, (3, 5, 40, 64), dev, 0.2)
+        call = lambda: gru_kernels.dprnn_stack(x, h0, stacked)  # noqa: E731
+    elif kernel == "inter":
         ea = _inter_args(rng, dev)
         x, h0 = _rand(rng, (6, 4, 16, 64), dev), _rand(rng, (6, 16, 64), dev, 0.2)
         x_fm = x.permute(1, 2, 0, 3).reshape(4, 96, 64).contiguous()
@@ -699,3 +712,132 @@ def test_cuda_exact_streaming_states_match_cpu(dev):
     worst = max((rel(v.float().cpu().numpy(), ref_leaves[k].float().numpy()), k)
                 for k, v in tree_leaves(st))
     assert worst[0] < 1e-3, worst
+
+
+# --------------------------------------------------------------------------- #
+# gru_bidir on the warp walk, and the DPRNN stack: main-path shapes, plan
+# edges, batch invariance, and the stack's bits against the per-stage chain
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("N,L", [(896, 48), (7168, 48), (7168, 40), (64, 48)])
+def test_cuda_gru_bidir_main_path_shapes(dev, N, L, plane):
+    """B=8 (896 rows), B=64 x 112 (7168 rows, the df and erb widths) and
+    T=1 x 64 streams against the plain version, with one launch per call."""
+    rng = np.random.default_rng(50)
+    w = _pack_bidir(_gru(rng, 64, 64, dev), _gru(rng, 64, 64, dev))
+    x = _rand(rng, (N, L, 64), dev).to(plane)
+    gru_kernels.reset_launch_counts()
+    got = gru_kernels.gru_bidir(x, *w)
+    assert gru_kernels.launch_counts()["gru_bidir"] == 1
+    for a, b in zip(got, gru_kernels.gru_bidir_plain(x, *w)):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L", [
+    # one row; rows below one CTA pair per SM pair; a ragged last tile and
+    # warp; several rounds of tiles; L below, at and off the chunk
+    (1, 48), (5, 3), (67, 4), (401, 5), (1001, 40), (13, 1)])
+def test_cuda_gru_bidir_plan_edges(dev, N, L):
+    rng = np.random.default_rng(51)
+    w = _pack_bidir(_gru(rng, 64, 64, dev), _gru(rng, 64, 64, dev))
+    x = _rand(rng, (N, L, 64), dev)
+    for a, b in zip(gru_kernels.gru_bidir(x, *w), gru_kernels.gru_bidir_plain(x, *w)):
+        _close(a, b)
+
+
+def _stack_blocks(stacked, K):
+    """Each block's dprnn_intra_block and dprnn_inter_block weights out of
+    a pack_stack dict."""
+    s = stacked
+    return [((s["wi2"][k], s["wh2"][k], s["b2"][k], s["wfc_i"][k], s["bfc_i"][k, 0],
+              s["g_i"][k, 0], s["bln_i"][k, 0]),
+             (s["wi_t"][k], s["b2_t"][k, 0], s["wh_t"][k], s["b2_t"][k, 1], s["wfc_t"][k],
+              s["bfc_t"][k, 0], s["g_t"][k, 0], s["bln_t"][k, 0])) for k in range(K)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Fq,K", [(64, 1, 48, 8), (3, 4, 40, 3), (1, 2, 13, 1), (5, 8, 48, 2)])
+def test_cuda_stack_bit_identical_to_per_stage_chain(dev, B, T, Fq, K):
+    """On float32 planes the stack's out and h_last equal, bit for bit, K
+    applications of dprnn_intra_block + dprnn_inter_block frame by frame
+    (the JAX stack kernel's definition), and the model's block-by-block
+    order over all T frames."""
+    rng = np.random.default_rng(52)
+    stacked = _stacked(rng, K, 64, dev)
+    blocks = _stack_blocks(stacked, K)
+    x = _rand(rng, (B, T, Fq, 64), dev)
+    h0 = _rand(rng, (K, B, Fq, 64), dev, 0.5)
+    out, hl = gru_kernels.dprnn_stack(x, h0, stacked)
+    hs, frames = [h0[k] for k in range(K)], []
+    for t in range(T):
+        cur = x[:, t:t + 1].contiguous()
+        for k, (ia, ea) in enumerate(blocks):
+            cur = gru_kernels.dprnn_intra_block(cur.reshape(B, Fq, 64), *ia).reshape(B, 1, Fq, 64)
+            cur, hs[k] = gru_kernels.dprnn_inter_block(cur, hs[k], *ea, defer=False)
+        frames.append(cur)
+    ref = torch.cat(frames, dim=1)
+    assert torch.equal(out, ref), f"out differs by {(out - ref).abs().max().item():.3e}"
+    assert torch.equal(hl, torch.stack(hs)), \
+        f"h_last differs by {(hl - torch.stack(hs)).abs().max().item():.3e}"
+    cur, hb = x, []
+    for k, (ia, ea) in enumerate(blocks):
+        cur = gru_kernels.dprnn_intra_block(cur.reshape(B * T, Fq, 64), *ia).reshape(x.shape)
+        cur, h = gru_kernels.dprnn_inter_block(cur, h0[k], *ea, defer=False)
+        hb.append(h)
+    assert torch.equal(out, cur) and torch.equal(hl, torch.stack(hb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("B,T,Fq", [(64, 1, 48), (64, 1, 40), (64, 8, 48), (8, 112, 48),
+                                    (1, 1, 48), (256, 1, 48)])
+def test_cuda_stack_main_path_shapes(dev, B, T, Fq, plane):
+    """One exact hop of 64 streams (both branches), a throughput-mode call,
+    the offline shape and the pool's edges, K = 8, against the plain
+    version, with one launch per call.  Weights at the model's scale
+    (fan-in ** -0.5): at _stacked's default 0.3 the gates saturate and the
+    plane grows block by block, so the f32 summation-order difference to
+    the plain version grows about 2.5x per block (5e-6 at K = 1, 5e-4 at
+    K = 8), in the per-stage chain as in the stack, whose bits are the
+    chain's."""
+    rng = np.random.default_rng(53)
+    stacked = _stacked(rng, 8, 64, dev, scale=64 ** -0.5)
+    x = _rand(rng, (B, T, Fq, 64), dev).to(plane)
+    h0 = _rand(rng, (8, B, Fq, 64), dev, 0.5)
+    gru_kernels.reset_launch_counts()
+    out, hl = gru_kernels.dprnn_stack(x, h0, stacked)
+    assert gru_kernels.launch_counts()["dprnn_stack"] == 1
+    ref, hl_ref = gru_kernels.dprnn_stack_plain(x, h0, stacked)
+    _close(out, ref)
+    _close(hl, hl_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+def test_cuda_gru_bidir_and_stack_batch_invariant(dev, plane):
+    """A row alone gives the bits it has in a batch (gru_bidir: rows of
+    another plan; the stack: a stream alone, and two frames split over two
+    calls with the carried hidden), max-abs 0."""
+    rng = np.random.default_rng(54)
+    w = _pack_bidir(_gru(rng, 64, 64, dev), _gru(rng, 64, 64, dev))
+    x = _rand(rng, (64 * 12, 48, 64), dev).to(plane)
+    yf, yb = gru_kernels.gru_bidir(x, *w)
+    for n in (0, 100, 767):
+        f1, b1 = gru_kernels.gru_bidir(x[n:n + 1].contiguous(), *w)
+        assert torch.equal(f1[0], yf[n]) and torch.equal(b1[0], yb[n])
+    f70, b70 = gru_kernels.gru_bidir(x[:70].contiguous(), *w)
+    assert torch.equal(f70, yf[:70]) and torch.equal(b70, yb[:70])
+    stacked = _stacked(rng, 2, 64, dev)
+    xs = _rand(rng, (9, 2, 48, 64), dev).to(plane)
+    h0 = _rand(rng, (2, 9, 48, 64), dev, 0.5)
+    out, hl = gru_kernels.dprnn_stack(xs, h0, stacked)
+    for b in (0, 4, 8):
+        o1, h1 = gru_kernels.dprnn_stack(xs[b:b + 1].contiguous(), h0[:, b:b + 1].contiguous(),
+                                         stacked)
+        assert torch.equal(o1[0], out[b]) and torch.equal(h1[:, 0], hl[:, b])
+    o_a, h_a = gru_kernels.dprnn_stack(xs[:, :1].contiguous(), h0, stacked)
+    o_b, h_b = gru_kernels.dprnn_stack(xs[:, 1:].contiguous(), h_a, stacked)
+    assert torch.equal(torch.cat([o_a, o_b], dim=1), out) and torch.equal(h_b, hl)

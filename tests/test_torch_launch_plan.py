@@ -1,9 +1,12 @@
-"""The launch plans of the warp walks and the cluster GRU scan.
+"""The launch plans of the warp walks, the cluster GRU scan and the DPRNN
+stack.
 
-``gru_kernels.inter_v2_plan``, ``inter_v1_plan``, ``intra_plan`` and
-``gru_scan_plan`` are pure Python: the wrappers hand their numbers to
-``csrc/dprnn_inter_v2.cu``, ``csrc/dprnn_inter.cu``, ``csrc/dprnn_intra.cu``
-and ``csrc/gru_scan.cu``, whose row indexing the plans' ``rows`` methods state.
+``gru_kernels.inter_v2_plan``, ``inter_v1_plan``, ``intra_plan``,
+``gru_bidir_plan``, ``stack_plan`` and ``gru_scan_plan`` are pure Python:
+the wrappers hand their numbers to ``csrc/dprnn_inter_v2.cu``,
+``csrc/dprnn_inter.cu``, ``csrc/dprnn_intra.cu``, ``csrc/gru_bidir.cu``,
+``csrc/dprnn_stack.cu`` and ``csrc/gru_scan.cu``, whose row indexing the
+plans' ``rows`` (``positions``, ``walk_columns``) methods state.
 Here every plan covers every row (and, for the scan, every hidden unit)
 exactly once, stays within the limits it states, and fills the card as its
 docstring says.  Shapes: the plans' edges (N = 1, just below, at and above
@@ -12,8 +15,11 @@ the main path's N = 320 / 384 (B=8) and 2560 / 3072 (B=64), an odd 600;
 H = 32, 64, 96 (a cluster of 3) and 256; SM counts of 132 (H100 SXM) and 8.
 The v1 DPRNN plans at N = 1, 64 (one exact hop's intra rows), 96, 384
 (inter at B=8), 896 (intra at B=8), 3072 (inter at B=64) and 7168 (intra
-at B=64 x 112), Fq 40 and 48.
+at B=64 x 112), Fq 40 and 48.  gru_bidir at N = 1 ... 7168 rows and L in
+{1, 8, 13, 40, 48}; the stack at B = 1 ... 256 streams and the same Fq.
 """
+from collections import Counter
+
 
 import pytest
 
@@ -136,3 +142,83 @@ def test_intra_plan_covers_every_row_and_direction_once(N, Fq, sms):
     if N <= sms // 2:
         assert p.rows_per_tile == 1 and p.tiles == N
 
+
+
+# ---- gru_bidir (csrc/gru_bidir.cu on the warp walk) and the DPRNN stack ----
+
+BIDIR_N = (1, 2, 7, 64, 65, 132, 133, 896, 1001, 2112, 7168)
+WALK_L = (1, 8, 13, 40, 48)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("L", WALK_L)
+@pytest.mark.parametrize("N", BIDIR_N)
+def test_gru_bidir_plan_covers_every_row_and_direction_once(N, L, sms):
+    p = gk.gru_bidir_plan(N, L, sms)
+    assert p.cluster == 2
+    seen = Counter()
+    for q in range(p.clusters):
+        for d in range(2):                      # CTA 2q + d walks direction d
+            for tile in p.tiles_of(q):
+                for w in range(p.walk_warps):
+                    for n in p.rows(tile, w):
+                        if n < N:
+                            seen[(n, d)] += 1
+    assert seen == {(n, d): 1 for n in range(N) for d in range(2)}
+    assert p.rows(p.tiles - 1, 0).start < N
+    assert p.rows_per_warp in (1, 2) and p.ts == gk.INTRA_TS
+    assert 1 <= p.walk_warps <= p.warps <= gk.INTRA_MAX_WARPS
+    assert p.warps == max(p.walk_warps, gk.INTRA_MIN_WARPS)
+    # Wi and Wh of one direction (96 KB) and the walking warps' slices
+    assert p.smem_bytes == 4 * (2 * 64 * 192 + p.walk_warps * (
+        p.ts * p.rows_per_warp * 256 + 2 * p.rows_per_warp * 64))
+    assert p.smem_bytes <= gk.SMEM_PER_BLOCK
+    assert p.clusters == min(p.tiles, sms // 2)
+    # the same row split as the intra walk: fewest rounds, then smallest tiles
+    ip = gk.intra_plan(N, L, sms)
+    assert (p.rows_per_warp, p.walk_warps, p.tiles) == (ip.rows_per_warp, ip.walk_warps,
+                                                        ip.tiles)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("Fq", WALK_L)
+@pytest.mark.parametrize("B", (1, 2, 4, 8, 64, 66, 67, 133, 256))
+def test_stack_plan_covers_every_stream_position_and_column_once(B, Fq, sms):
+    p = gk.stack_plan(B, Fq, 8, sms)
+    # a cluster per stream exactly while every cluster is resident at once
+    assert p.cluster == (2 if 2 * B <= sms else 1) and p.ctas == p.cluster * B
+    assert p.threads == gk.STACK_THREADS
+    ctas_of = Counter(p.stream(c) for c in range(p.ctas))
+    assert ctas_of == Counter({b: p.cluster for b in range(B)})
+    # the inter gates and the store: each (stream, position) by one CTA
+    own = Counter((p.stream(c), f) for c in range(p.ctas) for f in p.own_positions(c, Fq))
+    assert own == Counter({(b, f): 1 for b in range(B) for f in range(Fq)})
+    # the LayerNorms: every CTA holds the whole row, one warp per position
+    for c in (0, p.ctas - 1):
+        ln = Counter(f for w in range(p.warps) for f in p.ln_positions(w, Fq))
+        assert ln == Counter({f: 1 for f in range(Fq)})
+    # the walk: each (stream, direction, unit, column) on one thread, a lane
+    # pair (2i, 2i + 1) of one warp holding one unit's four columns
+    cols = Counter()
+    for c in range(p.ctas):
+        for t in range(p.threads):
+            wc = p.walk_columns(c, t)
+            if wc is None:
+                assert p.cluster == 2 and t >= p.threads // 2
+                continue
+            d, u, pair = wc
+            assert p.walk_columns(c, t ^ 1)[:2] == (d, u) and (t ^ 1) // 32 == t // 32
+            cols.update((p.stream(c), d, u, col) for col in pair)
+    assert cols == Counter({(b, d, u, col): 1 for b in range(B) for d in range(2)
+                            for u in range(64) for col in ("r", "z", "n", "fc")})
+    assert p.smem_bytes == 4 * (640 * Fq + 256) <= gk.SMEM_PER_BLOCK
+    # the walk's 128 column weights per thread within the register budget of
+    # one 256-thread CTA per SM
+    assert p.weight_regs == 128 < p.reg_budget <= 255
+    assert p.threads * p.reg_budget <= gk.REGS_PER_SM
+
+
+@pytest.mark.parametrize("B,Fq,K", [(0, 48, 8), (4, 0, 8), (4, 51, 8), (4, 48, 0)])
+def test_stack_plan_raises_outside_its_shapes(B, Fq, K):
+    with pytest.raises(ValueError, match="stack_plan"):
+        gk.stack_plan(B, Fq, K, 132)

@@ -79,3 +79,58 @@ def test_ln_bf16_slack_covers_a_last_bit_change_upstream():
     moved = ln_bf16(torch.nextafter(y, away))
     assert gru_kernels.err_beyond_bf16_ulp(moved, ref) > CHECK_TOL
     assert gru_kernels.err_beyond_bf16_ulp(moved, ref, tinter.ln_bf16_slack(x, h0, *w)) <= 0
+
+
+def test_mode_off_ablation_cases_repeat_on_the_cpu(monkeypatch):
+    """The step-ablation kernels' digest cases (every specialization, both
+    intra layouts) run their tools' plain versions on CPU tensors:
+    deterministic, and a distinct digest per case."""
+    abl = {k: v for k, v in mode_off_digest.CASES.items() if "step_ablation" in k}
+    assert len(abl) == 24
+    monkeypatch.setattr(mode_off_digest, "CASES", abl)
+    torch.set_num_threads(1)
+    a = mode_off_digest.kernel_digests(gru_kernels, device="cpu")
+    assert a == mode_off_digest.kernel_digests(gru_kernels, device="cpu")
+    # rows and tm layouts of one intra specialization give one function
+    assert len(set(a.values())) >= 16
+
+
+@pytest.mark.parametrize("B,T,Fq,K", [(2, 3, 8, 2), (1, 1, 13, 3)])
+def test_stack_chain_is_the_stacks_function(B, T, Fq, K):
+    """kernel_ab's yardstick for the stack, K x (intra + inter) block by
+    block over all T frames, computes the stack's function: on the CPU
+    (plain versions) it agrees with dprnn_stack_plain, which runs frame by
+    frame, to float32 reordering."""
+    import numpy as np
+
+    from dpdfnet_tpu_torch.models.fuse import pack_stack
+    from dpdfnet_tpu_torch.tools import kernel_ab
+
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(3)
+    C = 64
+
+    def t(*shape, scale):
+        return torch.tensor(rng.normal(size=shape) * scale, dtype=torch.float32)
+
+    def gru():
+        return {"wi": t(C, 3 * C, scale=C ** -0.5), "bi": t(3 * C, scale=0.1),
+                "wh": t(C, 3 * C, scale=C ** -0.5), "bh": t(3 * C, scale=0.1)}
+
+    blocks, intra, inter = [], [], []
+    for _ in range(K):
+        wi2, wh2, b2 = gru_kernels._pack_bidir(gru(), gru())
+        fc_i, ln_i = (t(2 * C, C, scale=0.1), t(C, scale=0.1)), (1 + t(C, scale=0.2), t(C, scale=0.1))
+        g = gru()
+        fc_t, ln_t = (t(C, C, scale=0.1), t(C, scale=0.1)), (1 + t(C, scale=0.2), t(C, scale=0.1))
+        blocks.append({"intra": {"packed": {"wi2": wi2, "wh2": wh2, "b2": b2},
+                                 "fc": {"w": fc_i[0], "b": fc_i[1]}, "ln": {"g": ln_i[0], "b": ln_i[1]}},
+                       "inter": {"gru": g, "fc": {"w": fc_t[0], "b": fc_t[1]},
+                                 "ln": {"g": ln_t[0], "b": ln_t[1]}}})
+        intra.append((wi2, wh2, b2, *fc_i, *ln_i))
+        inter.append((g["wi"], g["bi"], g["wh"], g["bh"], *fc_t, *ln_t))
+    x, h0 = t(B, T, Fq, C, scale=1.0), t(K, B, Fq, C, scale=0.5)
+    out, hs = kernel_ab.stack_chain(gru_kernels, x, h0, intra, inter)
+    ref, hl = gru_kernels.dprnn_stack_plain(x, h0, pack_stack(blocks))
+    assert (out - ref).abs().max().item() < 1e-5
+    assert (torch.stack(hs) - hl).abs().max().item() < 1e-5
