@@ -75,7 +75,12 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    relayout, in ``highest`` and ``turbo``, interleaved call by call;
 14. both step-ablation tools (``dpdfnet_tpu_torch.tools``): every
    specialization against its plain version at a small size and at the JAX
-   tools' default shapes, then one timing pass of every variant there;
+   tools' default shapes, ``full`` bit for bit against the production
+   intra / inter kernel (row-major and ``fm_batch`` intra, inter as a
+   plane) at both sizes and both plane dtypes, the FFMA and spill
+   instructions of each specialization's kernel at the default plan
+   (``cuobjdump -sass``), then
+   one timing pass of every variant there;
 15. one JSON line listing the kernels, then the final JSON status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
@@ -96,6 +101,7 @@ import numpy as np
 import torch
 
 # the roofline bound, and kernel / library timed alternately call by call
+from dpdfnet_tpu_torch.tools import kernel_ab
 from dpdfnet_tpu_torch.tools.kernel_ab import bound, interleaved_ms as yardstick, stack_chain
 
 # Tolerances (max-abs, float32 everywhere, TF32 off).
@@ -1218,12 +1224,15 @@ def fm_ab_phase(cfg, params, smi, rng):
 def ablation_phase(smi):
     """Both step-ablation tools: every specialization against its plain
     version at a small size (both plane dtypes) and at the JAX tools'
-    default shapes on the inputs that are timed, then one timing pass of
-    every variant there.  Returns the kernel-line rows, with ``full``'s
-    max-abs at the default shapes."""
-    from dpdfnet_tpu_torch.ops.gru_kernels import err_beyond_bf16_ulp
+    default shapes on the inputs that are timed, ``full`` bit for bit
+    against the production kernel at both sizes and plane dtypes, the FFMA
+    and spill instructions of each specialization's kernel, then one timing
+    pass of every variant there.  Returns the kernel-line rows, with
+    ``full``'s max-abs at the default shapes."""
+    from dpdfnet_tpu_torch.ops import gru_kernels as gk
     from dpdfnet_tpu_torch.tools import inter_step_ablation as abl_e
     from dpdfnet_tpu_torch.tools import intra_step_ablation as abl_i
+    from dpdfnet_tpu_torch.tools import sass_counts
 
     def gate(tool, errs):
         bad = {k: v for k, v in errs.items() if not v <= KERNEL_TOL}
@@ -1231,68 +1240,53 @@ def ablation_phase(smi):
             raise AssertionError(f"{tool} ablation {bad}: beyond one bf16 ulp of the plain "
                                  f"version by more than {KERNEL_TOL:.0e}")
 
+    def same_as_production(tool, mod, dtype, *shape, seed=1):
+        same = mod.full_matches_production(*shape, dtype=dtype, seed=seed)
+        log(f"{tool} step ablation full x{list(shape)} {str(dtype).replace('torch.', '')}: "
+            f"bit-identical to the production kernel {same}")
+        if not all(same.values()):
+            raise AssertionError(f"{tool} ablation full differs from the production kernel: "
+                                 f"{same}")
+
     for dtype in (torch.bfloat16, torch.float32):
-        for tool, mod in (("intra", abl_i), ("inter", abl_e)):
-            gate(tool, mod.check_specializations(dtype=dtype, log=log))
+        for tool, mod, shape in (("intra", abl_i, (40, 16)), ("inter", abl_e, (40, 9))):
+            gate(tool, mod.check_specializations(*shape, dtype=dtype, log=log))
+            same_as_production(tool, mod, dtype, *shape)
     rows = {}
     C = 64
-    for tool, mod, run, shape in (("intra", abl_i, abl_i.run_intra, (4096, 48)),
-                                  ("inter", abl_e, abl_e.run_inter, (6144, 56))):
-        nrows, T = shape
+    sms = gk._sm_count(torch.device("cuda"))
+    for tool, mod, run in (("intra", abl_i, abl_i.run_intra), ("inter", abl_e, abl_e.run_inter)):
+        nrows, T = kernel_ab.ABLATION_SHAPES[tool]
         # every specialization (intra: both layouts) at the timed shape, on
         # the timed inputs (seed 0): grid, row-tail and offset faults show here
         gate(tool, mod.check_specializations(nrows, T, log=log, seed=0))
+        for dtype in (torch.bfloat16, torch.float32):
+            same_as_production(tool, mod, dtype, nrows, T, seed=0)
+        # FFMAs and spills in the SASS of each kernel at the timed plan, bf16
+        # planes: the product-keeping specializations against full and the
+        # production kernel
+        if tool == "intra":
+            args = f"<{gk.intra_plan(nrows, T, sms).rows_per_warp}, __nv_bfloat16"
+        else:
+            plan = gk.inter_v1_plan(nrows, T, sms)
+            args = f"<{plan.rows_per_warp}, {plan.ts}, "
+        for lib in (f"dprnn_{tool}", f"{tool}_step_ablation"):
+            for name, n in sorted(sass_counts(lib).items()):
+                if args in name and "bfloat16" in name:
+                    log(f"sass {lib}: {n['FFMA']} FFMA, {n['LDL'] + n['STL']} local loads and "
+                        f"stores in {name.split('(')[0]}")
         log(f"{tool} step ablation, rows {nrows}, T {T}, C {C}, bf16 planes | {smi}")
         run.launches = 0
         res = mod.time_variants(list(mod.VARIANTS), nrows, T, C, log=log)
         launches = run.launches
-        if tool == "intra":
-            x, w = abl_i.make_inputs(nrows, T, C, "cuda")
-            ref = abl_i.intra_plain("full", x, *w)
-            got = abl_i.run_intra("full", x, *w)
-            plain_ms = cuda_ms(lambda: abl_i.intra_plain("full", x, *w), 3)
-            wi2, wh2, b2, wfc, bfc, g, bln = w
-            lib = torch.nn.GRU(C, C, batch_first=True, bidirectional=True).cuda()
-            with torch.no_grad():
-                for d, sfx in ((0, ""), (1, "_reverse")):
-                    cols = torch.cat([torch.arange(gt * 2 * C + d * C, gt * 2 * C + d * C + C)
-                                      for gt in range(3)]).cuda()
-                    getattr(lib, f"weight_ih_l0{sfx}").copy_(wi2[d * C:(d + 1) * C][:, cols].T)
-                    getattr(lib, f"weight_hh_l0{sfx}").copy_(wh2[d * C:(d + 1) * C][:, cols].T)
-                    getattr(lib, f"bias_ih_l0{sfx}").copy_(b2[0, cols])
-                    getattr(lib, f"bias_hh_l0{sfx}").copy_(b2[1, cols])
-            xl = x.float()
-
-            def lib_call():
-                ys, _ = lib(xl)
-                return xl + torch.nn.functional.layer_norm(
-                    torch.nn.functional.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
-
-            flops = 28 * C * C * nrows * T
-            nbytes = 2 * C * 2 * nrows * T
-        else:
-            x, h0, wp, bp, tail = abl_e.make_inputs(nrows, T, C, "cuda")
-            wi, bi, wh, bh = abl_e.unpack_wp(wp, bp)
-            wfc, bfc, g, bln = tail
-            ref = abl_e.inter_plain("full", x, h0, wi, bi, wh, bh, *tail)[0]
-            got = abl_e.run_inter("full", x, h0, wi, bi, wh, bh, *tail)[0]
-            plain_ms = cuda_ms(lambda: abl_e.inter_plain("full", x, h0, wi, bi, wh, bh, *tail),
-                               3)
-            lib = gru_module(wi, bi, wh, bh)
-            xl = x.float().transpose(0, 1)
-
-            def lib_call():
-                ys, _ = lib(xl, h0[None])
-                return xl + torch.nn.functional.layer_norm(
-                    torch.nn.functional.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
-
-            flops = 14 * C * C * nrows * T
-            nbytes = 2 * C * 2 * nrows * T + 2 * nrows * C * 4
-        lib_ms = cuda_ms(lib_call)
-        b_ms, b_by = bound(flops, nbytes)
+        f = kernel_ab.ablation_full(tool)
+        ref, got = f["plain"](), f["kernel"]()
+        plain_ms = cuda_ms(f["plain"], 3)
+        lib_ms = cuda_ms(f["library"])
+        b_ms, b_by = bound(f["flops"], f["nbytes"])
         spec, ms, ns = res["full"]
         err = (got.float() - ref.float()).abs().max().item()
-        beyond = err_beyond_bf16_ulp(got, ref)
+        beyond = gk.err_beyond_bf16_ulp(got, ref)
         gate(tool, {"full": beyond})
         rows[tool] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by, launches=launches)
@@ -1340,8 +1334,6 @@ def main() -> int:
 
     # ---- phase 2: kernels vs plain versions ----
     kernel_rows = kernel_phase(prepare_inference_params(params, cfg), cfg, gk)
-    from dpdfnet_tpu_torch.tools import kernel_ab
-
     kernel_ab.kernel_rows(gk, log)
 
     # ---- phase 3: the main path, card vs CPU ----

@@ -33,95 +33,11 @@
 //   defer         the walk stores the raw hidden h_t in out's layout at
 //                 the plane's dtype; the fc + LayerNorm + residual tail
 //                 runs outside the kernel.
-#include "gru64_warp.cuh"
+// The kernel's templates live in dprnn_inter.cuh, which
+// inter_step_ablation.cu instantiates too.
+#include "dprnn_inter.cuh"
 
 using namespace dpdf;
-
-namespace {
-
-constexpr int MAX_WARPS = 12;
-
-template <int R, int TS, int OUT, typename TX>
-__global__ void __launch_bounds__(MAX_WARPS * ww::LANES, 1)
-dprnn_inter_kernel(const TX* __restrict__ x, TX* __restrict__ out,
-                   const float* __restrict__ h0, float* __restrict__ h_last, GruWeights w,
-                   const float* __restrict__ wfc, const float* __restrict__ bfc,
-                   const float* __restrict__ g, const float* __restrict__ bln, Rows rows,
-                   Rows orows, Rows hrows, int64_t N, int T) {
-  extern __shared__ __align__(16) float smem[];
-  ww::stage_weights(smem, w, wfc);
-  __syncthreads();                       // the only block-wide barrier
-  const int warp = threadIdx.x / ww::LANES, lane = threadIdx.x % ww::LANES;
-  const int warps = blockDim.x / ww::LANES;
-  const int64_t row0 = ((int64_t)blockIdx.x * warps + warp) * R;
-  if (row0 >= N) return;
-  const ww::LaneParams p = ww::lane_params(w, bfc, g, bln, lane);
-  ww::walk<R, TS, OUT>(smem, smem + ww::W_FLOATS + warp * ww::warp_floats(R, TS), x, rows,
-                       orows, hrows, row0, N, T, false, p, out, nullptr, 0, h0, h_last, lane);
-}
-
-template <int R, int TS, int OUT, typename TX>
-cudaError_t launch(const TX* x, TX* out, const float* h0, float* h_last, GruWeights w,
-                   const float* wfc, const float* bfc, const float* g, const float* bln,
-                   Rows rows, Rows orows, Rows hrows, int64_t N, int T, int warps, int blocks,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (ww::W_FLOATS + (size_t)warps * ww::warp_floats(R, TS));
-  cudaError_t err = cudaFuncSetAttribute(dprnn_inter_kernel<R, TS, OUT, TX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dprnn_inter_kernel<R, TS, OUT, TX><<<blocks, warps * ww::LANES, smem, stream>>>(
-      x, out, h0, h_last, w, wfc, bfc, g, bln, rows, orows, hrows, N, T);
-  return cudaGetLastError();
-}
-
-template <int OUT, typename TX>
-cudaError_t dispatch(const TX* x, TX* out, const float* h0, float* h_last, GruWeights w,
-                     const float* wfc, const float* bfc, const float* g, const float* bln,
-                     Rows rows, Rows orows, Rows hrows, int64_t N, int T, int rows_per_warp,
-                     int ts, int warps, int blocks, cudaStream_t st) {
-#define DPDF_LAUNCH(R, TS)                                                                    \
-  launch<R, TS, OUT>(x, out, h0, h_last, w, wfc, bfc, g, bln, rows, orows, hrows, N, T, warps, \
-                     blocks, st)
-  if (rows_per_warp == 1 && ts == 1) return DPDF_LAUNCH(1, 1);
-  if (rows_per_warp == 1 && ts == 8) return DPDF_LAUNCH(1, 8);
-  if (rows_per_warp == 2 && ts == 1) return DPDF_LAUNCH(2, 1);
-  if (rows_per_warp == 2 && ts == 4) return DPDF_LAUNCH(2, 4);
-  return cudaErrorInvalidValue;
-#undef DPDF_LAUNCH
-}
-
-template <typename TX>
-cudaError_t run(const TX* x, TX* out, const float* h0, float* h_last, const float* wi,
-                const float* bi, const float* wh, const float* bh, const float* wfc,
-                const float* bfc, const float* g, const float* bln, int B, int T, int Fq,
-                int rows_per_warp, int ts, int warps, int blocks, int fm, int h_bm, int defer,
-                cudaStream_t st) {
-  const int64_t N = (int64_t)B * Fq;
-  if (warps < 1 || warps > MAX_WARPS || blocks < 1 || T < 1 || N < 1 ||
-      (int64_t)blocks * warps * rows_per_warp < N)
-    return cudaErrorInvalidConfiguration;
-  GruWeights w{wi, wh, bi, bh, G3, 0, C, 0};
-  Rows rows, orows, hrows;
-  if (fm) {
-    // row n = f * B + b; x[t, n] at t*N*C + n*C; out[f, t, b] at
-    // f*T*B*C + t*B*C + b*C; h_bm: h[b, f] at b*Fq*C + f*C
-    rows = Rows{N, 0, C, N * C};
-    orows = Rows{B, (int64_t)T * B * C, C, (int64_t)B * C};
-    hrows = h_bm ? Rows{B, C, (int64_t)Fq * C, 0} : dense_rows(N);
-  } else {
-    // row n = b * Fq + f; x[b, t, f, :] at b*T*Fq*C + f*C + t*Fq*C
-    rows = Rows{Fq, (int64_t)T * Fq * C, C, (int64_t)Fq * C};
-    orows = rows;
-    hrows = dense_rows(N);
-  }
-  return defer ? dispatch<ww::OUT_HIDDEN>(x, out, h0, h_last, w, wfc, bfc, g, bln, rows, orows,
-                                          hrows, N, T, rows_per_warp, ts, warps, blocks, st)
-               : dispatch<ww::OUT_LN_RESIDUAL>(x, out, h0, h_last, w, wfc, bfc, g, bln, rows,
-                                               orows, hrows, N, T, rows_per_warp, ts, warps,
-                                               blocks, st);
-}
-
-}  // namespace
 
 // fm_batch == 0: x, out [B, T, Fq, C]; h0, h_last [B, Fq, C].  fm_batch:
 // x [T, Fq * B, C] (f-major rows), out [Fq, T, B, C]; h0, h_last
@@ -138,11 +54,14 @@ extern "C" int dprnn_inter_launch(const void* x, void* out, const float* h0,
                                   int blocks, int plane_bf16, int fm_batch, int h_bm, int defer,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (plane_bf16)
-    return (int)run(static_cast<const bf16*>(x), static_cast<bf16*>(out), h0, h_last, wi, bi,
-                    wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_warp, ts, warps, blocks,
-                    fm_batch, h_bm, defer, st);
-  return (int)run(static_cast<const float*>(x), static_cast<float*>(out), h0, h_last, wi, bi,
-                  wh, bh, wfc, bfc, g, bln, B, T, Fq, rows_per_warp, ts, warps, blocks,
-                  fm_batch, h_bm, defer, st);
+  const auto go = [&](auto* xt, auto* ot) {
+    return defer ? inter::run<ww::OUT_HIDDEN>(xt, ot, h0, h_last, wi, bi, wh, bh, wfc, bfc, g,
+                                              bln, B, T, Fq, rows_per_warp, ts, warps, blocks,
+                                              fm_batch, h_bm, st)
+                 : inter::run<ww::OUT_LN_RESIDUAL>(xt, ot, h0, h_last, wi, bi, wh, bh, wfc, bfc,
+                                                   g, bln, B, T, Fq, rows_per_warp, ts, warps,
+                                                   blocks, fm_batch, h_bm, st);
+  };
+  return (int)(plane_bf16 ? go(static_cast<const bf16*>(x), static_cast<bf16*>(out))
+                          : go(static_cast<const float*>(x), static_cast<float*>(out)));
 }

@@ -2,9 +2,8 @@
 // the row addressing (Rows, RowMap), the GRU weight addressing
 // (GruWeights), the gate and warp-sum primitives, and the DPRNN intra
 // epilogue kernel that dprnn_intra_v2.cu launches.  The walks live in
-// gru64_warp.cuh (DPRNN inter and intra, gru_bidir), gru64_v2.cuh (intra
-// v2) and gru64_block_walk.cuh (the original block-wide walk, which only the
-// two step-ablation kernels run).
+// gru64_warp.cuh (DPRNN inter and intra, gru_bidir, the step ablations)
+// and gru64_v2.cuh (intra v2).
 //
 // Planes (x, and the out / ys plane) are float32 or bfloat16 (TX / TO):
 // loads upcast, stores round once, every value in between is float32.
@@ -30,7 +29,7 @@ __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat1
 
 constexpr int C = 64;                 // channels == hidden size
 constexpr int G3 = 3 * C;             // gate columns r | z | n
-constexpr int THREADS = 256;         // the block-wide walks (v2, ablations)
+constexpr int THREADS = 256;         // the block-wide walk of intra v2
 constexpr int GROUPS = THREADS / C;   // row groups per block
 
 struct Rows {

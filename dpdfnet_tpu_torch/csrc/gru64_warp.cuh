@@ -1,20 +1,26 @@
 // The warp-per-row C = 64 GRU walk of dprnn_inter.cu, dprnn_intra.cu and
 // gru_bidir.cu; dprnn_stack.cu runs its step (gru_unit) and its LayerNorm
 // (ln_store) in a walk of its own, so the stack gives these kernels' bits.
+// The two step-ablation kernels (intra_step_ablation.cu,
+// inter_step_ablation.cu) instantiate the same walk through its
+// compile-time hooks: a step body (STEP), an output (OUT_NONE) and a
+// LayerNorm form (LN), whose defaults are the production step (gru_unit,
+// step_product, ln_store), so their `full` is the production kernel.
 //
-// Replaces the original block-wide walk (gru64_block_walk.cuh, which only
-// the two step-ablation kernels still run).  The TPU kernels it stands in
-// for compute the same way: the fc of step s
+// The TPU kernels it stands in for compute the same way: the fc of step s
 // folded into step s + 1's hidden product (_inter_block_kernel_packed's
 // fcfuse) and the input projection hoisted off the recurrence
 // (_inter_hoist, the hoist branch of _intra_block_kernel), both in
 // dpdfnet_tpu/ops/pallas_gru.py.
 //
-// What bounds a C = 64 walk on the H100: the step is a dependent chain
-// (gates -> h_new -> a 64-deep product), and every warp that walks rows
-// reads its weight columns from shared memory once per step, so per SM the
-// weights' shared-memory traffic (64 KB of [Wh | Wfc] per warp and step)
-// and the chain's latency set the step time; the f32 FMA rate is far off.
+// What bounds a C = 64 walk on the H100: every warp that walks rows reads
+// its weight columns from shared memory once per step (64 KB of [Wh | Wfc]
+// per warp and step, and 48 KB of Wi per chunk), and with several warps
+// per SM that traffic and the products' FMA issue, not the step's
+// dependent chain, set the step time: the step ablations (PERF.md)
+// put 57% of intra's step in the products and their loads, 31% in the fc
+// columns, partial stores and epilogue, 6% in the gates, and nothing in
+// the dependence on h (the same work with x in place of h is no faster).
 //
 // Design.  One warp owns R rows (R = 1 or 2); lane l owns hidden units l
 // and l + 32, so a row's 64 units, its gates and its LayerNorm live in one
@@ -61,6 +67,16 @@ enum WalkOut {
   OUT_HIDDEN = 1,        // out[t] = h_t (the inter defer mode)
   OUT_FC_PART = 2,       // part[row][t] = h_t . Wfc_d (one direction of DPRNN intra)
   OUT_YS = 3,            // out[t] = h_t, product h . Wh only (a plain GRU layer: gru_bidir)
+  OUT_NONE = 4,          // nothing per step, product h . Wh only (the step ablations)
+};
+
+// The LayerNorm of OUT_LN_RESIDUAL: the production's two-pass form, or one
+// of the inter step ablation's variants.
+enum LnForm {
+  LN_TWO_PASS = 0,       // the mean, then the mean square of the centred values
+  LN_NONE = 1,           // no normalisation: x + (y + bfc) * g + bln
+  LN_ONE_PASS = 2,       // var = E[y^2] - mean^2
+  LN_BF16_STATS = 3,     // both statistics summed from bfloat16-rounded terms
 };
 
 // One lane's biases and LayerNorm parameters for units lane, lane + 32.
@@ -102,6 +118,79 @@ __device__ __forceinline__ float gru_unit(float xr, float xz, float xn, float ar
   const float ng = tanhf(fmaf(rg, an + bn, xn));
   return fmaf(zg, h, (1.0f - zg) * ng);
 }
+
+// Makes the compiler compute v although nothing reads it, so a step
+// ablation keeps the product work of the step it stands in for: v is
+// stored to a sink where it is NaN, which the compiler cannot rule out (an
+// empty asm statement does not survive ptxas, which then drops the work).
+__device__ float keep_alive_sink;
+__device__ __forceinline__ void keep_alive(float v) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.nan.f32 p, %0, %0;\n\t@p st.global.f32 [%1], %0;\n\t}"
+      ::"f"(v), "l"(&keep_alive_sink));
+}
+
+// The walk's step body: h_new of one unit from its chunk slot xp (the
+// hoisted r, z, n and, in .w, the unit's x), its raw products a (r, z, n),
+// bh and the previous h.  PRODUCTS: the walk runs the x . Wi hoist and the
+// step's product; FEED_X: the product reads the next step's x instead of
+// h_new.  StepGru is the production step; the others are the step
+// ablations' bodies, which keep alive the products they do not use.
+struct StepGru {
+  static constexpr bool PRODUCTS = true, FEED_X = false;
+  __device__ static float unit(float4 xp, float ar, float az, float an, float br, float bz,
+                               float bn, float h) {
+    return gru_unit(xp.x, xp.y, xp.z, ar, az, an, br, bz, bn, h);
+  }
+};
+
+// h = (x . Wi_r + bi_r) + (h . Wh_r + bh_r): the products, no gates
+struct StepRSum {
+  static constexpr bool PRODUCTS = true, FEED_X = false;
+  __device__ static float unit(float4 xp, float ar, float az, float an, float br, float, float,
+                               float) {
+    keep_alive(az + an);
+    return xp.x + (ar + br);
+  }
+};
+
+// StepRSum with the product applied to x: no dependence on h
+struct StepIndep : StepRSum {
+  static constexpr bool FEED_X = true;
+};
+
+// h = (x . Wi_r + bi_r) + (h . Wh_r + bh_r) + h
+struct StepRSumAcc {
+  static constexpr bool PRODUCTS = true, FEED_X = false;
+  __device__ static float unit(float4 xp, float ar, float az, float an, float br, float, float,
+                               float h) {
+    keep_alive(az + an);
+    return (xp.x + (ar + br)) + h;
+  }
+};
+
+// gru_unit with identity weights: r = z = sigma(x + h), n = tanh(x + r h)
+struct StepGates {
+  static constexpr bool PRODUCTS = false, FEED_X = false;
+  __device__ static float unit(float4 xp, float, float, float, float, float, float, float h) {
+    return gru_unit(xp.w, xp.w, xp.w, h, h, h, 0.0f, 0.0f, 0.0f, h);
+  }
+};
+
+// h = h + x: loads, the slot and the __syncwarp, one add
+struct StepFloor {
+  static constexpr bool PRODUCTS = false, FEED_X = false;
+  __device__ static float unit(float4 xp, float, float, float, float, float, float, float h) {
+    return h + xp.w;
+  }
+};
+
+// h = bf16(h + x)
+struct StepFloorBf16 : StepFloor {
+  __device__ static float unit(float4 xp, float, float, float, float, float, float, float h) {
+    return round_bf16(h + xp.w);
+  }
+};
 
 // Stage Wi and [Wh | Wfc] of one GRU (element addressing of GruWeights;
 // wfc [C][C] row-major) into smem in the lanes' read order.  Every
@@ -261,29 +350,44 @@ __device__ __forceinline__ void product_h(const float2* __restrict__ sw,
   }
 }
 
-// The step's product: h . [Wh | Wfc], or h . Wh alone for OUT_YS.
+// The step's product: h . [Wh | Wfc], or h . Wh alone for OUT_YS / OUT_NONE.
 template <int R, int OUT>
 __device__ __forceinline__ void step_product(const float* __restrict__ sw,
                                              const float* __restrict__ sh, int lane,
                                              float (&acc)[R][8]) {
-  if constexpr (OUT == OUT_YS)
+  if constexpr (OUT == OUT_YS || OUT == OUT_NONE)
     product_h<R>(reinterpret_cast<const float2*>(sw + WI_FLOATS), sh, lane, acc);
   else
     product<R>(reinterpret_cast<const float4*>(sw + WI_FLOATS), sh, lane, acc);
 }
 
 // out = x + LN(y + bfc) * g + bln for the two units of this lane, with
-// y = (y0, y1) of the row: the mean and the variance are warp sums.
-// Stored only where ``store`` (the shuffles run on every lane regardless).
-template <typename TO>
+// y = (y0, y1) of the row: the mean and the variance are warp sums (LN:
+// LnForm, two-pass in production).  Stored only where ``store`` (the
+// shuffles run on every lane regardless).
+template <int LN = LN_TWO_PASS, typename TO>
 __device__ __forceinline__ void ln_store(float y0, float y1, float x0, float x1,
                                          const LaneParams& p, TO* __restrict__ o, int lane,
                                          bool store = true) {
   y0 += p.fcb[0];
   y1 += p.fcb[1];
-  const float mu = warp_sum(y0 + y1) * (1.0f / C);
+  if constexpr (LN == LN_NONE) {
+    if (store) {
+      store_f(o + lane, x0 + fmaf(y0, p.gain[0], p.shift[0]));
+      store_f(o + lane + LANES, x1 + fmaf(y1, p.gain[1], p.shift[1]));
+    }
+    return;
+  }
+  const float mu =
+      warp_sum(LN == LN_BF16_STATS ? round_bf16(y0) + round_bf16(y1) : y0 + y1) * (1.0f / C);
   const float d0 = y0 - mu, d1 = y1 - mu;
-  const float var = warp_sum(fmaf(d0, d0, d1 * d1)) * (1.0f / C);
+  float var;
+  if constexpr (LN == LN_ONE_PASS)
+    var = warp_sum(fmaf(y0, y0, y1 * y1)) * (1.0f / C) - mu * mu;
+  else if constexpr (LN == LN_BF16_STATS)
+    var = warp_sum(round_bf16(d0 * d0) + round_bf16(d1 * d1)) * (1.0f / C);
+  else
+    var = warp_sum(fmaf(d0, d0, d1 * d1)) * (1.0f / C);
   const float inv = 1.0f / sqrtf(var + 1e-5f);
   if (store) {
     store_f(o + lane, x0 + fmaf(d0 * inv, p.gain[0], p.shift[0]));
@@ -298,8 +402,10 @@ __device__ __forceinline__ void ln_store(float y0, float y1, float x0, float x1,
 // (OUT_LN_RESIDUAL, OUT_HIDDEN) or part[j * part_row + t * C + c]
 // (OUT_FC_PART, j the row's index in the warp); h0 / h_last at
 // hrows.off(n, 0) + c (h0 == nullptr: zeros; h_last == nullptr: not
-// stored).  reverse walks t = S - 1 .. 0.
-template <int R, int TS, int OUT, typename TX, typename TO>
+// stored).  reverse walks t = S - 1 .. 0.  STEP and LN are the step
+// ablations' hooks (StepGru and LN_TWO_PASS: the production step).
+template <int R, int TS, int OUT, typename TX, typename TO, typename STEP = StepGru,
+          int LN = LN_TWO_PASS>
 __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __restrict__ wbuf,
                                      const TX* __restrict__ x, Rows rows, Rows orows,
                                      Rows hrows, int64_t row0, int64_t N, int S, bool reverse,
@@ -330,7 +436,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
   }
   __syncwarp();
   float acc[R][8];                                // raw h . Wh for the next step, and its fc
-  if (h0 != nullptr) {
+  if (STEP::PRODUCTS && h0 != nullptr) {
     step_product<R, OUT>(sw, sh, lane, acc);
   } else {
 #pragma unroll
@@ -354,6 +460,14 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
     }
   };
   load_chunk(0);
+  if constexpr (STEP::FEED_X) {                   // step 0's product reads x_0
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) sh[j * C + lane + LANES * q] = xn[0][j][q];
+    __syncwarp();
+    step_product<R, OUT>(sw, sh, lane, acc);
+  }
 
   float xr[R][2] = {};                            // the residual of the previous step
   for (int c0 = 0; c0 < S; c0 += TS) {
@@ -380,7 +494,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
 #pragma unroll
         for (int i = 0; i < 6; ++i) a[tt][j][i] = 0.0f;
 #pragma unroll 4
-    for (int k = 0; k < C; k += 4) {
+    for (int k = 0; k < (STEP::PRODUCTS ? C : 0); k += 4) {
       float4 xv[TS][R];
 #pragma unroll
       for (int tt = 0; tt < TS; ++tt)
@@ -434,10 +548,14 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
       for (int j = 0; j < R; ++j)
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          h[j][q] = gru_unit(xp[j][q].x, xp[j][q].y, xp[j][q].z, acc[j][4 * q],
-                             acc[j][4 * q + 1], acc[j][4 * q + 2], p.bh[0][q], p.bh[1][q],
-                             p.bh[2][q], h[j][q]);
-          shp[j * C + lane + LANES * q] = h[j][q];
+          h[j][q] = STEP::unit(xp[j][q], acc[j][4 * q], acc[j][4 * q + 1], acc[j][4 * q + 2],
+                               p.bh[0][q], p.bh[1][q], p.bh[2][q], h[j][q]);
+          float feed = h[j][q];
+          if constexpr (STEP::FEED_X)                 // x of step s + 1 (this lane's own entry)
+            feed = s + 1 < c1 ? reinterpret_cast<const float4*>(
+                                    &slots[((s + 1 - c0) * R + j) * SLOT])[q * LANES + lane].w
+                              : xn[0][j][q];
+          shp[j * C + lane + LANES * q] = feed;
         }
       __syncwarp();
       if constexpr (OUT == OUT_LN_RESIDUAL) {
@@ -446,8 +564,8 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
         const int64_t tp = reverse ? t + 1 : t - 1;
 #pragma unroll
         for (int j = 0; j < R; ++j)
-          ln_store(acc[j][3], acc[j][7], xr[j][0], xr[j][1], p, out + oo[j] + tp * orows.ss,
-                   lane, s > 0 && live[j]);
+          ln_store<LN>(acc[j][3], acc[j][7], xr[j][0], xr[j][1], p,
+                       out + oo[j] + tp * orows.ss, lane, s > 0 && live[j]);
       } else if constexpr (OUT == OUT_HIDDEN || OUT == OUT_YS) {
 #pragma unroll
         for (int j = 0; j < R; ++j)
@@ -456,7 +574,7 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
             store_f(out + oo[j] + t * orows.ss + lane + LANES, h[j][1]);
           }
       }
-      step_product<R, OUT>(sw, shp, lane, acc);
+      if constexpr (STEP::PRODUCTS) step_product<R, OUT>(sw, shp, lane, acc);
       if constexpr (OUT == OUT_FC_PART) {
 #pragma unroll
         for (int j = 0; j < R; ++j)
@@ -478,8 +596,8 @@ __device__ __forceinline__ void walk(const float* __restrict__ sw, float* __rest
     const int64_t tl = reverse ? 0 : S - 1;
 #pragma unroll
     for (int j = 0; j < R; ++j)
-      ln_store(acc[j][3], acc[j][7], xr[j][0], xr[j][1], p, out + oo[j] + tl * orows.ss, lane,
-               live[j]);
+      ln_store<LN>(acc[j][3], acc[j][7], xr[j][0], xr[j][1], p, out + oo[j] + tl * orows.ss,
+                   lane, live[j]);
   }
 
   if (h_last != nullptr) {

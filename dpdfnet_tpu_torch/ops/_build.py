@@ -25,18 +25,18 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # library name -> (main source, headers it includes)
 SOURCES: Dict[str, tuple] = {
-    "dprnn_inter": ("dprnn_inter.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
+    "dprnn_inter": ("dprnn_inter.cu", ("dprnn_inter.cuh", "gru64_warp.cuh", "gru64_walk.cuh")),
     "dprnn_inter_v2": ("dprnn_inter_v2.cu", ("gru64_walk.cuh",)),
-    "dprnn_intra": ("dprnn_intra.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
+    "dprnn_intra": ("dprnn_intra.cu", ("dprnn_intra.cuh", "gru64_warp.cuh", "gru64_walk.cuh")),
     "dprnn_intra_v2": ("dprnn_intra_v2.cu", ("gru64_v2.cuh", "gru64_walk.cuh",
                                              "proj_gemm.cuh")),
     "dprnn_stack": ("dprnn_stack.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
     "gru_bidir": ("gru_bidir.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
     "gru_scan": ("gru_scan.cu", ("gru64_walk.cuh", "proj_gemm.cuh")),
     "relayout_fm": ("relayout_fm.cu", ()),
-    "intra_step_ablation": ("intra_step_ablation.cu", ("gru64_block_walk.cuh",
+    "intra_step_ablation": ("intra_step_ablation.cu", ("dprnn_intra.cuh", "gru64_warp.cuh",
                                                        "gru64_walk.cuh")),
-    "inter_step_ablation": ("inter_step_ablation.cu", ("gru64_block_walk.cuh",
+    "inter_step_ablation": ("inter_step_ablation.cu", ("dprnn_inter.cuh", "gru64_warp.cuh",
                                                        "gru64_walk.cuh")),
 }
 

@@ -4,12 +4,17 @@
 ``tools/intra_step_ablation.py`` and ``tools/inter_step_ablation.py``.
 
 Shared here: timing a kernel wrapper with CUDA events, the report both
-tools print (ms per call, ns per step, deltas against ``full``) and the
-tolerance of their ``--check``.
+tools print (ms per call, ns per step, deltas against ``full``), the
+tolerance of their ``--check`` and its verdict on ``full`` against the
+production kernel, and the FFMA and spill instructions of each kernel in
+a built library (``chip_smoke.py`` prints the step ablations').
 """
 
 from __future__ import annotations
 
+import re
+import subprocess
+from pathlib import Path
 from typing import Callable, Dict, Tuple
 
 # A specialization's kernel against its plain version: max-abs beyond one
@@ -25,6 +30,46 @@ def check_failures(errs: Dict[str, float], log=print) -> int:
         log(f"FAILED: specialization {k} is {v:.3e} beyond one bf16 ulp of its plain "
             f"version (tolerance {CHECK_TOL:.0e})")
     return len(bad)
+
+
+def production_failures(same: Dict[str, bool], log=print) -> int:
+    """Log every layout in which ``full`` is not bit for bit the production
+    kernel's output; returns their number."""
+    bad = [k for k, v in same.items() if not v]
+    for k in bad:
+        log(f"FAILED: full differs from the production kernel ({k} layout)")
+    return len(bad)
+
+
+def sass_counts(lib_name: str, opcodes=("FFMA", "LDL", "STL")) -> Dict[str, Dict[str, int]]:
+    """Demangled kernel name -> how many instructions of each opcode its
+    SASS holds (FFMA: the float32 FMAs; LDL / STL: local-memory loads and
+    stores, the spills), for the built library ``lib_name``
+    (``cuobjdump -sass`` and ``cu++filt`` beside ``nvcc``).  Builds the
+    library if needed."""
+    from ..ops import _build
+
+    _build.load(lib_name)
+    bindir = Path(_build.nvcc_path()).parent
+    sass = subprocess.run([str(bindir / "cuobjdump"), "-sass", str(_build._lib_path(lib_name))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(opcodes, 0)
+        elif name is not None:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+            if m and m.group(1) in counts[name]:
+                counts[name][m.group(1)] += 1
+    names = list(counts)
+    plain = subprocess.run([str(bindir / "cu++filt")], input="\n".join(names),
+                           capture_output=True, text=True, check=True, timeout=60).stdout
+    # template arguments as written: <2, float, ...>, not <(int)2, float, ...>
+    plain = re.sub(r"\((?:unsigned )?int\)", "", plain)
+    return dict(zip(plain.splitlines(), (counts[n] for n in names)))
 
 
 def cuda_ms_per_call(fn: Callable[[], object], reps: int) -> float:

@@ -14,14 +14,18 @@ delta against ``full``.  Timing is CUDA events around ``--reps`` launches
 dispatch bias does not apply here.  ``ns/step`` is the call's time over T:
 every row advances one step together, so T is the walk's sequential depth
 (the JAX tool divides by ``(rows / tile) * T``, its grid's sequential
-steps).  ``--tile`` is accepted and unused: the Hopper kernel picks its own
-row tile (16 rows per block, as the production kernel at these shapes).
+steps).  ``--tile`` is accepted and unused: the Hopper kernel takes the
+production kernel's row tiles.
 
-The kernel is ``csrc/intra_step_ablation.cu``: one template per distinct
-function (a specialization), each built on the original block-wide walk
-of ``csrc/gru64_block_walk.cuh``, so ``full`` times that walk's intra
-step (the production kernel now walks with ``csrc/gru64_warp.cuh``).  The
-tool's weights are the production kernel's packed direction-blockdiag
+The kernel is ``csrc/intra_step_ablation.cu``: one template instance per
+distinct function (a specialization) of the production intra kernel
+(``csrc/dprnn_intra.cuh`` on the warp walk of ``csrc/gru64_warp.cuh``),
+each launched with the production plan (``gru_kernels.intra_plan``), so
+``full`` is the shipped intra step: its output is bit for bit
+``gru_kernels.dprnn_intra_block``'s (row-major, and ``fm_batch=rows`` for
+``tm``; :func:`full_matches_production`), and every other variant's delta
+against it says where a production step's time goes.  The tool's
+weights are the production kernel's packed direction-blockdiag
 ``wi2 / wh2 [2C, 6C]`` and ``b2 [2, 6C]`` (``_pack_bidir`` of two random
 GRUs): the JAX tool draws dense random ``wi / wh`` as a timing stand-in;
 on blockdiag weights its variants compute the functions below.
@@ -79,10 +83,12 @@ tm_minimal         floor_fb        TPU-only: its output is uninitialised
 Specializations (what each computes; ``x`` row-major ``[rows, T, C]``):
 
 - ``full``: ``x + LN(fc([ys_fw, ys_bw]))``, the production intra stage;
-- ``hlast``: the forward direction's last hidden ``[rows, C]``;
+- ``hlast``: the forward direction's last hidden ``[rows, C]`` (the walk
+  with the product ``h . Wh`` alone, no per-step store, no epilogue);
 - ``dots``: ``h <- (x_t . Wi_r + bi_r) + (h . Wh_r + bh_r)`` (forward
-  r-gate columns), its last value;
-- ``indep``: ``(x_{T-1} . Wi_r + bi_r) + (x_{T-1} . Wh_r + bh_r)``;
+  r-gate columns), its last value; the z and n products are computed;
+- ``indep``: ``(x_{T-1} . Wi_r + bi_r) + (x_{T-1} . Wh_r + bh_r)``, each
+  step's product taken on x: ``dots``' work without its dependence on h;
 - ``gates``: ``h <- (1 - z) n + z h`` with ``r = z = sigma(x_t + h)``,
   ``n = tanh(x_t + r h)``, its last value;
 - ``floor``: ``sum_t x_t``; ``floor_fb``: that plus the same sum taken
@@ -92,8 +98,9 @@ Specializations (what each computes; ``x`` row-major ``[rows, T, C]``):
 The backward direction runs in every specialization (the production
 walk's two-direction work), though only ``full`` and the ``floor_fb``
 forms output it.  ``--check`` holds every specialization against its
-plain version on the card at the timed shapes before timing, and exits 1
-if one is more than ``CHECK_TOL`` beyond a bf16 ulp off.
+plain version on the card at the timed shapes before timing, and
+``full`` bit for bit against the production kernel, and exits 1 if one
+is more than ``CHECK_TOL`` beyond a bf16 ulp off or ``full`` differs.
 """
 
 from __future__ import annotations
@@ -107,7 +114,7 @@ import torch
 
 from ..ops import _build
 from ..ops import gru_kernels as gk
-from . import check_failures, cuda_ms_per_call, report
+from . import check_failures, cuda_ms_per_call, production_failures, report
 
 Tensor = torch.Tensor
 
@@ -184,6 +191,15 @@ def intra_plain(spec: str, x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor, wfc:
     return h.to(x.dtype)
 
 
+def launch_args(spec: str, N: int, T: int, tm: bool, sms: int) -> Tuple[int, ...]:
+    """The integers :func:`run_intra` hands the kernel for ``spec`` on ``N``
+    rows of ``T`` positions: the specialization, N, T, tm, then the
+    production kernel's plan (``gru_kernels.intra_plan``: rows per warp,
+    walking warps, warps, clusters), whatever the specialization."""
+    p = gk.intra_plan(N, T, sms)
+    return (_SPEC_ID[spec], N, T, int(tm), p.rows_per_warp, p.walk_warps, p.warps, p.clusters)
+
+
 def run_intra(spec: str, x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor, wfc: Tensor,
               bfc: Tensor, g: Tensor, bln: Tensor, *, tm: bool = False) -> Tensor:
     """Specialization ``spec`` on ``x`` (``[rows, T, C]``, or ``[T, rows, C]``
@@ -202,17 +218,17 @@ def run_intra(spec: str, x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor, wfc: T
             or tuple(b2.shape) != (2, 6 * C) or tuple(wfc.shape) != (2 * C, C):
         raise ValueError(f"intra_step_ablation: the kernel takes C == 64 with packed weights; "
                          f"got x {tuple(x.shape)}, wi2 {tuple(wi2.shape)}")
+    gk._require_aligned("intra_step_ablation", wi2=wi2, wh2=wh2, wfc=wfc)
     full = spec == "full"
     out = torch.empty_like(x) if full else torch.empty((N, C), device=dev, dtype=x.dtype)
-    part = torch.empty((2, N, T, C), device=dev) if full else None
-    hl = None if full else torch.empty((2, N, C), device=dev)
+    # the fc partials per step (full), or each direction's last hidden
+    part = torch.empty((2, N, T, C) if full else (2, N, C), device=dev)
+    spec_id, *sizes_plan = launch_args(spec, N, T, tm, gk._sm_count(dev))
     fn = getattr(_build.load("intra_step_ablation"), "intra_ablation_launch")
-    fn.argtypes = [gk._I] + [gk._P] * 11 + [gk._L] + [gk._I] * 3 + [gk._P]
+    fn.argtypes = [gk._I] + [gk._P] * 10 + [gk._L] + [gk._I] * 7 + [gk._P]
     fn.restype = gk._I
-    rc = fn(_SPEC_ID[spec], x.data_ptr(), out.data_ptr(), 0 if part is None else part.data_ptr(),
-            0 if hl is None else hl.data_ptr(), wi2.data_ptr(), wh2.data_ptr(), b2.data_ptr(),
-            wfc.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(), N, T, int(tm),
-            gk._is_bf16(x), gk._stream())
+    rc = fn(spec_id, *(t.data_ptr() for t in (x, out, part, wi2, wh2, b2, wfc, bfc, g, bln)),
+            *sizes_plan, gk._is_bf16(x), gk._stream())
     gk._check_rc(rc, f"intra_step_ablation {spec}")
     run_intra.launches += 1
     return out
@@ -263,6 +279,19 @@ def check_specializations(rows: int = 40, T: int = 16, dtype=torch.bfloat16, log
     return {f"{s}{'/tm' if tm else ''}": e for (s, tm), e in errs.items()}
 
 
+def full_matches_production(rows: int = 40, T: int = 16, dtype=torch.bfloat16,
+                            seed: int = 1) -> Dict[str, bool]:
+    """``full`` against the production kernel on the same input on the
+    card, bit for bit (``torch.equal``): row-major against
+    ``gru_kernels.dprnn_intra_block(x)`` and ``tm`` against
+    ``dprnn_intra_block(x_tm, fm_batch=rows)[0]``."""
+    x, w = make_inputs(rows, T, 64, "cuda", dtype=dtype, seed=seed)
+    x_tm = x.transpose(0, 1).contiguous()
+    return {"rows": torch.equal(run_intra("full", x, *w), gk.dprnn_intra_block(x, *w)),
+            "tm": torch.equal(run_intra("full", x_tm, *w, tm=True),
+                              gk.dprnn_intra_block(x_tm, *w, fm_batch=rows)[0])}
+
+
 def time_variants(variants, rows: int = 4096, T: int = 48, C: int = 64, reps: int = 30,
                   log=print) -> Dict[str, Tuple[str, float, float]]:
     """Time each variant's specialization at the given shapes on the card:
@@ -299,7 +328,9 @@ def main(argv: Optional[list] = None) -> int:
         specialization(n)
     print(f"device: {torch.cuda.get_device_name(0)}; rows {args.rows}, T {args.T}, "
           f"C {args.C}, bfloat16 planes, reps {args.reps}")
-    if args.check and check_failures(check_specializations(args.rows, args.T, seed=0)):
+    if args.check and (check_failures(check_specializations(args.rows, args.T, seed=0))
+                       or production_failures(
+                           full_matches_production(args.rows, args.T, seed=0))):
         return 1
     time_variants(names, args.rows, args.T, args.C, args.reps)
     return 0

@@ -1,11 +1,11 @@
 """The recurrent kernels gru_scan, dprnn_inter_block_v2, the v1 DPRNN
-stages dprnn_inter_block and dprnn_intra_block, gru_bidir and the DPRNN
-stack, and the offline and streaming paths they sit on, measured for one
-checkout.
+stages dprnn_inter_block and dprnn_intra_block, gru_bidir, the DPRNN
+stack and the two step-ablation kernels, and the offline and streaming
+paths they sit on, measured for one checkout.
 
     python3 dpdfnet_tpu_torch/tools/kernel_ab.py [--root DIR] [--out FILE] [--pairs N]
-        [--kernels gru_scan,inter_v2,inter,intra,gru_bidir,stack] [--e2e] [--e2e-stack]
-        [--hops N]
+        [--kernels gru_scan,inter_v2,inter,intra,gru_bidir,stack,intra_ablation,
+                   inter_ablation] [--e2e] [--e2e-stack] [--hops N]
 
 Imports ``dpdfnet_tpu_torch`` from ``--root`` (default: the checkout
 holding this file), as ``mode_off_digest.py`` does, so one command can
@@ -23,7 +23,13 @@ gru_bidir) timed alternately call by call (:func:`interleaved_ms`), and the
 roofline bound.  The stack has no single PyTorch call: its yardstick is
 the per-stage chain it replaces, K x (``dprnn_intra_block`` +
 ``dprnn_inter_block``) at the same shape, and on float32 planes the row
-says whether the two are bit-identical.  ``--e2e``: offline xRT of
+says whether the two are bit-identical.  The step-ablation kernels
+(``tools/*_step_ablation.py``) at their tools' default shapes (intra
+x[4096, 48, 64], inter x[56, 6144, 64], bfloat16 planes): every
+specialization against its plain version, then every variant of the
+tool's ``VARIANTS`` (one call per distinct specialization and layout)
+and cuDNN's call of ``full``'s function timed alternately call by call.
+``--e2e``: offline xRT of
 ``Engine.enhance_waveforms`` at B=64 x 4 s and exact ms per hop at 64
 streams, ``highest`` against ``turbo`` with ``DPDFNET_TPU_PALLAS_V2=1``,
 interleaved call by call, with the launches of each path.
@@ -136,6 +142,9 @@ STACK_CASES = tuple((label, B, T, Fq, 8, plane) for label, B, T, Fq in (
     ("offline B=8", 8, 112, 48), ("pool B=1", 1, 1, 48), ("pool B=256", 256, 1, 48))
     for plane in ("f32", "bf16"))
 KERNELS = ("gru_scan", "inter_v2", "inter", "intra", "gru_bidir", "stack")
+ABLATIONS = ("intra_ablation", "inter_ablation")
+# the step-ablation tools' default shapes: (rows, T)
+ABLATION_SHAPES = {"intra": (4096, 48), "inter": (6144, 56)}
 
 
 def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0, kernels=KERNELS) -> list:
@@ -159,6 +168,9 @@ def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0, kernels=KERNELS) 
         rows += _bidir_rows(gk, log, pairs, rng)
     if "stack" in kernels:
         rows += _stack_rows(gk, log, pairs, rng)
+    for tool in ABLATION_SHAPES:
+        if f"{tool}_ablation" in kernels:
+            rows += _ablation_rows(tool, log, pairs)
     torch.cuda.synchronize()
     return rows
 
@@ -331,6 +343,104 @@ def _bidir_rows(gk, log, pairs, rng) -> list:
                          reverse=False, err=err, ms=t["kernel"], library_ms=t["library"],
                          bound_ms=b_ms, bound_by=b_by))
         log(_line(rows[-1]))
+    return rows
+
+
+def ablation_full(tool: str) -> dict:
+    """``full`` of a step-ablation tool (``intra`` or ``inter``, imported
+    from the checkout on ``sys.path``) at its default shape on its timed
+    inputs (seed 0): the kernel's call, its plain version's, cuDNN's GRU +
+    linear + LayerNorm + residual of the same function (bidirectional for
+    intra), and the FLOPs and bytes of its bound."""
+    import importlib
+
+    import torch
+
+    F = torch.nn.functional
+    abl = importlib.import_module(f"dpdfnet_tpu_torch.tools.{tool}_step_ablation")
+    C = 64
+    nrows, T = ABLATION_SHAPES[tool]
+    if tool == "intra":
+        x, w = abl.make_inputs(nrows, T, C, "cuda")
+        wi2, wh2, b2, wfc, bfc, g, bln = w
+
+        def direction(d):               # one direction's [C, 3C] weights of the packing
+            cols = torch.cat([torch.arange(gt * 2 * C + d * C, gt * 2 * C + (d + 1) * C)
+                              for gt in range(3)]).cuda()
+            return (wi2[d * C:(d + 1) * C][:, cols], b2[0, cols], wh2[d * C:(d + 1) * C][:, cols],
+                    b2[1, cols])
+
+        lib_gru = _cudnn_gru(*direction(0), bidir=direction(1))
+        xl, h0l = x.float(), None
+        kernel = lambda: abl.run_intra("full", x, *w)  # noqa: E731
+        plain = lambda: abl.intra_plain("full", x, *w)  # noqa: E731
+        flops, nbytes = 28 * C * C * nrows * T, 2 * C * 2 * nrows * T
+    else:
+        x, h0, wp, bp, tail = abl.make_inputs(nrows, T, C, "cuda")
+        w = (*abl.unpack_wp(wp, bp), *tail)
+        wfc, bfc, g, bln = tail
+        lib_gru = _cudnn_gru(*w[:4])
+        xl, h0l = x.float().transpose(0, 1), h0[None]
+        kernel = lambda: abl.run_inter("full", x, h0, *w)[0]  # noqa: E731
+        plain = lambda: abl.inter_plain("full", x, h0, *w)[0]  # noqa: E731
+        flops, nbytes = 14 * C * C * nrows * T, 2 * C * 2 * nrows * T + 2 * nrows * C * 4
+
+    def library():
+        ys, _ = lib_gru(xl) if h0l is None else lib_gru(xl, h0l)
+        return xl + F.layer_norm(F.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
+
+    return dict(kernel=kernel, plain=plain, library=library, flops=flops, nbytes=nbytes)
+
+
+def _ablation_rows(tool: str, log, pairs) -> list:
+    """A step-ablation kernel (``intra`` or ``inter``) at its tool's
+    default shape: every specialization (intra: both layouts) against its
+    plain version, then one call per distinct (specialization, layout) of
+    the tool's ``VARIANTS`` and cuDNN's call of ``full``'s function timed
+    alternately call by call; a row per variant."""
+    import importlib
+
+    import torch
+
+    abl = importlib.import_module(f"dpdfnet_tpu_torch.tools.{tool}_step_ablation")
+    nrows, T = ABLATION_SHAPES[tool]
+    errs = abl.check_specializations(nrows, T, log=lambda m: None, seed=0)
+    err = max(errs.values())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"{tool} step ablation: {errs} beyond the plain versions")
+    f = ablation_full(tool)
+    fns, spec_of = {"library": f["library"]}, {}
+    if tool == "intra":
+        x, w = abl.make_inputs(nrows, T, 64, "cuda")
+        x_tm = x.transpose(0, 1).contiguous()
+        for name in abl.VARIANTS:
+            spec, layout = abl.specialization(name)
+            key = spec_of[name] = f"{spec}/{layout}"
+            xin, tm = (x_tm, True) if layout == "tm" else (x, False)
+            fns[key] = (lambda s, xi, t: lambda: abl.run_intra(s, xi, *w, tm=t))(spec, xin, tm)
+        shape = f"x[{nrows},{T},64]"
+    else:
+        x, h0, wp, bp, tail = abl.make_inputs(nrows, T, 64, "cuda")
+        w = (*abl.unpack_wp(wp, bp), *tail)
+        for name in abl.VARIANTS:
+            spec = abl.specialization(name)
+            key = spec_of[name] = spec
+            fns[key] = (lambda s: lambda: abl.run_inter(s, x, h0, *w))(spec)
+        shape = f"x[{T},{nrows},64]"
+    t = interleaved_ms(fns, pairs)
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(f["flops"], f["nbytes"])
+    rows = []
+    for name, key in spec_of.items():
+        rows.append(dict(kernel=f"{tool}_step_ablation", shape=shape, plane="bf16",
+                         variant=name, specialization=key, err=err, ms=t[key],
+                         library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
+        m, lo, hi = t[key]
+        log(f"kernel {tool}_step_ablation {shape} bf16 plane: {name:>16} ({key}) ms {m:.4f} "
+            f"[{lo:.4f}-{hi:.4f}], {m - t[spec_of['full']][0]:+.4f} against full "
+            f"(median [min-max], interleaved); every specialization within {err:.3e} of its "
+            f"plain version; full's bound_ms {b_ms:.4f} ({b_by}), library_ms "
+            f"{t['library'][0]:.4f}")
     return rows
 
 
@@ -613,8 +723,8 @@ def main(argv=None) -> int:
     ap.add_argument("--e2e-stack", action="store_true",
                     help="also time the exact hop per-stage against the stack kernel")
     ap.add_argument("--hops", type=int, default=200)
-    ap.add_argument("--kernels", default=",".join(KERNELS),
-                    help=f"comma-separated subset of {', '.join(KERNELS)}")
+    ap.add_argument("--kernels", default=",".join(KERNELS + ABLATIONS),
+                    help=f"comma-separated subset of {', '.join(KERNELS + ABLATIONS)}")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)

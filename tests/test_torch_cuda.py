@@ -539,6 +539,21 @@ def test_cuda_ablation_specializations_match_plain(dev, plane):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("tool,layout", [("intra", "rows"), ("intra", "tm"), ("inter", "rows")])
+def test_cuda_ablation_full_equals_production(dev, tool, layout, plane):
+    """Each ablation tool's ``full`` is the production kernel: bit for bit
+    ``dprnn_intra_block`` (row-major, and ``fm_batch=rows`` for ``tm``) and
+    ``dprnn_inter_block`` (the rows as a [1, T, rows, C] plane), at the
+    check shapes and at a ragged one."""
+    from dpdfnet_tpu_torch.tools import inter_step_ablation, intra_step_ablation
+
+    mod = intra_step_ablation if tool == "intra" else inter_step_ablation
+    for rows, T in ((40, 16 if tool == "intra" else 9), (1001, 5)):
+        assert mod.full_matches_production(rows, T, dtype=plane, seed=rows)[layout]
+
+
+@pytest.mark.cuda
 def test_cuda_mode_off_bit_identical_to_record(dev):
     """Every DPRNN / GRU kernel with its layout modes off gives the outputs
     of the committed record (its note names each case's commit)."""
@@ -642,17 +657,29 @@ def test_cuda_v1_dprnn_batch_invariant(dev, plane):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["inter", "intra", "gru_bidir", "stack"])
+@pytest.mark.parametrize("kernel", ["inter", "intra", "gru_bidir", "stack", "intra_ablation",
+                                    "inter_ablation"])
 def test_cuda_walk_kernels_repeat_bit_exact(dev, kernel):
     """The same seeded input 50 times in one process, every other call
     after NaN has gone through the caching allocator and another walk
     kernel through shared memory: the same bits every time (a race or a
-    read of an unwritten buffer would show here).  inter, intra and
-    gru_bidir run the warp walk of gru64_warp.cuh, the stack its own walk
-    with a named barrier per direction."""
+    read of an unwritten buffer would show here).  inter, intra,
+    gru_bidir and the ablation kernels' ``full`` run the warp walk of
+    gru64_warp.cuh, the stack its own walk with a named barrier per
+    direction."""
     rng = np.random.default_rng(45)
     ia = _intra_args(rng, dev)
-    if kernel == "stack":
+    if kernel == "intra_ablation":
+        from dpdfnet_tpu_torch.tools import intra_step_ablation as abl
+
+        x, w = abl.make_inputs(30, 40, 64, "cuda", dtype=torch.float32, seed=45)
+        call = lambda: (abl.run_intra("full", x, *w),)  # noqa: E731
+    elif kernel == "inter_ablation":
+        from dpdfnet_tpu_torch.tools import inter_step_ablation as abl
+
+        x, h0, wp, bp, tail = abl.make_inputs(96, 4, 64, "cuda", dtype=torch.float32, seed=45)
+        call = lambda: abl.run_inter("full", x, h0, *abl.unpack_wp(wp, bp), *tail)  # noqa: E731
+    elif kernel == "stack":
         stacked = _stacked(rng, 3, 64, dev)
         x, h0 = _rand(rng, (5, 3, 40, 64), dev), _rand(rng, (3, 5, 40, 64), dev, 0.2)
         call = lambda: gru_kernels.dprnn_stack(x, h0, stacked)  # noqa: E731

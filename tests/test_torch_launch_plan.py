@@ -222,3 +222,28 @@ def test_stack_plan_covers_every_stream_position_and_column_once(B, Fq, sms):
 def test_stack_plan_raises_outside_its_shapes(B, Fq, K):
     with pytest.raises(ValueError, match="stack_plan"):
         gk.stack_plan(B, Fq, K, 132)
+
+
+# ---- the step-ablation kernels (csrc/*_step_ablation.cu): the production plans ----
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("tool,N,T", [
+    # the tools' default shapes, and the shapes of their --check on the card
+    ("intra", 4096, 48), ("intra", 40, 16), ("inter", 6144, 56), ("inter", 40, 9)])
+def test_ablation_specializations_launch_with_the_production_plan(tool, N, T, sms):
+    """Every specialization of a step-ablation kernel hands its kernel the
+    plan of the production kernel it is an instance of (intra_plan /
+    inter_v1_plan), so `full` runs the production kernel as it ships."""
+    from dpdfnet_tpu_torch.tools import inter_step_ablation, intra_step_ablation
+
+    for i, spec in enumerate(intra_step_ablation.SPECS if tool == "intra"
+                             else inter_step_ablation.SPECS):
+        if tool == "intra":
+            p = gk.intra_plan(N, T, sms)
+            for tm in (False, True):
+                assert intra_step_ablation.launch_args(spec, N, T, tm, sms) == (
+                    i, N, T, int(tm), p.rows_per_warp, p.walk_warps, p.warps, p.clusters)
+        else:
+            p = gk.inter_v1_plan(N, T, sms)
+            assert inter_step_ablation.launch_args(spec, N, T, sms) == (
+                i, N, T, p.rows_per_warp, p.ts, p.warps, p.blocks)

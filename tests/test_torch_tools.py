@@ -1,14 +1,17 @@
 """The port's tool plumbing that runs without a card: the ablation tools'
-``--check`` verdict and the mode-off digest record."""
+``--check`` verdict, the mode-off digest record and the kernel build's
+list of sources."""
 
 import json
 import math
+import re
 
 import pytest
 import torch
 
-from dpdfnet_tpu_torch.ops import gru_kernels
-from dpdfnet_tpu_torch.tools import CHECK_TOL, check_failures, mode_off_digest
+from dpdfnet_tpu_torch.ops import _build, gru_kernels
+from dpdfnet_tpu_torch.tools import (CHECK_TOL, check_failures, mode_off_digest,
+                                     production_failures)
 
 
 @pytest.mark.parametrize("errs,want", [
@@ -27,6 +30,42 @@ def test_mode_off_record_covers_every_case():
     assert set(record["digests"]) == set(mode_off_digest.CASES)
     assert all(len(d) == 64 and int(d, 16) >= 0 for d in record["digests"].values())
     assert set(record["toolchain"]) == {"nvcc", "device", "sms"}
+
+
+@pytest.mark.parametrize("same,want", [
+    ({"rows": True, "tm": True}, 0), ({"rows": True, "tm": False}, 1), ({"rows": False}, 1)])
+def test_production_failures_counts_layouts_that_differ(same, want):
+    lines = []
+    assert production_failures(same, log=lines.append) == want
+    assert len(lines) == want
+
+
+def test_mode_off_ablation_case_names_are_unchanged():
+    """The 24 step-ablation cases keep their names (the record's keys) while
+    the kernels under them change."""
+    intra = ("full", "hlast", "dots", "indep", "gates", "floor", "floor_fb", "floor_fb_bf16")
+    inter = ("full", "floor", "dot", "gru", "nogates", "noln", "ln1pass", "ln_bf16")
+    want = {f"intra_step_ablation {s}{' tm' if tm else ''} bf16 x[40,16,64]"
+            for s in intra for tm in (False, True)}
+    want |= {f"inter_step_ablation {s} bf16 x[9,40,64]" for s in inter}
+    assert {k for k in mode_off_digest.CASES if "step_ablation" in k} == want
+    assert len(mode_off_digest.CASES) == 19 + 24
+
+
+@pytest.mark.parametrize("lib", sorted(_build.SOURCES))
+def test_build_sources_name_every_included_header(lib):
+    """A library's file name hashes its main source and the headers listed
+    beside it, so an edited header rebuilds it: every header the source
+    reaches through ``#include "..."`` is listed, and nothing else."""
+    main, headers = _build.SOURCES[lib]
+    seen, todo = set(), [main]
+    while todo:
+        text = (_build.CSRC / todo.pop()).read_text()
+        for h in re.findall(r'^#include "([^"]+)"', text, flags=re.M):
+            if h not in seen:
+                seen.add(h)
+                todo.append(h)
+    assert seen == set(headers)
 
 
 def test_mode_off_compare_names_each_difference():
