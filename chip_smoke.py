@@ -17,15 +17,18 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    streams and the offline B=8 plane) also bit for bit against the
    per-stage chain it replaces, K x (intra + inter) with the model's
    weights (float32; the run fails at the exact hop if a bit differs), and
-   timed against that chain; then gru_scan,
+   timed against that chain; ``dprnn_intra_block_v2`` with float32 input
+   projections bit for bit against ``dprnn_intra_block`` on the matching
+   packs (it is the same kernel reading the v2 packs); then gru_scan,
    ``dprnn_inter_block_v2``, the v1 ``dprnn_inter_block`` /
-   ``dprnn_intra_block``, ``gru_bidir`` and the stack at every shape the
-   main path gives them (B=8, B=64 x 112, T=1 at 64 streams, bfloat16
-   planes; gru_scan forward and reverse; inter v2 with bfloat16 and float32
-   xp; the stack at one exact hop of both branches, a throughput call, the
-   offline shape and the pool's edges) against their plain versions and
-   their library calls, the stack's against its per-stage chain
-   (``tools/kernel_ab.py``);
+   ``dprnn_intra_block``, ``dprnn_intra_block_v2``, ``gru_bidir`` and the
+   stack at every shape the main path gives them (B=8, B=64 x 112, T=1 at
+   64 streams, bfloat16 planes; gru_scan forward and reverse; inter v2
+   with bfloat16 and float32 xp; intra v2 bit for bit against v1 with
+   float32 xp; the stack at one exact hop of both branches, a throughput
+   call, the offline shape and the pool's edges) against their plain
+   versions and their library calls, the stack's against its per-stage
+   chain (``tools/kernel_ab.py``);
 3. the main path: ``Engine.enhance_waveforms`` on dpdfnet8_48khz_hr with
    random contracted weights, 3 utterances (1.3, 2.0, 3.1 s) with
    ``lengths``, on the card and on the CPU with the same weights; checks
@@ -102,7 +105,8 @@ import torch
 
 # the roofline bound, and kernel / library timed alternately call by call
 from dpdfnet_tpu_torch.tools import kernel_ab
-from dpdfnet_tpu_torch.tools.kernel_ab import bound, interleaved_ms as yardstick, stack_chain
+from dpdfnet_tpu_torch.tools.kernel_ab import (bound, interleaved_ms as yardstick, on_grid,
+                                               stack_chain)
 
 # Tolerances (max-abs, float32 everywhere, TF32 off).
 # Kernel vs plain version: the same f32 arithmetic summed in another order;
@@ -256,11 +260,6 @@ def check_bf16(name: str, got, ref) -> float:
     return err
 
 
-def on_grid(t, step: float, lim: float):
-    """``t`` rounded to multiples of ``step`` and clamped to [-lim, lim]."""
-    return (torch.round(t / step) * step).clamp(-lim, lim)
-
-
 def kernel_phase(params, cfg, gk):
     """Each kernel against its plain version at the flagship shapes: B=8
     offline; the stack also at its streaming shape (T=1, B=64)."""
@@ -360,8 +359,12 @@ def kernel_phase(params, cfg, gk):
             raise AssertionError(f"dprnn_intra_block_v2 Fq={Fq}: rounding xp to bf16 moves "
                                  f"the plain output by only {moved:.3e}; the bf16-xp check "
                                  f"cannot tell the modes apart")
-        v1_err = (gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False)
-                  - gk.dprnn_intra_block(x, *ia)).abs().max().item()
+        # f32 xp: the production intra kernel reading the v2 packs, so v1's bits
+        got, v1 = gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False), gk.dprnn_intra_block(x, *ia)
+        v1_err = (got - v1).abs().max().item()
+        if not torch.equal(got, v1):
+            raise AssertionError(f"dprnn_intra_block_v2 Fq={Fq} with f32 xp: not bit-identical "
+                                 f"to dprnn_intra_block (max-abs {v1_err:.3e})")
         t = yardstick({"kernel": lambda: gk.dprnn_intra_block_v2(x, *iva),
                        "f32 xp": lambda: gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False),
                        "library": lambda: lib_intra(x)})
@@ -373,9 +376,9 @@ def kernel_phase(params, cfg, gk):
         log(f"kernel dprnn_intra_block_v2 x[{B * T},{Fq},{C}]: max_abs {err:.3e} with f32 xp "
             f"(tol {KERNEL_TOL:.0e}), {err_xb:.3e} with bf16 xp on exact-sum inputs (tol "
             f"{KERNEL_TOL:.0e}; the rounding itself moves the output by {moved:.3e}), "
-            f"vs the v1 kernel {v1_err:.3e}; ms {spread(t['kernel'])} (bf16 xp; f32 xp "
-            f"{spread(t['f32 xp'])}) plain_ms {plain_ms:.4f} library_ms {spread(t['library'])} "
-            f"bound_ms {b_ms:.4f} ({b_by})")
+            f"vs the v1 kernel {v1_err:.3e} (bit-identical with f32 xp); ms "
+            f"{spread(t['kernel'])} (bf16 xp; f32 xp {spread(t['f32 xp'])}) plain_ms "
+            f"{plain_ms:.4f} library_ms {spread(t['library'])} bound_ms {b_ms:.4f} ({b_by})")
 
         # ---- inter: [B, T, Fq, C] with a random carried h0 ----
         x = randn(B, T, Fq, C)
@@ -1270,7 +1273,8 @@ def ablation_phase(smi):
         else:
             plan = gk.inter_v1_plan(nrows, T, sms)
             args = f"<{plan.rows_per_warp}, {plan.ts}, "
-        for lib in (f"dprnn_{tool}", f"{tool}_step_ablation"):
+        for lib in (f"dprnn_{tool}", f"{tool}_step_ablation") + (
+                ("dprnn_intra_v2",) if tool == "intra" else ()):
             for name, n in sorted(sass_counts(lib).items()):
                 if args in name and "bfloat16" in name:
                     log(f"sass {lib}: {n['FFMA']} FFMA, {n['LDL'] + n['STL']} local loads and "
@@ -1334,7 +1338,11 @@ def main() -> int:
 
     # ---- phase 2: kernels vs plain versions ----
     kernel_rows = kernel_phase(prepare_inference_params(params, cfg), cfg, gk)
-    kernel_ab.kernel_rows(gk, log)
+    not_v1 = [r["shape"] + " " + r["plane"] for r in kernel_ab.kernel_rows(gk, log)
+              if r.get("bits_v1") is False]
+    if not_v1:
+        raise AssertionError(f"dprnn_intra_block_v2 with f32 xp not bit-identical to "
+                             f"dprnn_intra_block at {not_v1}")
 
     # ---- phase 3: the main path, card vs CPU ----
     rng = np.random.default_rng(0)

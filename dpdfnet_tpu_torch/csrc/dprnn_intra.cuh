@@ -1,8 +1,10 @@
 // The DPRNN intra kernel of dprnn_intra.cu (its design is described there)
-// as templates: the step body (STEP) and what a CTA stores after each tile
-// (FIN) are compile-time hooks whose defaults are the production stage, so
-// intra_step_ablation.cu's specializations are instances of this kernel
-// and its `full` is the production instantiation with the production plan.
+// as templates: the step body (STEP), what a CTA stores after each tile
+// (FIN) and where it reads its weights (LAYOUT) are compile-time hooks
+// whose defaults are the production stage, so intra_step_ablation.cu's
+// specializations are instances of this kernel and its `full` is the
+// production instantiation with the production plan, and dprnn_intra_v2.cu
+// is this kernel on pack_intra_v2's weights.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -24,20 +26,42 @@ enum Finish {
   FIN_SUM = 2,     // the sum of both directions' last hiddens, out [N, C] (step ablations)
 };
 
+// Where direction d reads its weights (floats; gate-major columns
+// [r_f r_b z_f z_b n_f n_b], gate stride 2C): Wi element (k, gate, u) at
+// wi[(d * wi_drow + k) * wi_ld + gate * 2C + d * C + u], Wh element at
+// wh[(d * C + k) * wh_ld + gate * 2C + d * C + u], fc element (k, j) at
+// wfc[fc_off + d * fc_doff + k * fc_ld + j].  Every offset is a multiple
+// of 4.
+struct PackLayout {
+  int wi_drow, wi_ld, wh_ld, fc_off, fc_doff, fc_ld;
+};
+
+// The packed v1 set: wi2 / wh2 [2C, 6C] direction-blockdiag, wfc [2C, C].
+__host__ __device__ constexpr PackLayout packed_layout() {
+  return PackLayout{C, 6 * C, 6 * C, 0, C * C, C};
+}
+
+enum Layout {
+  W_PACKED = 0,   // packed_layout(), folded at compile time (production)
+  W_GIVEN = 1,    // the kernel's ``lay`` argument (intra v2: gru_kernels.intra_v2_layout)
+};
+
 // Block: ``blockDim.x / 32`` warps, of which the first ``walk_warps`` walk
 // R rows each (a tile of walk_warps * R rows); every warp stages the
 // weights and takes part in the epilogue.  part: [2][N][Fq][C], the fc
 // partials of each direction (FIN_STAGE), or [2][N][C], each direction's
 // last hidden (the other finishes, whose walk is OUT_NONE: no per-step
 // store, the product h . Wh alone, Wh staged in Wi's layout).
-template <int R, typename TX, typename STEP = ww::StepGru, int FIN = FIN_STAGE>
+template <int R, typename TX, typename STEP = ww::StepGru, int FIN = FIN_STAGE,
+          int LAYOUT = W_PACKED>
 __global__ void __launch_bounds__(MAX_WARPS * ww::LANES, 1)
 dprnn_intra_kernel(const TX* __restrict__ x, TX* __restrict__ out, float* __restrict__ part,
                    const float* __restrict__ wi2, const float* __restrict__ wh2,
                    const float* __restrict__ b2, const float* __restrict__ wfc,
                    const float* __restrict__ bfc, const float* __restrict__ g,
                    const float* __restrict__ bln, Rows rows, RowMap omap, int64_t N, int Fq,
-                   int walk_warps, int tiles) {
+                   int walk_warps, int tiles, PackLayout lay) {
+  static_assert(LAYOUT == W_PACKED || FIN == FIN_STAGE, "a given layout stages the fc");
   cg::cluster_group cluster = cg::this_cluster();
   const int d = (int)cluster.block_rank();        // 0 forward, 1 backward
   const int warp = threadIdx.x / ww::LANES, lane = threadIdx.x % ww::LANES;
@@ -45,9 +69,11 @@ dprnn_intra_kernel(const TX* __restrict__ x, TX* __restrict__ out, float* __rest
   const int rows_cta = walk_warps * R;
   extern __shared__ __align__(16) float smem[];
   float* wbuf = smem + ww::W_FLOATS + warp * ww::warp_floats(R, TS);
-  const GruWeights w{wi2, wh2, b2, b2 + 6 * C, 6 * C, d * C, 2 * C, d * C};
+  const PackLayout L = LAYOUT == W_PACKED ? packed_layout() : lay;
+  const GruWeights w{wi2, wh2, b2, b2 + 6 * C, L.wh_ld, d * C, 2 * C, d * C};
   if constexpr (FIN == FIN_STAGE)
-    ww::stage_weights(smem, w, wfc + d * C * C);
+    ww::stage_weights(smem, w, wfc + L.fc_off + d * L.fc_doff, d * L.wi_drow, L.wi_ld,
+                      L.fc_ld);
   else
     ww::stage_weights_ys(smem, w);
   const ww::LaneParams p = ww::lane_params(w, bfc, g, bln, lane);
@@ -62,10 +88,10 @@ dprnn_intra_kernel(const TX* __restrict__ x, TX* __restrict__ out, float* __rest
     const int64_t row0 = base + warp * R;
     if (warp < walk_warps && row0 < N) {
       if constexpr (FIN == FIN_STAGE)
-        ww::walk<R, TS, ww::OUT_FC_PART>(smem, wbuf, x, rows, rows, rows, row0, N, Fq, d == 1,
-                                         p, static_cast<float*>(nullptr),
-                                         part + ((int64_t)d * N + row0) * part_row,
-                                         (int)part_row, nullptr, nullptr, lane);
+        ww::walk<R, TS, ww::OUT_FC_PART, TX, float, STEP>(
+            smem, wbuf, x, rows, rows, rows, row0, N, Fq, d == 1, p,
+            static_cast<float*>(nullptr), part + ((int64_t)d * N + row0) * part_row,
+            (int)part_row, nullptr, nullptr, lane);
       else
         ww::walk<R, TS, ww::OUT_NONE, TX, float, STEP>(
             smem, wbuf, x, rows, rows, dense_rows(N), row0, N, Fq, d == 1, p,
@@ -118,15 +144,15 @@ dprnn_intra_kernel(const TX* __restrict__ x, TX* __restrict__ out, float* __rest
   }
 }
 
-template <int R, typename TX, typename STEP, int FIN>
+template <int R, typename TX, typename STEP, int FIN, int LAYOUT>
 cudaError_t launch(const TX* x, TX* out, float* part, const float* wi2, const float* wh2,
                    const float* b2, const float* wfc, const float* bfc, const float* g,
                    const float* bln, Rows rows, RowMap omap, int64_t N, int Fq, int walk_warps,
-                   int warps, int clusters, cudaStream_t st) {
+                   int warps, int clusters, PackLayout lay, cudaStream_t st) {
   const int64_t rows_cta = (int64_t)walk_warps * R;
   const size_t smem =
       sizeof(float) * (ww::W_FLOATS + (size_t)walk_warps * ww::warp_floats(R, TS));
-  cudaError_t err = cudaFuncSetAttribute(dprnn_intra_kernel<R, TX, STEP, FIN>,
+  cudaError_t err = cudaFuncSetAttribute(dprnn_intra_kernel<R, TX, STEP, FIN, LAYOUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int tiles = (int)((N + rows_cta - 1) / rows_cta);
@@ -142,8 +168,9 @@ cudaError_t launch(const TX* x, TX* out, float* part, const float* wi2, const fl
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dprnn_intra_kernel<R, TX, STEP, FIN>, x, out, part, wi2, wh2, b2,
-                           wfc, bfc, g, bln, rows, omap, N, Fq, walk_warps, tiles);
+  err = cudaLaunchKernelEx(&cfg, dprnn_intra_kernel<R, TX, STEP, FIN, LAYOUT>, x, out, part,
+                           wi2, wh2, b2, wfc, bfc, g, bln, rows, omap, N, Fq, walk_warps, tiles,
+                           lay);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -151,11 +178,13 @@ cudaError_t launch(const TX* x, TX* out, float* part, const float* wi2, const fl
 // fm_b == 0: x, out [N, Fq, C]; fm_b == B: x [Fq, N, C] (t-major rows
 // n = t * B + b), out [T, Fq, B, C] (FIN_STAGE; the other finishes store
 // out [N, C] in either layout).  The plan comes from gru_kernels.intra_plan.
-template <typename STEP = ww::StepGru, int FIN = FIN_STAGE, typename TX>
+// ``lay``: where the weights lie (read with LAYOUT == W_GIVEN only).
+template <typename STEP = ww::StepGru, int FIN = FIN_STAGE, int LAYOUT = W_PACKED, typename TX>
 cudaError_t run(const TX* x, TX* out, float* part, const float* wi2, const float* wh2,
                 const float* b2, const float* wfc, const float* bfc, const float* g,
                 const float* bln, int64_t N, int Fq, int64_t fm_b, int rows_per_warp,
-                int walk_warps, int warps, int clusters, cudaStream_t st) {
+                int walk_warps, int warps, int clusters, cudaStream_t st,
+                PackLayout lay = packed_layout()) {
   if (walk_warps < 1 || warps < walk_warps || warps > MAX_WARPS || clusters < 1 || N < 1 ||
       Fq < 1)
     return cudaErrorInvalidConfiguration;
@@ -164,8 +193,8 @@ cudaError_t run(const TX* x, TX* out, float* part, const float* wi2, const float
   // flat row f * N + t * B + b of the freq-leading plane -> out[t, f, b]
   const RowMap omap = fm_b ? RowMap{N, fm_b, fm_b * C, Fq * fm_b * C, C} : dense_map(N * Fq);
 #define DPDF_LAUNCH(R)                                                                       \
-  launch<R, TX, STEP, FIN>(x, out, part, wi2, wh2, b2, wfc, bfc, g, bln, rows, omap, N, Fq,   \
-                           walk_warps, warps, clusters, st)
+  launch<R, TX, STEP, FIN, LAYOUT>(x, out, part, wi2, wh2, b2, wfc, bfc, g, bln, rows, omap, \
+                                   N, Fq, walk_warps, warps, clusters, lay, st)
   switch (rows_per_warp) {
     case 1: return DPDF_LAUNCH(1);
     case 2: return DPDF_LAUNCH(2);

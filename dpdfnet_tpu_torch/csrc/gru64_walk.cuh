@@ -1,9 +1,8 @@
 // Shared helpers of the port's C = 64 kernels: plane loads and stores,
 // the row addressing (Rows, RowMap), the GRU weight addressing
-// (GruWeights), the gate and warp-sum primitives, and the DPRNN intra
-// epilogue kernel that dprnn_intra_v2.cu launches.  The walks live in
-// gru64_warp.cuh (DPRNN inter and intra, gru_bidir, the step ablations)
-// and gru64_v2.cuh (intra v2).
+// (GruWeights), and the gate and warp-sum primitives.  The walk lives in
+// gru64_warp.cuh (DPRNN inter and intra, intra v2, gru_bidir, the step
+// ablations).
 //
 // Planes (x, and the out / ys plane) are float32 or bfloat16 (TX / TO):
 // loads upcast, stores round once, every value in between is float32.
@@ -29,8 +28,6 @@ __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat1
 
 constexpr int C = 64;                 // channels == hidden size
 constexpr int G3 = 3 * C;             // gate columns r | z | n
-constexpr int THREADS = 256;         // the block-wide walk of intra v2
-constexpr int GROUPS = THREADS / C;   // row groups per block
 
 struct Rows {
   int64_t rpg, sg, sr, ss;   // row n, step t -> (n/rpg)*sg + (n%rpg)*sr + t*ss
@@ -68,16 +65,6 @@ struct GruWeights {
   int ld, row0, gstride, col0;
 };
 
-template <typename TO>
-struct Epilogue {
-  const float* wfc;   // [C, C] rows for this walk (HWIO-style [in, out])
-  const float* bfc;   // [C] (the LayerNorm output)
-  const float* g;     // [C] LayerNorm gain
-  const float* bln;   // [C] LayerNorm bias
-  TO* out;            // same row addressing as x
-  float eps;
-};
-
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -88,52 +75,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-// The DPRNN intra epilogue, one warp per (row, f) element of the plane:
-// y = part0 + part1 + bfc, out = x + LN(y) * g + bln.  part: [2][rows][C]
-// f32 fc partials of the two directions; x: [rows][C]; flat row r of out
-// at omap.off(r).  Each lane holds two of the 64 channels.
-template <typename TX>
-__global__ void __launch_bounds__(256)
-dprnn_intra_epilogue_kernel(const TX* __restrict__ x, const float* __restrict__ part,
-                            const float* __restrict__ bfc, const float* __restrict__ g,
-                            const float* __restrict__ bln, TX* __restrict__ out,
-                            int64_t rows_total, RowMap omap) {
-  const int64_t r = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows_total) return;
-  const float* p0 = part + r * C;
-  const float* p1 = part + rows_total * C + r * C;
-  float y0 = (p0[lane] + p1[lane]) + bfc[lane];
-  float y1 = (p0[lane + 32] + p1[lane + 32]) + bfc[lane + 32];
-  const float mu = warp_sum(y0 + y1) * (1.0f / C);
-  y0 -= mu;
-  y1 -= mu;
-  const float var = warp_sum(y0 * y0 + y1 * y1) * (1.0f / C);
-  const float inv = 1.0f / sqrtf(var + 1e-5f);
-  TX* o = out + omap.off(r);
-  store_f(o + lane, load_f(x + r * C + lane) + (y0 * inv * g[lane] + bln[lane]));
-  store_f(o + lane + 32,
-          load_f(x + r * C + lane + 32) + (y1 * inv * g[lane + 32] + bln[lane + 32]));
-}
-
-template <typename TX>
-cudaError_t launch_intra_epilogue(const TX* x, const float* part, const float* bfc,
-                                  const float* g, const float* bln, TX* out,
-                                  int64_t rows_total, RowMap omap, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((rows_total + 7) / 8);
-  dprnn_intra_epilogue_kernel<TX><<<blocks, 256, 0, stream>>>(x, part, bfc, g, bln, out,
-                                                              rows_total, omap);
-  return cudaGetLastError();
-}
-
-template <typename TX>
-cudaError_t launch_intra_epilogue(const TX* x, const float* part, const float* bfc,
-                                  const float* g, const float* bln, TX* out,
-                                  int64_t rows_total, cudaStream_t stream) {
-  return launch_intra_epilogue(x, part, bfc, g, bln, out, rows_total, dense_map(rows_total),
-                               stream);
 }
 
 }  // namespace dpdf

@@ -1,11 +1,12 @@
-// The warp-per-row C = 64 GRU walk of dprnn_inter.cu, dprnn_intra.cu and
-// gru_bidir.cu; dprnn_stack.cu runs its step (gru_unit) and its LayerNorm
-// (ln_store) in a walk of its own, so the stack gives these kernels' bits.
-// The two step-ablation kernels (intra_step_ablation.cu,
-// inter_step_ablation.cu) instantiate the same walk through its
-// compile-time hooks: a step body (STEP), an output (OUT_NONE) and a
-// LayerNorm form (LN), whose defaults are the production step (gru_unit,
-// step_product, ln_store), so their `full` is the production kernel.
+// The warp-per-row C = 64 GRU walk of dprnn_inter.cu, dprnn_intra.cu,
+// dprnn_intra_v2.cu and gru_bidir.cu; dprnn_stack.cu runs its step
+// (gru_unit) and its LayerNorm (ln_store) in a walk of its own, so the
+// stack gives these kernels' bits.  Intra v2 and the two step-ablation
+// kernels (intra_step_ablation.cu, inter_step_ablation.cu) instantiate
+// the same walk through its compile-time hooks: a step body (STEP), an
+// output (OUT_NONE) and a LayerNorm form (LN), whose defaults are the
+// production step (gru_unit, step_product, ln_store), so their `full` is
+// the production kernel.
 //
 // The TPU kernels it stands in for compute the same way: the fc of step s
 // folded into step s + 1's hidden product (_inter_block_kernel_packed's
@@ -144,6 +145,18 @@ struct StepGru {
   }
 };
 
+// StepGru on the hoisted xp rounded to bfloat16, its bias included: DPRNN
+// intra v2 with bfloat16 input projections (the TPU kernel's bf16 xp
+// scratch)
+struct StepGruXpBf16 {
+  static constexpr bool PRODUCTS = true, FEED_X = false;
+  __device__ static float unit(float4 xp, float ar, float az, float an, float br, float bz,
+                               float bn, float h) {
+    return gru_unit(round_bf16(xp.x), round_bf16(xp.y), round_bf16(xp.z), ar, az, an, br, bz,
+                    bn, h);
+  }
+};
+
 // h = (x . Wi_r + bi_r) + (h . Wh_r + bh_r): the products, no gates
 struct StepRSum {
   static constexpr bool PRODUCTS = true, FEED_X = false;
@@ -192,11 +205,14 @@ struct StepFloorBf16 : StepFloor {
   }
 };
 
-// Stage Wi and [Wh | Wfc] of one GRU (element addressing of GruWeights;
-// wfc [C][C] row-major) into smem in the lanes' read order.  Every
-// pointer and offset is 16-byte aligned (the wrappers check the bases).
+// Stage Wi and [Wh | Wfc] of one GRU into smem in the lanes' read order:
+// Wh as GruWeights says, Wi element (k, gate, u) at
+// w.wi[(wi_row0 + k) * wi_ld + gate * w.gstride + w.col0 + u], fc element
+// (k, j) at wfc[k * fc_ld + j].  Every pointer and offset is 16-byte
+// aligned (the wrappers check the bases).
 __device__ __forceinline__ void stage_weights(float* smem, const GruWeights& w,
-                                              const float* __restrict__ wfc) {
+                                              const float* __restrict__ wfc, int wi_row0,
+                                              int wi_ld, int fc_ld) {
   constexpr int NWI = C * G3 / 4;       // float4s of Wi
   constexpr int NWH = C * 4 * C / 4;    // float4s of [Wh | Wfc]
   float* swh = smem + WI_FLOATS;
@@ -209,14 +225,14 @@ __device__ __forceinline__ void stage_weights(float* smem, const GruWeights& w,
       if (i < NWI) {
         const int k = i / (G3 / 4), c4 = i % (G3 / 4);
         const int gt = c4 / (C / 4), u0 = (c4 % (C / 4)) * 4;
-        v[e] = *reinterpret_cast<const float4*>(w.wi + (int64_t)(w.row0 + k) * w.ld +
+        v[e] = *reinterpret_cast<const float4*>(w.wi + (int64_t)(wi_row0 + k) * wi_ld +
                                                 gt * w.gstride + w.col0 + u0);
       } else if (i < NWI + NWH) {
         const int j = i - NWI;
         const int k = j / C, c = (j % C) / (C / 4), u0 = (j % (C / 4)) * 4;
         const float* src = c < 3 ? w.wh + (int64_t)(w.row0 + k) * w.ld + c * w.gstride +
                                        w.col0 + u0
-                                 : wfc + k * C + u0;
+                                 : wfc + k * fc_ld + u0;
         v[e] = *reinterpret_cast<const float4*>(src);
       }
     }
@@ -242,6 +258,13 @@ __device__ __forceinline__ void stage_weights(float* smem, const GruWeights& w,
       }
     }
   }
+}
+
+// stage_weights with Wi in Wh's rows and a dense [C][C] fc (every kernel
+// but intra v2).
+__device__ __forceinline__ void stage_weights(float* smem, const GruWeights& w,
+                                              const float* __restrict__ wfc) {
+  stage_weights(smem, w, wfc, w.row0, w.ld, C);
 }
 
 // OUT_YS: stage Wi and Wh of one GRU, both in Wi's layout ([k][gate][lane]

@@ -1,8 +1,7 @@
 // Tiled shared-memory SGEMM with a bias, Y = X . W + bias, for the input
-// projections that the GRU kernels hoist out of their recurrences
-// (gru_scan.cu, dprnn_intra_v2.cu).  X [M, K] is float32 or bfloat16, W
-// [K, Nc] and bias [Nc] float32; the sum is float32 and rounds once into Y
-// (float32 or bfloat16).  A 64 x 64 output tile per block of 256 threads,
+// projections that gru_scan.cu hoists out of its recurrence.  X [M, K] is
+// float32 or bfloat16, W [K, Nc] and bias [Nc] float32; the sum is float32
+// and rounds once into Y (float32 or bfloat16).  A 64 x 64 output tile per block of 256 threads,
 // 4 x 4 outputs per thread, K in steps of 16, the next step's tiles loaded
 // into registers while the current one is multiplied (at small M, as one
 // exact streaming hop gives gru_scan, the kernel is bound by that load

@@ -28,8 +28,8 @@ SOURCES: Dict[str, tuple] = {
     "dprnn_inter": ("dprnn_inter.cu", ("dprnn_inter.cuh", "gru64_warp.cuh", "gru64_walk.cuh")),
     "dprnn_inter_v2": ("dprnn_inter_v2.cu", ("gru64_walk.cuh",)),
     "dprnn_intra": ("dprnn_intra.cu", ("dprnn_intra.cuh", "gru64_warp.cuh", "gru64_walk.cuh")),
-    "dprnn_intra_v2": ("dprnn_intra_v2.cu", ("gru64_v2.cuh", "gru64_walk.cuh",
-                                             "proj_gemm.cuh")),
+    "dprnn_intra_v2": ("dprnn_intra_v2.cu", ("dprnn_intra.cuh", "gru64_warp.cuh",
+                                             "gru64_walk.cuh")),
     "dprnn_stack": ("dprnn_stack.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
     "gru_bidir": ("gru_bidir.cu", ("gru64_warp.cuh", "gru64_walk.cuh")),
     "gru_scan": ("gru_scan.cu", ("gru64_walk.cuh", "proj_gemm.cuh")),

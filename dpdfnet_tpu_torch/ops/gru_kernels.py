@@ -426,7 +426,7 @@ _ARGTYPES = {
     "dprnn_inter_launch": [_P] * 12 + [_I] * 11 + [_P],
     "dprnn_inter_v2_launch": [_P] * 10 + [_I] * 8 + [_P],
     "dprnn_intra_launch": [_P] * 10 + [_L, _I, _L] + [_I] * 5 + [_P],
-    "dprnn_intra_v2_launch": [_P] * 10 + [_L, _I, _I, _I, _I, _P],
+    "dprnn_intra_v2_launch": [_P] * 9 + [_L] + [_I] * 13 + [_P],
     "dprnn_stack_launch": [_P] * 18 + [_I] * 7 + [_P],
     "gru_bidir_launch": [_P] * 6 + [_L] + [_I] * 6 + [_P],
     "gru_scan_launch": [_P] * 9 + [_I] * 8 + [_P],
@@ -498,11 +498,6 @@ def _require_aligned(what: str, **tensors: Tensor) -> None:
     bad = [k for k, t in tensors.items() if t.data_ptr() % 16]
     if bad:
         raise ValueError(f"{what}: the kernel reads {', '.join(bad)} 16-byte aligned")
-
-
-def _walk_rows_per_block(rows: int, blocks_per_row_tile: int, dev) -> int:
-    """8 rows per block while 16 would leave SMs idle, else 16."""
-    return 16 if -(-rows // 16) * blocks_per_row_tile >= _sm_count(dev) else 8
 
 
 # --------------------------------------------------------------------------- #
@@ -661,6 +656,36 @@ def intra_plan(N: int, Fq: int, sms: int) -> IntraPlan:
     smem = 4 * (_WARP_WALK_W_FLOATS + walk * _warp_walk_floats(R, INTRA_TS))
     return IntraPlan(2, R, walk, max(walk, INTRA_MIN_WARPS), INTRA_TS, tiles,
                      min(tiles, pairs), smem)
+
+
+@dataclass(frozen=True)
+class IntraLayout:
+    """Where direction d of the intra kernel reads its weights
+    (``csrc/dprnn_intra.cuh``, ``intra::PackLayout``; element offsets into
+    each tensor, gate-major columns ``[r_f r_b z_f z_b n_f n_b]``):
+
+    - Wi element (k, gate, u) at ``wi[(d * wi_drow + k) * wi_ld + gate * 2C + d * C + u]``;
+    - Wh element (k, gate, u) at ``wh[(d * C + k) * wh_ld + gate * 2C + d * C + u]``;
+    - fc element (k, j) at ``fc[fc_off + d * fc_doff + k * fc_ld + j]``.
+
+    The kernel stages them with 16-byte loads, so every offset is a
+    multiple of 4 floats."""
+    wi_drow: int
+    wi_ld: int
+    wh_ld: int
+    fc_off: int
+    fc_doff: int
+    fc_ld: int
+
+
+def intra_v2_layout(C: int = 64) -> IntraLayout:
+    """:func:`pack_intra_v2`'s tensors as the intra kernel reads them:
+    both directions' Wi in ``wi_cat [C, 6C]``'s rows, Wh in ``wh_big
+    [2C, 8C]``'s first 6C columns, and the fc in its blockdiag columns, so
+    direction d's fc block starts at row d * C, column 6C + d * C of
+    ``wh_big``.  The zero cross-direction blocks are never read."""
+    return IntraLayout(wi_drow=0, wi_ld=6 * C, wh_ld=8 * C, fc_off=6 * C,
+                       fc_doff=C * 8 * C + C, fc_ld=8 * C)
 
 
 # csrc/gru_bidir.cu: the staged Wi and Wh of one direction (floats)
@@ -1032,10 +1057,13 @@ def dprnn_intra_block_v2(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
                          bfc: Tensor, g: Tensor, bln: Tensor, *, xp_bf16: bool = True
                          ) -> Tensor:
     """Fused DPRNN intra stage, v2, on ``x [N, L, C]``: the input
-    projections of every position hoisted out of the walk (stored in
-    bfloat16 when ``xp_bf16``, the JAX wrapper's default), one product
-    ``h . [Wh2 | blockdiag(Wfc)]`` per step.  Weights from
-    :func:`pack_intra_v2` plus the v1 ``b2``.  Replaces
+    projections hoisted off the walk (rounded to bfloat16 when ``xp_bf16``,
+    the JAX wrapper's default), one product ``h . [Wh2 | blockdiag(Wfc)]``
+    per step.  Weights from :func:`pack_intra_v2` plus the v1 ``b2``.  On
+    the card this is the intra kernel reading the v2 packs where
+    :func:`intra_v2_layout` puts them, with the :func:`intra_plan` plan:
+    with ``xp_bf16=False`` its output is bit for bit
+    :func:`dprnn_intra_block`'s on the matching v1 packs.  Replaces
     ``pallas_gru.dprnn_intra_block_v2``."""
     if x.device.type == "cpu":
         return dprnn_intra_block_v2_plain(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16=xp_bf16)
@@ -1047,14 +1075,16 @@ def dprnn_intra_block_v2(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
         raise ValueError(f"dprnn_intra_block_v2: kernel takes C == 64 with pack_intra_v2 "
                          f"weights and N, L > 0; got x {tuple(x.shape)}, "
                          f"wh_big {tuple(wh_big.shape)}")
+    _require_aligned("dprnn_intra_block_v2", wi_cat=wi_cat, wh_big=wh_big)
     out = torch.empty_like(x)
-    xp = torch.empty((N, L, 6 * C), device=dev,
-                     dtype=torch.bfloat16 if xp_bf16 else torch.float32)
+    plan = intra_plan(N, L, _sm_count(dev))
+    lay = intra_v2_layout(C)
     part = torch.empty((2, N, L, C), device=dev, dtype=torch.float32)
     rc = _fn("dprnn_intra_v2", "dprnn_intra_v2_launch")(
-        x.data_ptr(), out.data_ptr(), xp.data_ptr(), part.data_ptr(), wi_cat.data_ptr(),
-        wh_big.data_ptr(), b2.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
-        N, L, _walk_rows_per_block(N, 2, dev), int(xp_bf16), _is_bf16(x), _stream())
+        x.data_ptr(), out.data_ptr(), part.data_ptr(), wi_cat.data_ptr(), wh_big.data_ptr(),
+        b2.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(), N, L, lay.wi_drow,
+        lay.wi_ld, lay.wh_ld, lay.fc_off, lay.fc_doff, lay.fc_ld, plan.rows_per_warp,
+        plan.walk_warps, plan.warps, plan.clusters, int(xp_bf16), _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_intra_block_v2")
     dprnn_intra_block_v2.launches += 1
     return out

@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 FAMILIES = (
-    ("dprnn_intra_v2", ("dprnn_intra_v2",)),
     ("dprnn_inter_v2", ("dprnn_inter_v2",)),
     ("dprnn_intra", ("dprnn_intra",)),
     ("dprnn_inter", ("dprnn_inter",)),

@@ -1,10 +1,10 @@
 """The recurrent kernels gru_scan, dprnn_inter_block_v2, the v1 DPRNN
-stages dprnn_inter_block and dprnn_intra_block, gru_bidir, the DPRNN
-stack and the two step-ablation kernels, and the offline and streaming
-paths they sit on, measured for one checkout.
+stages dprnn_inter_block and dprnn_intra_block, dprnn_intra_block_v2,
+gru_bidir, the DPRNN stack and the two step-ablation kernels, and the
+offline and streaming paths they sit on, measured for one checkout.
 
     python3 dpdfnet_tpu_torch/tools/kernel_ab.py [--root DIR] [--out FILE] [--pairs N]
-        [--kernels gru_scan,inter_v2,inter,intra,gru_bidir,stack,intra_ablation,
+        [--kernels gru_scan,inter_v2,inter,intra,intra_v2,gru_bidir,stack,intra_ablation,
                    inter_ablation] [--e2e] [--e2e-stack] [--hops N]
 
 Imports ``dpdfnet_tpu_torch`` from ``--root`` (default: the checkout
@@ -23,7 +23,10 @@ gru_bidir) timed alternately call by call (:func:`interleaved_ms`), and the
 roofline bound.  The stack has no single PyTorch call: its yardstick is
 the per-stage chain it replaces, K x (``dprnn_intra_block`` +
 ``dprnn_inter_block``) at the same shape, and on float32 planes the row
-says whether the two are bit-identical.  The step-ablation kernels
+says whether the two are bit-identical.  Intra v2 (bfloat16 input
+projections, its default) is timed with its float32-projection form, the
+v1 ``dprnn_intra_block`` on the matching packs and cuDNN's call, and the
+row says whether the float32-projection form is bit-identical to v1.  The step-ablation kernels
 (``tools/*_step_ablation.py``) at their tools' default shapes (intra
 x[4096, 48, 64], inter x[56, 6144, 64], bfloat16 planes): every
 specialization against its plain version, then every variant of the
@@ -117,6 +120,13 @@ def _randn(rng, *shape, scale):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).cuda()
 
 
+def on_grid(t, step: float, lim: float):
+    """``t`` rounded to multiples of ``step`` and clamped to [-lim, lim]."""
+    import torch
+
+    return (torch.round(t / step) * step).clamp(-lim, lim)
+
+
 # shapes: (label, N or B, T, plane)
 SCAN_CASES = (("B=8", 8, 112, "f32"), ("B=64", 64, 112, "f32"), ("B=64", 64, 112, "bf16"),
               ("T=1 x 64", 64, 1, "f32"), ("T=1 x 64", 64, 1, "bf16"))
@@ -141,7 +151,7 @@ STACK_CASES = tuple((label, B, T, Fq, 8, plane) for label, B, T, Fq in (
     ("exact hop", 64, 1, 48), ("exact hop erb", 64, 1, 40), ("throughput", 64, 8, 48),
     ("offline B=8", 8, 112, 48), ("pool B=1", 1, 1, 48), ("pool B=256", 256, 1, 48))
     for plane in ("f32", "bf16"))
-KERNELS = ("gru_scan", "inter_v2", "inter", "intra", "gru_bidir", "stack")
+KERNELS = ("gru_scan", "inter_v2", "inter", "intra", "intra_v2", "gru_bidir", "stack")
 ABLATIONS = ("intra_ablation", "inter_ablation")
 # the step-ablation tools' default shapes: (rows, T)
 ABLATION_SHAPES = {"intra": (4096, 48), "inter": (6144, 56)}
@@ -164,6 +174,8 @@ def kernel_rows(gk, log=print, pairs: int = 21, seed: int = 0, kernels=KERNELS) 
         rows += _inter_rows(gk, log, pairs, rng)
     if "intra" in kernels:
         rows += _intra_rows(gk, log, pairs, rng)
+    if "intra_v2" in kernels:
+        rows += _intra_v2_rows(gk, log, pairs, rng)
     if "gru_bidir" in kernels:
         rows += _bidir_rows(gk, log, pairs, rng)
     if "stack" in kernels:
@@ -276,6 +288,17 @@ def _inter_rows(gk, log, pairs, rng) -> list:
     return rows
 
 
+def _intra_weights(gk, rng, C):
+    """The packed v1 intra weights ``(wi2, wh2, b2, wfc, bfc, g, bln)`` and
+    cuDNN's bidirectional GRU holding the same two directions."""
+    fw, bw = _dprnn_weights(rng, C)[:4], _dprnn_weights(rng, C)[:4]
+    wi2, wh2, b2 = gk._pack_bidir(dict(zip(("wi", "bi", "wh", "bh"), fw)),
+                                  dict(zip(("wi", "bi", "wh", "bh"), bw)))
+    wfc, bfc = _randn(rng, 2 * C, C, scale=(2 * C) ** -0.5), _randn(rng, C, scale=0.1)
+    g, bln = 1.0 + _randn(rng, C, scale=0.2), _randn(rng, C, scale=0.1)
+    return (wi2, wh2, b2, wfc, bfc, g, bln), _cudnn_gru(*fw, bidir=bw)
+
+
 def _intra_rows(gk, log, pairs, rng) -> list:
     """``dprnn_intra_block`` against its plain version and cuDNN's
     bidirectional GRU + linear + LayerNorm + residual."""
@@ -283,13 +306,8 @@ def _intra_rows(gk, log, pairs, rng) -> list:
 
     F = torch.nn.functional
     C, Fq = 64, 48
-    fw, bw = _dprnn_weights(rng, C)[:4], _dprnn_weights(rng, C)[:4]
-    wi2, wh2, b2 = gk._pack_bidir(dict(zip(("wi", "bi", "wh", "bh"), fw)),
-                                  dict(zip(("wi", "bi", "wh", "bh"), bw)))
-    wfc, bfc = _randn(rng, 2 * C, C, scale=(2 * C) ** -0.5), _randn(rng, C, scale=0.1)
-    g, bln = 1.0 + _randn(rng, C, scale=0.2), _randn(rng, C, scale=0.1)
-    ia = (wi2, wh2, b2, wfc, bfc, g, bln)
-    lib_gru = _cudnn_gru(*fw, bidir=bw)
+    ia, lib_gru = _intra_weights(gk, rng, C)
+    wfc, bfc, g, bln = ia[3:]
     rows = []
     for label, N, plane in INTRA_CASES:
         dt = torch.bfloat16 if plane == "bf16" else torch.float32
@@ -313,6 +331,61 @@ def _intra_rows(gk, log, pairs, rng) -> list:
                          plane=plane, reverse=False, err=err, ms=t["kernel"],
                          library_ms=t["library"], bound_ms=b_ms, bound_by=b_by))
         log(_line(rows[-1]))
+    return rows
+
+
+def _intra_v2_rows(gk, log, pairs, rng) -> list:
+    """``dprnn_intra_block_v2`` against its plain version (float32
+    projections; bfloat16 projections on exact-sum inputs, as chip_smoke
+    phase 2 checks them), and timed, with bfloat16 projections, against
+    its float32-projection form, the v1 ``dprnn_intra_block`` on the
+    matching packs and cuDNN's bidirectional GRU + linear + LayerNorm +
+    residual.  ``bits_v1``: the float32-projection form is bit-identical
+    to v1 (reported, not required: an earlier design rounds differently)."""
+    import torch
+
+    F = torch.nn.functional
+    C, Fq = 64, 48
+    ia, lib_gru = _intra_weights(gk, rng, C)
+    wi2, wh2, b2, wfc, bfc, g, bln = ia
+    wi_cat, wh_big = gk.pack_intra_v2(wi2, wh2, wfc)
+    iva = (wi_cat, wh_big, b2, bfc, g, bln)
+    # exact-sum weights for the bf16-xp check (x on a 2^-5 grid, wi_cat and
+    # b2 on a 2^-10 grid: every partial sum of x . wi_cat + b2[0] is exact)
+    ivg = (on_grid(wi_cat, 2.0 ** -10, 0.5), wh_big, on_grid(b2, 2.0 ** -10, 0.5), *iva[3:])
+    rows = []
+    for label, N, plane in INTRA_CASES:
+        dt = torch.bfloat16 if plane == "bf16" else torch.float32
+        x = _randn(rng, N, Fq, C, scale=1.0).to(dt)
+        xg = on_grid(x.float(), 2.0 ** -5, 1.875).to(dt)
+        f32 = gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False)
+        err = max(_err(f32, gk.dprnn_intra_block_v2_plain(x, *iva, xp_bf16=False)),
+                  _err(gk.dprnn_intra_block_v2(xg, *ivg),
+                       gk.dprnn_intra_block_v2_plain(xg, *ivg)))
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"dprnn_intra_block_v2 {label} {plane}: {err:.3e} beyond the "
+                                 f"plain version")
+        bits = torch.equal(f32, gk.dprnn_intra_block(x, *ia))
+        xl = x.float()
+
+        def lib():
+            ys, _ = lib_gru(xl)
+            return xl + F.layer_norm(F.linear(ys, wfc.T, bfc), (C,), g, bln, 1e-5)
+
+        t = interleaved_ms({"kernel": lambda: gk.dprnn_intra_block_v2(x, *iva),
+                            "f32 xp": lambda: gk.dprnn_intra_block_v2(x, *iva, xp_bf16=False),
+                            "v1": lambda: gk.dprnn_intra_block(x, *ia), "library": lib}, pairs)
+        n = N * Fq
+        b_ms, b_by = bound(28 * C * C * n, 2 * C * x.element_size() * n
+                           + 4 * sum(a.numel() for a in iva))
+        rows.append(dict(kernel="dprnn_intra_block_v2", shape=f"{label} x[{N},{Fq},{C}] xp bf16",
+                         plane=plane, reverse=False, err=err, ms=t["kernel"],
+                         library_ms=t["library"], bound_ms=b_ms, bound_by=b_by,
+                         f32_xp_ms=t["f32 xp"], v1_ms=t["v1"], bits_v1=bits))
+        m, lo, hi = t["f32 xp"]
+        v, vlo, vhi = t["v1"]
+        log(f"{_line(rows[-1])}; f32 xp {m:.4f} [{lo:.4f}-{hi:.4f}] bit-identical to v1 "
+            f"{bits}; v1 {v:.4f} [{vlo:.4f}-{vhi:.4f}]")
     return rows
 
 

@@ -12,7 +12,7 @@ order (see ``chip_smoke.py``, which also checks the flagship shapes);
 bfloat16 planes are held to it under ``gru_kernels.err_beyond_bf16_ulp``.  Intra v2 with bfloat16 input
 projections (``xp_bf16``) is held to 1e-4 on inputs whose products
 ``x . wi_cat`` are exact in float32 in any summation order
-(``chip_smoke.on_grid``), so the kernel and torch.matmul round the same
+(``kernel_ab.on_grid``), so the kernel and torch.matmul round the same
 values to bfloat16.
 """
 
@@ -22,7 +22,7 @@ import torch
 
 from dpdfnet_tpu_torch.models.fuse import _pack_bidir, pack_stack
 from dpdfnet_tpu_torch.ops import gru_kernels
-from chip_smoke import on_grid
+from dpdfnet_tpu_torch.tools.kernel_ab import on_grid
 
 TOL = 1e-4
 BF16 = torch.bfloat16
@@ -309,6 +309,30 @@ def test_cuda_intra_v2_matches_plain(dev, N, L, plane):
     moved = gru_kernels.dprnn_intra_block_v2_plain(xg, *gargs, xp_bf16=False)
     assert (moved.float() - ref.float()).abs().max().item() > 10 * TOL
     assert gru_kernels.launch_counts()["dprnn_intra_block_v2"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plane", [torch.float32, BF16])
+@pytest.mark.parametrize("N,L", [
+    (30, 40), (7, 48), (200, 8), (896, 48),
+    # test_cuda_intra_plan_edges' shapes
+    (1, 48), (5, 3), (67, 4), (401, 5), (1001, 40), (13, 1)])
+def test_cuda_intra_v2_f32_xp_bit_identical_to_v1(dev, N, L, plane):
+    """With float32 input projections intra v2 is the v1 stage: the intra
+    kernel reading pack_intra_v2's tensors gives dprnn_intra_block's bits
+    on the matching v1 packs, in one launch."""
+    rng = np.random.default_rng(18)
+    C = 64
+    wi2, wh2, b2 = _pack_bidir(_gru(rng, C, C, dev), _gru(rng, C, C, dev))
+    wfc = _rand(rng, (2 * C, C), dev, 0.3)
+    epi = (_rand(rng, (C,), dev, 0.1), 1.0 + _rand(rng, (C,), dev, 0.5),
+           _rand(rng, (C,), dev, 0.1))
+    wi_cat, wh_big = gru_kernels.pack_intra_v2(wi2, wh2, wfc)
+    x = _rand(rng, (N, L, C), dev).to(plane)
+    gru_kernels.reset_launch_counts()
+    got = gru_kernels.dprnn_intra_block_v2(x, wi_cat, wh_big, b2, *epi, xp_bf16=False)
+    assert gru_kernels.launch_counts()["dprnn_intra_block_v2"] == 1
+    assert torch.equal(got, gru_kernels.dprnn_intra_block(x, wi2, wh2, b2, wfc, *epi))
 
 
 @pytest.mark.cuda

@@ -17,11 +17,15 @@ The v1 DPRNN plans at N = 1, 64 (one exact hop's intra rows), 96, 384
 (inter at B=8), 896 (intra at B=8), 3072 (inter at B=64) and 7168 (intra
 at B=64 x 112), Fq 40 and 48.  gru_bidir at N = 1 ... 7168 rows and L in
 {1, 8, 13, 40, 48}; the stack at B = 1 ... 256 streams and the same Fq.
+The weight layout the intra v2 wrapper hands the intra kernel
+(``intra_v2_layout``) reads, from ``pack_intra_v2``'s tensors, exactly
+the v1 packs' row blocks of each direction.
 """
 from collections import Counter
 
-
+import numpy as np
 import pytest
+import torch
 
 from dpdfnet_tpu_torch.ops import gru_kernels as gk
 
@@ -247,3 +251,41 @@ def test_ablation_specializations_launch_with_the_production_plan(tool, N, T, sm
             p = gk.inter_v1_plan(N, T, sms)
             assert inter_step_ablation.launch_args(spec, N, T, sms) == (
                 i, N, T, p.rows_per_warp, p.ts, p.warps, p.blocks)
+
+
+# ---- intra v2 (csrc/dprnn_intra_v2.cu): the v2 packs read through the layout ----
+
+@pytest.mark.parametrize("C", [8, 64])
+def test_intra_v2_layout_reads_the_v1_blocks_of_each_direction(C):
+    """Gathering through ``intra_v2_layout``'s offsets and leading
+    dimensions, as ``csrc/dprnn_intra.cuh`` reads them (``PackLayout``),
+    from ``wi_cat`` / ``wh_big`` gives each direction's row block of the v1
+    ``wi2`` / ``wh2`` (its own gate-major columns) and of ``wfc``, exactly;
+    every offset is a multiple of 4 floats (16-byte loads)."""
+    rng = np.random.default_rng(17)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def gru():
+        return {"wi": t(C, 3 * C), "bi": t(3 * C), "wh": t(C, 3 * C), "bh": t(3 * C)}
+
+    wi2, wh2, _ = gk._pack_bidir(gru(), gru())
+    wfc = t(2 * C, C)
+    wi_cat, wh_big = gk.pack_intra_v2(wi2, wh2, wfc)
+    lay = gk.intra_v2_layout(C)
+    assert all(v % 4 == 0 for v in (lay.wi_drow, lay.wi_ld, lay.wh_ld, lay.fc_off,
+                                     lay.fc_doff, lay.fc_ld))
+    k = torch.arange(C)[:, None, None]
+    gate = torch.arange(3)[None, :, None]
+    u = torch.arange(C)[None, None, :]
+    j = torch.arange(C)[None, :]
+    for d in (0, 1):
+        cols = gate * 2 * C + d * C + u
+        wi = wi_cat.reshape(-1)[(d * lay.wi_drow + k) * lay.wi_ld + cols]
+        wh = wh_big.reshape(-1)[(d * C + k) * lay.wh_ld + cols]
+        fc = wh_big.reshape(-1)[lay.fc_off + d * lay.fc_doff + k[:, 0] * lay.fc_ld + j]
+        rows = slice(d * C, (d + 1) * C)
+        assert torch.equal(wi, wi2[rows].reshape(C, 3, 2, C)[:, :, d])
+        assert torch.equal(wh, wh2[rows].reshape(C, 3, 2, C)[:, :, d])
+        assert torch.equal(fc, wfc[rows])
