@@ -84,7 +84,22 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    instructions of each specialization's kernel at the default plan
    (``cuobjdump -sass``), then
    one timing pass of every variant there;
-15. one JSON line listing the kernels, then the final JSON status line.
+16. the package surface on ``dpdfnet8_48khz_hr`` at full width and depth,
+   the model resolved by name from an npz of phase 3's weights in a
+   temporary ``DPDFNET_TPU_MODEL_DIR`` (a download attempt raises):
+   ``api.enhance`` on 3 s at 48 kHz equal to ``Engine.enhance_waveforms``
+   of the cached engine, and at 16 kHz (resampled); the segment-stepped
+   path (``progress_callback``) equal to it, with segments + 1 callbacks
+   and 16 intra, 16 inter and 5 gru_scan launches per segment; ``cli
+   enhance`` within one 16-bit step of ``enhance_file`` (in this process,
+   and ``python -m dpdfnet_tpu_torch`` in a fresh one, with its wall time);
+   ``StreamEnhancer`` / ``MultiStreamEnhancer(8)`` built by name
+   bit-identical to the ``engine=`` path over 40 hops; ``cli bench``
+   offline B=64 x 4 s in ``high`` and ``turbo`` and ``--streaming`` at 64
+   exact streams, each JSON line printed after the card's name and power
+   limit;
+15. (run after 16) one JSON line listing the kernels, then the final JSON
+   status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
 ``dpdfnet_tpu_torch`` package beside it.
@@ -1301,6 +1316,165 @@ def ablation_phase(smi):
     return rows
 
 
+def package_phase(cfg, params, eng, gk, smi, rng):
+    """Phase 16: the user-facing package on the card.  The model is resolved
+    by name from an npz of ``params`` in a temporary
+    ``DPDFNET_TPU_MODEL_DIR``; any download attempt raises."""
+    import contextlib as cl
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from dpdfnet_tpu_torch import MultiStreamEnhancer, StreamEnhancer, api, cli, zoo
+    from dpdfnet_tpu_torch.audio_io import read_wav, write_wav
+    from dpdfnet_tpu_torch.utils.serialization import save_params
+
+    def no_download(url, destination):
+        raise RuntimeError(f"chip_smoke: a download was attempted ({url})")
+
+    t_phase = time.perf_counter()
+    sr, hop = cfg.sample_rate, cfg.hop
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    save_params(d / f"{MODEL}.params.npz", params)
+    saved_env = {k: os.environ.get(k) for k in ("DPDFNET_TPU_MODEL_DIR",
+                                                "DPDFNET_TPU_CACHE_DIR", "NO_BANNER")}
+    os.environ.update(DPDFNET_TPU_MODEL_DIR=str(d), DPDFNET_TPU_CACHE_DIR=str(d / "cache"),
+                      NO_BANNER="1")
+    saved_download, zoo._download_one = zoo._download_one, no_download
+    api.clear_engine_cache()
+    try:
+        # ---- 1. enhance by name against the cached engine; the resample path ----
+        t = np.arange(3 * sr) / sr
+        x = (0.2 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.standard_normal(t.size)
+             ).astype(np.float32)
+        t0 = time.perf_counter()
+        y = api.enhance(x, sr, model=MODEL)
+        t_first = time.perf_counter() - t0
+        cached = api._get_engine(MODEL)
+        ref = cached.enhance_waveforms(x)
+        err = float(np.abs(y - ref).max())
+        log(f"api.enhance {MODEL} 3 s at {sr} Hz (first call {t_first:.2f} s, engine build "
+            f"included): vs Engine.enhance_waveforms of the cached engine torch.equal "
+            f"{torch.equal(torch.from_numpy(y), torch.from_numpy(ref))}, max_abs {err:.3e}")
+        if not np.isfinite(y).all() or not np.array_equal(y, ref):
+            raise AssertionError(f"api.enhance differs from the engine path by {err:.3e}")
+        x16 = x[::3].copy()
+        y16 = api.enhance(x16, 16000, model=MODEL)
+        log(f"api.enhance 3 s at 16000 Hz (resampled to {sr} and back): {y16.shape[0]} "
+            f"samples out for {x16.shape[0]} in, finite {bool(np.isfinite(y16).all())}")
+        if y16.shape != x16.shape or not np.isfinite(y16).all():
+            raise AssertionError("api.enhance at 16 kHz: wrong length or not finite")
+
+        # ---- 2. the segment-stepped path and its launches ----
+        events = []
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        y_step = api.enhance(x, sr, model=MODEL,
+                             progress_callback=lambda done, total: events.append((done, total)))
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+        n_seg = segments(cached, x.shape[0])
+        per_seg = {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+                   "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5}
+        log(f"api.enhance with progress_callback: {len(events)} callbacks {events}, "
+            f"torch.equal to the unstepped call {np.array_equal(y_step, y)}; launches "
+            f"({n_seg} segments) {json.dumps(counts)}, expected per segment "
+            f"{json.dumps(per_seg)}")
+        if not np.array_equal(y_step, y) or len(events) != n_seg + 1:
+            raise AssertionError("the stepped path differs from the unstepped one, or its "
+                                 f"callbacks ({len(events)}) are not segments + 1")
+        expect_counts("stepped offline path", counts, {k: n_seg * v for k, v in per_seg.items()})
+
+        # ---- 3. the CLI against enhance_file ----
+        src, out_cli, out_api = d / "in.wav", d / "cli.wav", d / "api.wav"
+        write_wav(src, x, sr)
+        t0 = time.perf_counter()
+        with cl.redirect_stdout(io.StringIO()):
+            rc = cli.main(["enhance", str(src), str(out_cli), "--model", MODEL])
+        t_cli = time.perf_counter() - t0
+        api.enhance_file(src, out_api, model=MODEL)
+        a, b = read_wav(out_cli)[0], read_wav(out_api)[0]
+        steps = float(np.abs(a - b).max()) * 32768.0
+        log(f"cli enhance {MODEL} (3 s wav): rc {rc}, {t_cli:.3f} s wall in-process (engine "
+            f"cached, kernels built); vs enhance_file max {steps:.0f} 16-bit steps")
+        if rc != 0 or a.shape != x.shape or not steps <= 1.0:
+            raise AssertionError(f"cli enhance: rc {rc}, {steps} steps from enhance_file")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "dpdfnet_tpu_torch", "enhance", str(src),
+                              str(d / "proc.wav"), "--model", MODEL], env=env,
+                             capture_output=True, text=True, timeout=300)
+        t_proc = time.perf_counter() - t0
+        steps_proc = float(np.abs(read_wav(d / "proc.wav")[0] - b).max()) * 32768.0 \
+            if res.returncode == 0 else float("nan")
+        log(f"python -m dpdfnet_tpu_torch enhance {MODEL} (3 s wav) in a fresh process: rc "
+            f"{res.returncode}, {t_proc:.2f} s wall (interpreter, torch and CUDA start, npz "
+            f"load, engine build, kernel libraries loaded from this run's build, first "
+            f"call); vs enhance_file max {steps_proc:.0f} 16-bit steps | {smi}")
+        if res.returncode != 0 or not steps_proc <= 1.0:
+            raise AssertionError(f"python -m dpdfnet_tpu_torch enhance: rc {res.returncode}, "
+                                 f"{steps_proc} steps; stderr {res.stderr[-2000:]}")
+
+        # ---- 4. streams built by name against the engine= path (phase 6) ----
+        n = 40 * hop + cfg.win_len
+        xs = [(0.1 * rng.standard_normal(n)).astype(np.float32) for _ in range(8)]
+        cuts = [0, 333, 2 * hop + 7, 17 * hop, n]
+        by_name, by_engine = StreamEnhancer(model=MODEL), StreamEnhancer(engine=eng)
+        if by_name._engine is not cached:
+            raise AssertionError("StreamEnhancer(model=...) did not take the cached engine")
+        ya, yb = [], []
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            ya.append(by_name.process(xs[0][lo:hi]))
+            yb.append(by_engine.process(xs[0][lo:hi]))
+        ya, yb = np.concatenate(ya + [by_name.flush()]), np.concatenate(yb + [by_engine.flush()])
+        pool_a = MultiStreamEnhancer(8, model=MODEL)
+        pool_b = MultiStreamEnhancer(8, engine=eng)
+        sids = [pool_a.open() for _ in range(8)]
+        if sids != [pool_b.open() for _ in range(8)]:
+            raise AssertionError("the two pools opened different slots")
+        pa, pb = {s: [] for s in sids}, {s: [] for s in sids}
+        for lo, hi in zip(cuts[:-1], cuts[1:]):
+            feed = {s: xs[s][lo:hi] for s in sids}
+            for s, o in pool_a.process_many(feed).items():
+                pa[s].append(o)
+            for s, o in pool_b.process_many(feed).items():
+                pb[s].append(o)
+        pool_same = all(np.array_equal(np.concatenate(pa[s]), np.concatenate(pb[s]))
+                        for s in sids)
+        log(f"StreamEnhancer(model=...) 40 hops vs StreamEnhancer(engine=...): bit-identical "
+            f"{np.array_equal(ya, yb)} ({ya.size} samples); MultiStreamEnhancer(8, model=...) "
+            f"40 hops per slot vs engine=: bit-identical {pool_same}")
+        if not np.array_equal(ya, yb) or not pool_same:
+            raise AssertionError("a stream built by name differs from the engine= path")
+
+        # ---- 5. the bench runner through the CLI ----
+        log(f"bench runner lines | {smi}")
+        for argv in (["--batch", "64", "--seconds", "4", "--precision", "high"],
+                     ["--batch", "64", "--seconds", "4", "--precision", "turbo"],
+                     ["--streaming", "--streams", "64", "--mode", "exact",
+                      "--precision", "high"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with cl.redirect_stdout(buf):
+                rc = cli.main(["bench", "--model", MODEL, "--random-weights", *argv])
+            line = buf.getvalue().strip().splitlines()[-1] if buf.getvalue().strip() else ""
+            if rc != 0 or not line.startswith("{"):
+                raise AssertionError(f"cli bench {argv}: rc {rc}, output {buf.getvalue()!r}")
+            print(line, flush=True)
+            log(f"(cli bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s wall)")
+        log(f"phase 16: {time.perf_counter() - t_phase:.1f} s wall")
+    finally:
+        zoo._download_one = saved_download
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        api.clear_engine_cache()
+        tmp.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1463,7 +1637,11 @@ def main() -> int:
     # ---- phase 14: the step-ablation tools ----
     abl_rows = ablation_phase(smi)
 
-    # ---- phase 15: kernel list ----
+    # ---- phase 16: the package surface (API, CLI, streams by name, bench) ----
+    with set_env(STACK, False):
+        package_phase(cfg, params, eng, gk, smi, rng)
+
+    # ---- phase 15: kernel list (printed last) ----
     def entry(name, key, source, replaces, launches, rows=kernel_rows):
         r = rows[key]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -5,7 +5,7 @@
 quality tier and reports its waveform deviation from the ``highest``
 tier: max-abs, RMS relative to the reference output, and RMS relative to
 the input in dB.  The perceptual proxies of the JAX function (STOI,
-SI-SNR) wait for the port's ``metrics.py``.
+SI-SNR, now in the port's ``metrics.py``) are not columns here yet.
 """
 
 from __future__ import annotations

@@ -32,14 +32,14 @@ cuBLAS / cuDNN and restores the caller's settings on the way out.
 The streaming path (``init_stream_state`` / ``process_frames``) takes
 sample frames ``[B, T, win]`` and returns windowed time frames ready for
 overlap-add, with the state kept on the engine's device between calls.
-The mesh and the stepped/progress path are later slices.
+The mesh is a later slice.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -157,36 +157,65 @@ class Engine:
             S_pad = -(-(S_pad * 3 // 2) // self.bucket_samples) * self.bucket_samples
         return S_pad
 
-    @torch.inference_mode()
-    def _offline(self, wav: torch.Tensor, alpha: float) -> torch.Tensor:
+    def _front(self, wav: torch.Tensor) -> torch.Tensor:
+        """Pad ``win_len`` zeros, STFT as one DFT GEMM, wnorm scale:
+        ``[B, S]`` -> ``[B, T, F, 2]`` at the compute dtype."""
         cfg = self.cfg
-        b = wav.shape[0]
         x = torch.nn.functional.pad(wav, (0, cfg.win_len))
         spec = stft_ops.stft_matmul(x, self._window, cfg.hop, center=True, dft=self._dft)
-        spec = self._scale_spec(spec)
-        st = state_lib.init_state(cfg, batch=b, dtype=spec.dtype, device=self.device)
-        T = spec.shape[1]
-        seg = self.seg_frames
-        if T <= seg:
-            out, _, _ = forward_spec(self.params, cfg, spec, st, precision=self.precision)
-        else:
-            n_seg = -(-T // seg)
-            spec_p = torch.nn.functional.pad(spec, (0, 0, 0, 0, 0, n_seg * seg - T))
-            outs = []
-            for i in range(n_seg):
-                o, st, _ = forward_spec(self.params, cfg,
-                                        spec_p[:, i * seg:(i + 1) * seg].contiguous(), st,
-                                        precision=self.precision)
-                outs.append(o)
-            out = torch.cat(outs, dim=1)[:, :T]
-        # attenuation limit: blend the 4-frame-shifted noisy spec; alpha == 0
-        # passes the enhanced spec through.  Blend and iSTFT in float32.
+        return self._scale_spec(spec)
+
+    def _segment(self, spec_seg: torch.Tensor, st):
+        """One ``forward_spec`` over a segment of frames from state ``st``."""
+        out, st, _ = forward_spec(self.params, self.cfg, spec_seg, st,
+                                  precision=self.precision)
+        return out, st
+
+    def _back(self, spec: torch.Tensor, out: torch.Tensor, alpha: float) -> torch.Tensor:
+        """The attenuation-limit blend with the 4-frame-shifted noisy spec
+        (alpha == 0 passes the enhanced spec through), the iSTFT GEMM and
+        the ``2*win_len`` alignment; blend and iSTFT in float32."""
+        cfg = self.cfg
         k = audio_lib.ATTN_LIMIT_NOISY_FRAME_OFFSET
         aligned = torch.nn.functional.pad(spec, (0, 0, 0, 0, k, 0))[:, :-k]
         out = alpha * aligned.float() + (1.0 - alpha) * out.float()
         y = stft_ops.istft_matmul(out / cfg.wnorm, self._window, cfg.hop, center=True,
                                   idft=self._idft)
         return y[:, 2 * cfg.win_len:]
+
+    @torch.inference_mode()
+    def _offline(self, wav: torch.Tensor, alpha: float,
+                 progress_callback: Optional[Callable[[int, int], None]] = None
+                 ) -> torch.Tensor:
+        """Front, the segments with the state carried from one to the next,
+        back.  Up to ``seg_frames`` frames run as one segment; longer inputs
+        are zero-padded to whole segments.
+
+        With ``progress_callback`` this is the segment-stepped path of the
+        JAX package (``_run_offline_stepped``): the same calls, with
+        ``progress_callback(0, T)`` first and ``progress_callback(done, T)``
+        after each segment, ``done = min((i + 1) * seg_frames, T)`` (ints
+        only).  Before each report one scalar of the segment is copied to
+        the host, so the report follows the device and not the enqueue."""
+        spec = self._front(wav)
+        st = state_lib.init_state(self.cfg, batch=wav.shape[0], dtype=spec.dtype,
+                                  device=self.device)
+        T = spec.shape[1]
+        seg = self.seg_frames
+        n_seg = -(-T // seg)
+        spec_p = spec if n_seg == 1 else torch.nn.functional.pad(
+            spec, (0, 0, 0, 0, 0, n_seg * seg - T))
+        if progress_callback is not None:
+            progress_callback(0, T)
+        outs = []
+        for i in range(n_seg):
+            o, st = self._segment(spec_p[:, i * seg:(i + 1) * seg].contiguous(), st)
+            outs.append(o)
+            if progress_callback is not None:
+                o[:1, -1, :1].sum().item()
+                progress_callback(min((i + 1) * seg, T), T)
+        out = outs[0] if n_seg == 1 else torch.cat(outs, dim=1)[:, :T]
+        return self._back(spec, out, alpha)
 
     def _scale_spec(self, spec: torch.Tensor) -> torch.Tensor:
         """The float32 spectrum at the compute dtype, times wnorm rounded to
@@ -291,15 +320,13 @@ class Engine:
             attn_limit_db: optional attenuation limit (dB).
             lengths: optional per-utterance valid lengths (defaults to S);
                 output past each length is zeroed.
-            progress_callback: not supported in this slice.
+            progress_callback: optional ``fn(done, total)`` in frames,
+                called with ints before the first segment and after each
+                one (the segment-stepped path; the same output).
 
         Returns:
             Enhanced float32 audio (numpy) with the same shape as ``wavs``.
         """
-        if progress_callback is not None:
-            raise NotImplementedError(
-                "progress reporting (the segment-stepped offline path) is not "
-                "ported yet (ROADMAP.md queue 1, '_run_offline_stepped')")
         squeeze = np.ndim(wavs) == 1
         x = np.atleast_2d(np.asarray(wavs, dtype=np.float32))
         B, S = x.shape
@@ -310,7 +337,8 @@ class Engine:
         xp = np.zeros((B, S_pad), np.float32)
         xp[:, :S] = x
         with _math_mode(self.precision):
-            y = self._offline(torch.from_numpy(xp).to(self.device), alpha)
+            y = self._offline(torch.from_numpy(xp).to(self.device), alpha,
+                              progress_callback)
         y = y.cpu().numpy()
 
         out = np.zeros_like(x)

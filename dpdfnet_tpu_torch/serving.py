@@ -16,14 +16,16 @@ import numpy as np
 import torch
 
 from .audio import to_mono
+from .utils.device import DeviceLike
 from .utils.tree import tree_map, tree_map2
+from .zoo import DEFAULT_MODEL
 
 
 class MultiStreamEnhancer:
     """A pool of ``capacity`` concurrent enhancement streams.
 
     Usage:
-        pool = MultiStreamEnhancer(capacity=64, engine=engine)
+        pool = MultiStreamEnhancer(capacity=64, model="dpdfnet8_48khz_hr")
         sid = pool.open()
         out = pool.process(sid, chunk)
         ...
@@ -33,16 +35,20 @@ class MultiStreamEnhancer:
     bucket: the throughput path for a frontend that aggregates chunks
     across connections.  ``mode`` is the engine's streaming mode,
     ``"exact"`` (bit-invariant per-frame program) or ``"throughput"``.
+    The model is resolved by name through the zoo (``model``,
+    ``checkpoint_path``, ``verbose``, on ``device``, ``None`` meaning cuda)
+    unless an ``engine`` is given.
     """
 
-    def __init__(self, capacity: int, *, engine=None, mode: str = "exact") -> None:
-        if engine is None:
-            raise NotImplementedError(
-                "MultiStreamEnhancer needs engine=...: resolving a model by "
-                "name (the zoo and API slice, ROADMAP.md queue 1 item 10) is "
-                "not ported yet")
+    def __init__(self, capacity: int, model: str = DEFAULT_MODEL, checkpoint_path=None,
+                 verbose: bool = False, engine=None, mode: str = "exact",
+                 device: DeviceLike = None) -> None:
         if mode not in ("exact", "throughput"):
             raise ValueError(f"unknown streaming mode {mode!r}")
+        if engine is None:
+            from .api import _get_engine
+
+            engine = _get_engine(model, checkpoint_path, verbose, device=device)
         self._engine = engine
         self.mode = mode
         cfg = engine.cfg

@@ -10,13 +10,16 @@ state stays on the engine's device between calls.
 
 from __future__ import annotations
 
-from typing import Optional
+from pathlib import Path
+from typing import Optional, Union
 
 import numpy as np
 
 from .audio import ensure_sample_rate, to_mono
 from .models import state as state_lib
+from .utils.device import DeviceLike
 from .utils.tree import tree_map2
+from .zoo import DEFAULT_MODEL
 
 
 class StreamEnhancer:
@@ -24,16 +27,23 @@ class StreamEnhancer:
     calls.
 
     Args:
-        engine: a ``runtime.engine.Engine``; required until the model zoo
-            and API slice lands (there is no model download here).
+        model: model name (default ``"dpdfnet2"``), resolved through the zoo.
+        checkpoint_path: optional custom checkpoint; overrides ``model``.
+        verbose: print model resolution / download progress.
+        engine: a ``runtime.engine.Engine`` to use instead of resolving
+            ``model`` (then ``model``, ``checkpoint_path`` and ``device``
+            are not read).
+        device: the engine's device for a model resolved by name
+            (``None``: cuda).
     """
 
-    def __init__(self, *, engine=None) -> None:
+    def __init__(self, model: str = DEFAULT_MODEL,
+                 checkpoint_path: Optional[Union[str, Path]] = None,
+                 verbose: bool = False, engine=None, device: DeviceLike = None) -> None:
         if engine is None:
-            raise NotImplementedError(
-                "StreamEnhancer needs engine=...: resolving a model by name "
-                "(the zoo and API slice, ROADMAP.md queue 1 item 10) is not "
-                "ported yet")
+            from .api import _get_engine
+
+            engine = _get_engine(model, checkpoint_path, verbose, device=device)
         self._engine = engine
         cfg = engine.cfg
         self._model_sr: int = cfg.sample_rate

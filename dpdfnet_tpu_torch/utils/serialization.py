@@ -1,9 +1,9 @@
-"""Parameter trees from ``.npz`` files and from the JAX package.
+"""Parameter trees to and from ``.npz`` files, and from the JAX package.
 
 The ``.npz`` key format is the JAX package's ``utils/serialization.py``:
 '/'-joined key paths, list indices as ``NNNN#`` segments, explicit
 ``NNNN#none`` markers for ``None`` list entries; ``None`` dict values are
-simply absent.
+simply absent.  Files written by either package load in the other.
 """
 
 from __future__ import annotations
@@ -67,3 +67,28 @@ def params_from_jax(tree, device: DeviceLike = None) -> Dict:
 def load_params(path, device: DeviceLike = None) -> Dict:
     """Load an ``.npz`` written by ``dpdfnet_tpu.utils.serialization.save_params``."""
     return params_from_jax(_load_npz_tree(path), device)
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            if v is None:
+                out[f"{prefix}{i:04d}#none"] = np.zeros(0, np.int8)
+            else:
+                _flatten(v, f"{prefix}{i:04d}#/", out)
+    else:
+        out[prefix[:-1]] = (tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor)
+                            else np.asarray(tree))
+
+
+def save_params(path, params) -> None:
+    """Write a parameter tree (tensors or arrays) as an ``.npz`` in the JAX
+    package's key format."""
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(params, "", flat)
+    np.savez(path, **flat)

@@ -892,3 +892,40 @@ def test_cuda_gru_bidir_and_stack_batch_invariant(dev, plane):
     o_a, h_a = gru_kernels.dprnn_stack(xs[:, :1].contiguous(), h0, stacked)
     o_b, h_b = gru_kernels.dprnn_stack(xs[:, 1:].contiguous(), h_a, stacked)
     assert torch.equal(torch.cat([o_a, o_b], dim=1), out) and torch.equal(h_b, hl)
+
+
+@pytest.mark.cuda
+def test_cuda_api_enhance_equals_engine_path(dev, tmp_path, monkeypatch):
+    """``api.enhance`` by model name on the card (weights from an npz in a
+    temporary model directory, downloads refused) equals
+    ``Engine.enhance_waveforms`` of the engine it cached, stepped or not."""
+    from dpdfnet_tpu_torch import api, zoo
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.utils.serialization import save_params
+
+    def no_download(url, destination):
+        raise AssertionError(f"download attempted: {url}")
+
+    cfg = get_config("dpdfnet2")
+    save_params(tmp_path / "dpdfnet2.params.npz",
+                contract_params(init_params(cfg, seed=0, device=dev)))
+    monkeypatch.setenv("DPDFNET_TPU_MODEL_DIR", str(tmp_path))
+    monkeypatch.setattr(zoo, "_download_one", no_download)
+    api.clear_engine_cache()
+    try:
+        rng = np.random.default_rng(3)
+        x = (0.1 * rng.normal(size=int(1.5 * cfg.sample_rate))).astype(np.float32)
+        y = api.enhance(x, cfg.sample_rate, model="dpdfnet2")
+        eng = api._get_engine("dpdfnet2")
+        assert eng.device.type == "cuda"
+        np.testing.assert_array_equal(y, eng.enhance_waveforms(x))
+        events = []
+        stepped = api.enhance(x, cfg.sample_rate, model="dpdfnet2",
+                              progress_callback=lambda d, t: events.append((d, t)))
+        np.testing.assert_array_equal(stepped, y)
+        T = events[0][1]
+        assert events == [(0, T)] + [(min((i + 1) * eng.seg_frames, T), T)
+                                     for i in range(-(-T // eng.seg_frames))]
+    finally:
+        api.clear_engine_cache()

@@ -67,16 +67,18 @@ def test_engine_segments_match_single_span():
 
 def test_engine_rejects_unported_tiers():
     """Every tier of the JAX table builds (the bf16 tiers since their port);
-    an unknown tier or precision and the unported progress path raise."""
+    an unknown tier or precision raises; the progress path (once unported)
+    runs and reports the JAX package's sequence."""
     cfg = get_config("dpdfnet2")
     params = params_from_jax(_jax_params_np("dpdfnet2"), device="cpu")
     with pytest.raises(ValueError, match="Unknown quality"):
         engine_from_quality(cfg, params, "ultra", device="cpu")
     with pytest.raises(ValueError, match="precision"):
         Engine(cfg, params, precision="tf32", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, params, device="cpu").enhance_waveforms(
-            np.zeros(1600, np.float32), progress_callback=lambda *a: None)
+    events = []
+    Engine(cfg, params, device="cpu").enhance_waveforms(
+        np.zeros(1600, np.float32), progress_callback=lambda *a: events.append(a))
+    assert events[0][0] == 0 and events[-1][0] == events[-1][1] > 0
     assert engine_from_quality(cfg, params, "high", device="cpu").precision == "high"
     fast = engine_from_quality(cfg, params, "fast", device="cpu")
     turbo = engine_from_quality(cfg, params, "turbo", device="cpu")

@@ -183,10 +183,11 @@ print("ok")
     assert res.stdout.strip() == "ok"
 
 
-def test_entry_points_raise_without_gpu_unless_cpu_requested():
+def test_entry_points_raise_without_gpu_unless_cpu_requested(tmp_path, monkeypatch, capsys):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
-    from dpdfnet_tpu_torch import Engine, init_params, init_state
+    from dpdfnet_tpu_torch import (Engine, MultiStreamEnhancer, StreamEnhancer, api,
+                                   audio_io, cli, init_params, init_state)
 
     cfg = config.get_config("dpdfnet2")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -197,3 +198,21 @@ def test_entry_points_raise_without_gpu_unless_cpu_requested():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, params)
     assert Engine(cfg, params, device="cpu").device.type == "cpu"
+    # the user-facing entry points: the device is resolved before any model
+    # lookup, so nothing is read or fetched
+    monkeypatch.setenv("DPDFNET_TPU_MODEL_DIR", str(tmp_path))
+    x = np.zeros(1600, np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.enhance(x, 16000)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.enhance_batch([x], 16000)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamEnhancer(model="dpdfnet2")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MultiStreamEnhancer(2, model="dpdfnet2")
+    src = tmp_path / "in.wav"
+    audio_io.write_wav(src, x, 16000)
+    assert cli.main(["enhance", str(src), str(tmp_path / "out.wav")]) == 2
+    assert "device='cpu'" in capsys.readouterr().err
+    assert not (tmp_path / "out.wav").exists()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["in.wav"]

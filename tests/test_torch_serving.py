@@ -99,7 +99,7 @@ def test_pool_slot_isolation_on_reset(engine):
     np.testing.assert_array_equal(pool.process(b, _sig(5)), ref.process(rb, _sig(5)))
 
 
-def test_pool_capacity_and_close(engine):
+def test_pool_capacity_and_close(engine, tmp_path, monkeypatch):
     pool = MultiStreamEnhancer(capacity=2, engine=engine)
     sid = pool.open()
     pool.open()
@@ -111,8 +111,19 @@ def test_pool_capacity_and_close(engine):
         pool.process(99, np.zeros(10, np.float32))
     with pytest.raises(ValueError, match="mode"):
         MultiStreamEnhancer(capacity=2, engine=engine, mode="banana")
-    with pytest.raises(NotImplementedError, match="engine"):
-        MultiStreamEnhancer(capacity=2)
+    # without engine= the pool resolves its model by name through the zoo;
+    # with no weights cached and the download failing, that raises
+    from urllib.error import HTTPError
+
+    from dpdfnet_tpu_torch import zoo
+
+    def no_download(url, destination):
+        raise HTTPError(url, 404, "not found", hdrs=None, fp=None)
+
+    monkeypatch.setenv("DPDFNET_TPU_MODEL_DIR", str(tmp_path))
+    monkeypatch.setattr(zoo, "_download_one", no_download)
+    with pytest.raises(RuntimeError, match="HTTP 404"):
+        MultiStreamEnhancer(capacity=2, device="cpu")
 
 
 def test_process_many_order_insensitive_identity(engine):

@@ -229,6 +229,17 @@ def test_jax_stream_state_hands_over_to_the_port(engines, signal):
     np.testing.assert_allclose(se.process(signal[1700:]), ref, atol=ATOL)
 
 
-def test_stream_enhancer_needs_an_engine():
-    with pytest.raises(NotImplementedError, match="engine"):
-        StreamEnhancer()
+def test_stream_enhancer_needs_an_engine(tmp_path, monkeypatch):
+    """Without ``engine=`` the stream resolves its model by name through the
+    zoo; with no weights cached and the download failing, that raises."""
+    from urllib.error import HTTPError
+
+    from dpdfnet_tpu_torch import zoo
+
+    def no_download(url, destination):
+        raise HTTPError(url, 404, "not found", hdrs=None, fp=None)
+
+    monkeypatch.setenv("DPDFNET_TPU_MODEL_DIR", str(tmp_path))
+    monkeypatch.setattr(zoo, "_download_one", no_download)
+    with pytest.raises(RuntimeError, match="HTTP 404"):
+        StreamEnhancer(device="cpu")
