@@ -98,7 +98,23 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    offline B=64 x 4 s in ``high`` and ``turbo`` and ``--streaming`` at 64
    exact streams, each JSON line printed after the card's name and power
    limit;
-15. (run after 16) one JSON line listing the kernels, then the final JSON
+17. checkpoints in, training out, on ``dpdfnet8_48khz_hr`` at full width
+   and depth (run after 16): phase 3's weights written as a reference-layout
+   ``.pth`` (``tools/synth_checkpoint.py``) in a temporary zoo directory,
+   resolved by name and converted on the card by ``zoo.load_model_params``
+   (which caches the npz; a second load reads it without converting), every
+   leaf bit-equal to phase 3's, and an engine on the converted weights
+   bit-identical to phase 3's output on phase 3's input with the same
+   launches per segment; then 5 ``train.make_train_step`` steps with
+   ``torch.optim.Adam(lr=1e-3)`` on one batch of B=4 x 1.0 s
+   (``speechlike_test_signal`` plus seeded noise): every loss finite and
+   the last below the first, the ERB filterbanks bit-unchanged, no kernel
+   launched inside the steps, ms per step (median of steps 2-5), peak
+   memory, the card's name and power limit; an engine on the trained
+   weights that launches the kernels again; and one step on the card
+   against the same step on the CPU at B=1 x 0.25 s (the loss, and every
+   gradient leaf relative to its largest CPU value);
+15. (run after 17) one JSON line listing the kernels, then the final JSON
    status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
@@ -161,6 +177,17 @@ TIER_REL_RMS = 0.1
 # state's dtypes.
 TURBO_STREAM_REL_RMS = 1e-2
 TURBO_STATE_REL_RMS = 0.1
+# One train step on the card against the same step on the CPU (phase 17b,
+# B=1 x 0.25 s, 26 frames of recurrences through forward and backward, the
+# plain path in float32 with TF32 off on both): the loss within 1e-5
+# relative, and every gradient leaf's max-abs deviation within 1e-4 of that
+# leaf's largest CPU magnitude (measured 8.2e-8 and 8.9e-7 on the card).
+# The CPU step itself agrees with the JAX package's value_and_grad to 2e-7
+# on the loss and 2e-6 per leaf on this model at 7 frames
+# (tests/test_torch_train.py); a dropped or wrongly routed term moves a
+# leaf by O(1) of its magnitude.
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-4
 
 MODEL = "dpdfnet8_48khz_hr"
 PALLAS = "dpdfnet_tpu/ops/pallas_gru.py"
@@ -1475,6 +1502,170 @@ def package_phase(cfg, params, eng, gk, smi, rng):
         tmp.cleanup()
 
 
+def convert_phase(cfg, params, gk, wavs, lengths, y_ref):
+    """Phase 17a: phase 3's weights as a reference-layout ``.pth``
+    (``tools.synth_checkpoint``, exact BatchNorm statistics) in a temporary
+    zoo directory, resolved by name and converted on the card; the second
+    load reads the npz the first wrote.  An engine on the converted weights
+    runs phase 3's input through the kernels."""
+    import tempfile
+    from pathlib import Path
+
+    from dpdfnet_tpu_torch import Engine, zoo
+    from dpdfnet_tpu_torch.models import convert
+    from dpdfnet_tpu_torch.tools.synth_checkpoint import save_checkpoint
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves
+
+    def no_download(url, destination):
+        raise RuntimeError(f"chip_smoke: a download was attempted ({url})")
+
+    def no_convert(*args, **kwargs):
+        raise AssertionError("converted again although the npz is cached")
+
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    save_checkpoint(d / f"{MODEL}.pth", params, cfg)
+    pth_mib = (d / f"{MODEL}.pth").stat().st_size / 2 ** 20
+    saved_env = {k: os.environ.get(k) for k in ("DPDFNET_TPU_MODEL_DIR",
+                                                "DPDFNET_TPU_CACHE_DIR")}
+    os.environ.update(DPDFNET_TPU_MODEL_DIR=str(d), DPDFNET_TPU_CACHE_DIR=str(d / "cache"))
+    saved_download, zoo._download_one = zoo._download_one, no_download
+    saved_convert = convert.load_params
+    try:
+        resolved = zoo.resolve_model(model=MODEL, auto_download=False)
+        t0 = time.perf_counter()
+        conv = zoo.load_model_params(resolved, device="cuda")
+        torch.cuda.synchronize()
+        t_conv = time.perf_counter() - t0
+        if not resolved.params_path.is_file():
+            raise AssertionError(f"no npz cached at {resolved.params_path}")
+        convert.load_params = no_convert
+        t0 = time.perf_counter()
+        cached = zoo.load_model_params(resolved, device="cuda")
+        torch.cuda.synchronize()
+        t_npz = time.perf_counter() - t0
+    finally:
+        convert.load_params = saved_convert
+        zoo._download_one = saved_download
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tmp.cleanup()
+    src, got, again = dict(tree_leaves(params)), dict(tree_leaves(conv)), \
+        dict(tree_leaves(cached))
+    if not src.keys() == got.keys() == again.keys():
+        raise AssertionError("the converted tree's leaves differ from the source's")
+    exact = all(got[k].is_cuda and torch.equal(got[k], src[k]) and torch.equal(again[k], src[k])
+                for k in src)
+    log(f"convert {MODEL}: .pth ({pth_mib:.1f} MiB, {len(src)} leaves) converted on the card in {t_conv:.2f} s (npz written), "
+        f"the npz read back in {t_npz:.2f} s without converting; every leaf bit-equal to "
+        f"phase 3's weights {exact}")
+    if not exact:
+        raise AssertionError("the converted weights differ from the checkpoint's source")
+    with set_env(STACK, False):
+        eng = Engine(cfg, conv, device="cuda")
+        eng.enhance_waveforms(wavs[:, : cfg.sample_rate // 2])         # warm-up
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        y = eng.enhance_waveforms(wavs, lengths=lengths)
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+    n_seg = segments(eng, wavs.shape[1])
+    per_seg = {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+               "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5}
+    same = bool(np.array_equal(y, y_ref))
+    log(f"engine on the converted weights, phase 3's input: torch.equal to phase 3's output "
+        f"{same} (max_abs {float(np.abs(y - y_ref).max()):.3e}); launches ({n_seg} segments) "
+        f"{json.dumps(counts)}")
+    if not same:
+        raise AssertionError("the engine on the converted weights differs from phase 3's")
+    expect_counts("converted-weights main path", counts,
+                  {k: n_seg * v for k, v in per_seg.items()})
+
+
+def train_phase(cfg, gk, smi):
+    """Phase 17b: ``train.make_train_step`` with ``torch.optim.Adam`` on the
+    full-width, full-depth model, kernels off inside the steps; then one
+    step on the card against the same step on the CPU."""
+    from dpdfnet_tpu_torch import Engine
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.quality import speechlike_test_signal
+    from dpdfnet_tpu_torch.train import make_train_step, trainable_parameters
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    sr = cfg.sample_rate
+    rng = np.random.default_rng(17)
+    clean = speechlike_test_signal(1.0, sr, seed=0, batch=4)
+    noisy = clean + (0.02 * rng.standard_normal(clean.shape)).astype(np.float32)
+    clean_t, noisy_t = torch.from_numpy(clean).cuda(), torch.from_numpy(noisy).cuda()
+    params = contract_params(init_params(cfg, seed=0, device="cuda"))
+    fbs = {k: params[k].clone() for k in ("erb_fb", "erb_inv_fb")}
+    step = make_train_step(cfg, torch.optim.Adam(trainable_parameters(params), lr=1e-3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gk.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        loss, aux = step(params, noisy_t, clean_t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = gk.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fb_same = all(torch.equal(params[k], v) for k, v in fbs.items())
+    ms = statistics.median(times[1:]) * 1e3
+    log(f"train {MODEL} B=4 x 1.0 s, Adam(lr=1e-3), 5 steps on one batch: losses "
+        f"{[round(v, 6) for v in losses]}, spec {float(aux['spec']):.6f} lsnr "
+        f"{float(aux['lsnr']):.3f} (last step); launches inside the steps {json.dumps(counts)}; "
+        f"erb_fb / erb_inv_fb bit-unchanged {fb_same}")
+    log(f"train step {MODEL} B=4 x 1.0 s: {ms:.1f} ms per step (median of steps 2-5; "
+        f"steps {[round(t * 1e3, 1) for t in times]} ms), peak memory {peak:.2f} GiB | {smi}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train losses not finite or not falling: {losses}")
+    if not fb_same:
+        raise AssertionError("a train step changed the ERB filterbanks")
+    expect_counts("train steps", counts, {})
+
+    # the kernels are back outside the step
+    trained = tree_map(lambda _, x: x.detach(), params)
+    with set_env(STACK, False):
+        eng = Engine(cfg, trained, device="cuda")
+        gk.reset_launch_counts()
+        y = eng.enhance_waveforms(noisy[:1])
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+    log(f"engine on the trained weights: finite {bool(np.isfinite(y).all())}, launches "
+        f"{json.dumps(counts)}")
+    if not np.isfinite(y).all() or not all(counts[k] > 0 for k in (
+            "dprnn_intra_block", "dprnn_inter_block", "gru_scan")):
+        raise AssertionError("after the train steps an engine call did not run the kernels")
+
+    # one step on the card against the same step on the CPU
+    x = np.stack([noisy[0, : sr // 4], clean[0, : sr // 4]])
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        p = contract_params(init_params(cfg, seed=0, device=dev))
+        leaves = trainable_parameters(p)
+        st = make_train_step(cfg, torch.optim.SGD(leaves, lr=0.0))
+        xt = torch.from_numpy(x).to(dev)
+        loss, _ = st(p, xt[:1], xt[1:])
+        steps[dev] = (float(loss), {k: (torch.zeros_like(v) if v.grad is None else v.grad).cpu()
+                                    for k, v in tree_leaves(p) if v.requires_grad})
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst = sorted(((float((g_gpu[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30), k)
+                    for k, g in g_cpu.items()), reverse=True)
+    log(f"train step card vs CPU, B=1 x 0.25 s: loss {l_gpu:.8f} vs {l_cpu:.8f} (rel "
+        f"{loss_rel:.2e}, tol {TRAIN_LOSS_REL:.0e}); {len(g_cpu)} gradient leaves, worst "
+        f"max-abs / leaf max {[(k, f'{e:.2e}') for e, k in worst[:3]]} (tol "
+        f"{TRAIN_GRAD_REL:.0e})")
+    if not loss_rel <= TRAIN_LOSS_REL or not worst[0][0] <= TRAIN_GRAD_REL:
+        raise AssertionError("the train step on the card deviates from the CPU step")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1640,6 +1831,12 @@ def main() -> int:
     # ---- phase 16: the package surface (API, CLI, streams by name, bench) ----
     with set_env(STACK, False):
         package_phase(cfg, params, eng, gk, smi, rng)
+
+    # ---- phase 17: checkpoints in (the converter), training out ----
+    t_phase = time.perf_counter()
+    convert_phase(cfg, params, gk, wavs, lengths, y_gpu)
+    train_phase(cfg, gk, smi)
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s wall")
 
     # ---- phase 15: kernel list (printed last) ----
     def entry(name, key, source, replaces, launches, rows=kernel_rows):

@@ -1,8 +1,9 @@
 """DPDFNet in PyTorch with hand-written CUDA kernels for NVIDIA Hopper.
 
 The port of ``dpdfnet_tpu`` (JAX/Pallas on TPU), which stays beside it as
-the reference.  It carries the model zoo, offline batch enhancement,
-real-time streaming, multi-stream serving, the CLI and the bench runner:
+the reference.  It carries the model zoo (reference ``.pth`` checkpoints
+converted on first use), offline batch enhancement, real-time streaming,
+multi-stream serving, the CLI, the bench runner and training:
 
     import dpdfnet_tpu_torch as dp
     y = dp.enhance(audio, 48000, model="dpdfnet8_48khz_hr")    # runs on cuda
@@ -19,6 +20,11 @@ or from an ``Engine`` built by hand:
     eng = dp.Engine(cfg, dp.init_params(cfg, seed=0))
     y = eng.enhance_waveforms(wavs, lengths=lengths)
     se = dp.StreamEnhancer(engine=eng)
+
+    from dpdfnet_tpu_torch import train          # losses and a train step
+    params = dp.init_params(cfg, seed=0)         # or zoo.load_model_params(...)
+    opt = torch.optim.Adam(train.trainable_parameters(params), lr=1e-3)
+    loss, aux = train.make_train_step(cfg, opt)(params, noisy, clean)
 
 Entry points run on ``cuda`` unless given ``device="cpu"`` (``--device
 cpu``), and raise when no GPU is present and the CPU was not asked for.
@@ -60,6 +66,6 @@ _LAZY = {
 def __getattr__(name: str):
     if name in _LAZY:
         return getattr(importlib.import_module(_LAZY[name], __name__), name)
-    if name in {"config", "audio", "audio_io", "zoo", "metrics", "demo", "serving"}:
+    if name in {"config", "audio", "audio_io", "zoo", "metrics", "demo", "serving", "train"}:
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module 'dpdfnet_tpu_torch' has no attribute {name!r}")

@@ -16,7 +16,7 @@ import torch
 from ..config import ModelConfig
 from ..ops.erb import erb_fb_and_inverse
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map
 
 Params = Dict
 
@@ -168,6 +168,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         "erb_inv_fb": torch.from_numpy(erb_inv_fb),
     }
     return tree_map(lambda _, x: x.to(dev), params)
+
+
+def count_params(params: Params) -> int:
+    """Learned-parameter count: every leaf but the fixed ERB filterbanks
+    ``erb_fb`` / ``erb_inv_fb`` (the reference README's figures)."""
+    return sum(x.numel() for path, x in tree_leaves(params)
+               if not {"erb_fb", "erb_inv_fb"} & set(path.split("/")))
 
 
 def contract_params(params: Params, factor: float = 0.7) -> Params:

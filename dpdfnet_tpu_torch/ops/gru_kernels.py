@@ -10,7 +10,12 @@ its plain PyTorch version:
   the CPU tests exercise);
 - for a CUDA tensor it launches the hand-written CUDA kernel
   (``csrc/*.cu``, built for ``sm_90a`` by ``_build``) or raises.  There is
-  no fallback.
+  no fallback;
+- inside a ``force_disabled()`` block every wrapper runs its plain version
+  for CUDA tensors too.  The kernels have no backward, so the train step
+  (``train.make_train_step``) opens one around its forward and backward,
+  as the JAX package's does (``pallas_gru.force_disabled``).  Nothing else
+  opens one.
 
 Every wrapper carries a launch counter, ``<wrapper>.launches``, raised by
 one where it launches its kernel and nowhere else, so a run can show that
@@ -65,6 +70,8 @@ hops), offline B=64 x 4 s within 1.5% (xRT 366.2 / 352.8 against 360.7 /
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import os
@@ -79,6 +86,28 @@ from .nn import gru_cell
 Tensor = torch.Tensor
 
 _LN_EPS = 1e-5
+
+_FORCE_DISABLED = contextvars.ContextVar("dpdfnet_torch_force_disabled", default=0)
+
+
+@contextlib.contextmanager
+def force_disabled():
+    """Run every wrapper's plain version, for CUDA tensors too, inside the
+    block: the kernels are inference-only (no backward), so differentiating
+    code wraps its forward and backward in this.  Nests; a
+    ``ContextVar``, so another thread keeps its kernels
+    (``pallas_gru.force_disabled``)."""
+    token = _FORCE_DISABLED.set(_FORCE_DISABLED.get() + 1)
+    try:
+        yield
+    finally:
+        _FORCE_DISABLED.reset(token)
+
+
+def _plain(x: Tensor) -> bool:
+    """Take the plain version: ``x`` lies on the CPU, or a
+    :func:`force_disabled` block is open."""
+    return x.device.type == "cpu" or _FORCE_DISABLED.get() > 0
 
 
 # --------------------------------------------------------------------------- #
@@ -845,7 +874,7 @@ def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
     ``fm_batch=B``: the fm chain's layout, ``x [Fq, T*B, C]`` (t-major
     rows) in and ``[T, Fq, B, C]`` out.  Replaces
     ``pallas_gru.dprnn_intra_block`` / ``dprnn_intra_block_tm``."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return dprnn_intra_block_plain(x, wi2, wh2, b2, wfc, bfc, g, bln, fm_batch=fm_batch)
     dev = _require_cuda("dprnn_intra_block", {"x": x},
                         dict(wi2=wi2, wh2=wh2, b2=b2, wfc=wfc, bfc=bfc, g=g, bln=bln))
@@ -893,7 +922,7 @@ def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
     T = x.shape[0] if fm_batch else x.shape[1]
     if defer is None:
         defer = inter_defer(T)
-    if x.device.type == "cpu":
+    if _plain(x):
         out, h_last = dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
                                               fm_batch=fm_batch, h_bm=h_bm, defer=defer)
     else:
@@ -944,7 +973,7 @@ def relayout_fm(x: Tensor, *, out_dtype: Optional[torch.dtype] = None) -> Tensor
     shape (the JAX wrapper's multiple-of-8 fallback is a TPU block limit).
     Replaces ``pallas_gru.relayout_fm``."""
     dtype = x.dtype if out_dtype is None else out_dtype
-    if x.device.type == "cpu":
+    if _plain(x):
         return relayout_fm_plain(x, dtype)
     dev = _require_cuda("relayout_fm", {"x": x}, {})
     if dtype not in _PLANE_DTYPES or x.dim() != 4:
@@ -968,7 +997,7 @@ def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
     """Bidirectional GRU along L of ``x [N, L, I]`` from zero state with
     packed weights; returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``
     (:func:`gru_bidir_plan`).  Replaces ``pallas_gru.gru_bidir_tm``."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return gru_bidir_plain(x, wi2, wh2, b2)
     dev = _require_cuda("gru_bidir", {"x": x}, dict(wi2=wi2, wh2=wh2, b2=b2))
     N, L, C = x.shape
@@ -996,7 +1025,7 @@ def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
     (:func:`stack_plan`).  Returns ``(out [B, T, Fq, C], h_last [K, B, Fq,
     C])``; on float32 planes bit-identical to K x (:func:`dprnn_intra_block`
     + :func:`dprnn_inter_block`).  Replaces ``pallas_gru.dprnn_stack``."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return dprnn_stack_plain(x, h0, stacked)
     B, T, Fq, C = x.shape
     K = h0.shape[0]
@@ -1030,7 +1059,7 @@ def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tens
     kernel takes H a multiple of 32 from 32 to ``GRU_SCAN_H_MAX`` (256,
     every shipped ``gru_dim``) and raises on any other.  Replaces
     ``pallas_gru.gru_scan_tm``."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return gru_scan_plain(x, h0, wi, bi, wh, bh, reverse=reverse)
     dev = _require_cuda("gru_scan", {"x": x}, dict(h0=h0, wi=wi, bi=bi, wh=wh, bh=bh))
     N, T, I = x.shape
@@ -1065,7 +1094,7 @@ def dprnn_intra_block_v2(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
     with ``xp_bf16=False`` its output is bit for bit
     :func:`dprnn_intra_block`'s on the matching v1 packs.  Replaces
     ``pallas_gru.dprnn_intra_block_v2``."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return dprnn_intra_block_v2_plain(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16=xp_bf16)
     dev = _require_cuda("dprnn_intra_block_v2", {"x": x},
                         dict(wi_cat=wi_cat, wh_big=wh_big, b2=b2, bfc=bfc, g=g, bln=bln))
@@ -1097,7 +1126,7 @@ def dprnn_inter_block_v2(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Te
     the caller (float32 or bfloat16) and ``whfc = [Wh | Wfc]``: one product
     ``h_new . [Wh | Wfc]`` per step.  Returns ``(out, h_last [B, Fq, C])``.
     Replaces ``pallas_gru.dprnn_inter_block_v2``."""
-    if x.device.type == "cpu":
+    if _plain(x):
         return dprnn_inter_block_v2_plain(xp, x, h0, whfc, bh, bfc, g, bln)
     dev = _require_cuda("dprnn_inter_block_v2", {"xp": xp, "x": x},
                         dict(h0=h0, whfc=whfc, bh=bh, bfc=bfc, g=g, bln=bln))

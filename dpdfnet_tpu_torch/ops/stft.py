@@ -1,9 +1,12 @@
-"""STFT / iSTFT with the DFT as one GEMM (counterpart of ``dpdfnet_tpu.ops.stft``).
+"""STFT / iSTFT (counterpart of ``dpdfnet_tpu.ops.stft``).
 
 Offline framing is *center*: reflect-pad ``win//2`` on both sides, frames
 every ``hop`` samples (``torch.stft(center=True)`` convention).  The
-windowed real DFT and its inverse + synthesis window are single matrices,
-so the front and back ends are each one matrix product.
+engine's forms take the windowed real DFT and its inverse + synthesis
+window as single matrices, so the front and back ends are each one matrix
+product (``stft_matmul`` / ``istft_matmul``); the plain forms
+(``stft`` / ``istft``, ``torch.fft.rfft`` / ``irfft``) serve the training
+losses, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +25,24 @@ def frame_signal(x: Tensor, win: int, hop: int, *, center: bool) -> Tensor:
     if center:
         x = F.pad(x[:, None], (win // 2, win // 2), mode="reflect")[:, 0]
     return x.unfold(-1, win, hop)
+
+
+def stft(x: Tensor, window: Tensor, hop: int, *, center: bool = True) -> Tensor:
+    """STFT ``[B, S] -> [B, T, F, 2]`` (real / imaginary stacked) with
+    ``torch.fft.rfft``, at x's dtype."""
+    frames = frame_signal(x, window.shape[0], hop, center=center)
+    spec = torch.fft.rfft(frames * window.to(x.dtype), dim=-1)
+    return torch.stack([spec.real, spec.imag], dim=-1).to(x.dtype)
+
+
+def istft(spec: Tensor, window: Tensor, hop: int, *, center: bool = True) -> Tensor:
+    """Inverse STFT ``[B, T, F, 2] -> [B, S]`` with ``torch.fft.irfft``,
+    windowed overlap-add and window-sum-square normalisation; ``S =
+    hop*(T-1)`` for centred frames, ``win + hop*(T-1)`` for causal ones."""
+    win = window.shape[0]
+    comp = torch.complex(spec[..., 0], spec[..., 1])
+    frames = torch.fft.irfft(comp, n=win, dim=-1) * window.to(spec.dtype)   # [B, T, win]
+    return _overlap_add_normalised(frames, window, hop, center)
 
 
 def dft_matrices(n_fft: int, window: np.ndarray) -> np.ndarray:
@@ -72,9 +93,16 @@ def istft_matmul(spec: Tensor, window: Tensor, hop: int, *, center: bool = True,
     if idft is None:
         idft = torch.as_tensor(idft_matrices(win, window.cpu().numpy()),
                                device=spec.device)
-    B, T = spec.shape[:2]
     flat = torch.cat([spec[..., 0], spec[..., 1]], dim=-1)       # [B, T, 2F]
     frames = flat @ idft.to(spec.dtype)                          # [B, T, win]
+    return _overlap_add_normalised(frames, window, hop, center)
+
+
+def _overlap_add_normalised(frames: Tensor, window: Tensor, hop: int, center: bool
+                            ) -> Tensor:
+    """Overlap-add the windowed frames ``[B, T, win]``, divide by the window
+    sum-square, and trim ``win//2`` on each side for centred frames."""
+    T, win = frames.shape[1:]
     total = win + hop * (T - 1)
     out = _overlap_add(frames, hop, total)
     wss = _window_sumsquare(window.cpu().numpy(), T, hop)

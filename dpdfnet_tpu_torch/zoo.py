@@ -427,10 +427,10 @@ def resolve_model(
 
 
 def load_model_params(resolved: ResolvedModel, device: DeviceLike = None):
-    """Load the converted parameter tree onto ``device`` (``None``: cuda).
-
-    A ``.pth`` checkpoint without its cached npz needs the checkpoint
-    converter (``models/convert.py``), which is not ported yet."""
+    """Load the converted parameter tree onto ``device`` (``None``: cuda),
+    converting a ``.pth`` checkpoint on ``device`` and caching its npz
+    (``<model>.params.npz``, which the JAX package reads too) on first use.
+    The cache is best-effort: an unwritable directory only skips it."""
     from .utils import serialization
 
     if _is_valid_file(resolved.params_path):
@@ -438,11 +438,21 @@ def load_model_params(resolved: ResolvedModel, device: DeviceLike = None):
     if resolved.checkpoint_path is None:
         raise FileNotFoundError(
             f"No cached params and no checkpoint for '{resolved.info.name}'.")
-    raise NotImplementedError(
-        f"'{resolved.checkpoint_path.name}' has no converted params cache "
-        f"('{resolved.params_path}'): converting a .pth checkpoint "
-        "(models/convert.py) is not ported yet (ROADMAP.md queue 1). Convert it "
-        "once with the JAX package, which writes that cache, or pass an npz.")
+    from .models import convert
+
+    params = convert.load_params(resolved.checkpoint_path, resolved.cfg, device)
+    try:
+        _assert_writable_dir(resolved.params_path.parent)
+        lock = FileLock(str(
+            resolved.params_path.parent / f".{resolved.info.name}.convert.lock"))
+        with lock:
+            if not _is_valid_file(resolved.params_path):
+                tmp = resolved.params_path.with_suffix(".tmp.npz")
+                serialization.save_params(tmp, params)
+                os.replace(tmp, resolved.params_path)
+    except (RuntimeError, OSError):
+        pass                                           # cache is best-effort
+    return params
 
 
 def download_model(

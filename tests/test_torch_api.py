@@ -302,13 +302,41 @@ def test_resolve_model_without_download_raises(tmp_model_dir):
         zoo.resolve_model(model="dpdfnet2", auto_download=False)
 
 
-def test_pth_checkpoint_without_npz_raises_not_ported(tmp_path):
+def test_pth_checkpoint_is_converted_and_cached(tmp_path, monkeypatch):
+    """A ``.pth`` with no npz beside it: the zoo converts it, writes its npz
+    next to it (no temp file left), and reads that npz on the next call
+    without converting again; the JAX package's loader reads the same
+    arrays, which are the source weights (a synthetic reference-layout
+    checkpoint, ``tools.synth_checkpoint``, whose round trip is exact)."""
+    from dpdfnet_tpu.utils.serialization import load_params as jax_load_params
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models import convert
+    from dpdfnet_tpu_torch.tools.synth_checkpoint import save_checkpoint
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves
+
+    src = contracted_params_np(MODEL)
     ckpt = tmp_path / "custom.pth"
-    ckpt.write_bytes(b"not converted")
+    save_checkpoint(ckpt, src, get_config(MODEL))
     resolved = zoo.resolve_model(model="dpdfnet2", checkpoint_path=ckpt)
     assert resolved.params_path == tmp_path / "custom.params.npz"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        zoo.load_model_params(resolved, device="cpu")
+    assert not resolved.params_path.exists()
+    p = zoo.load_model_params(resolved, device="cpu")
+    assert resolved.params_path.is_file() and not list(tmp_path.glob("*.tmp.npz"))
+
+    def no_convert(*args, **kwargs):
+        raise AssertionError("converted again although the npz is cached")
+
+    monkeypatch.setattr(convert, "load_params", no_convert)
+    again = zoo.load_model_params(resolved, device="cpu")
+    theirs = dict(tree_leaves(jax_load_params(resolved.params_path)))
+    ref = dict(tree_leaves(src))
+    leaves = list(tree_leaves(p))
+    assert [k for k, _ in leaves] == [k for k, _ in tree_leaves(again)]
+    assert {k for k, _ in leaves} == set(theirs) == set(ref)
+    for (k, x), (_, y) in zip(leaves, tree_leaves(again)):
+        assert x.device.type == "cpu" and torch.equal(x, y), k
+        assert np.array_equal(x.numpy(), np.asarray(theirs[k])), k
+        assert np.array_equal(x.numpy(), ref[k]), k
     with pytest.raises(FileNotFoundError):
         zoo.resolve_model(model="dpdfnet2", checkpoint_path=tmp_path / "missing.pth")
 

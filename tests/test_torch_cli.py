@@ -43,7 +43,7 @@ from dpdfnet_tpu_torch.runtime import bench
 from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.stream import StreamEnhancer
 from dpdfnet_tpu_torch.utils.serialization import load_params
-from dpdfnet_tpu_torch.utils.tree import tree_map
+from dpdfnet_tpu_torch.utils.tree import tree_leaves, tree_map
 
 torch.set_num_threads(1)
 MODEL = "dpdfnet2"
@@ -144,6 +144,33 @@ def test_cli_enhance_dir_matches_jax_cli(model_dir, tmp_path, capsys):
                      "c_enhanced.wav"]
     for n in names:
         _within_one_step(tmp_path / "ours" / n, tmp_path / "theirs" / n)
+
+
+def test_cli_enhance_converts_a_pth_checkpoint(tmp_model_dir, tmp_path, capsys):
+    """The zoo's checkpoint directory holds a synthetic dpdfnet2 ``.pth``
+    and no npz: ``enhance --device cpu`` converts it, caches the npz beside
+    it (the source weights bit for bit: the synthetic checkpoint's round
+    trip is exact) and writes the wav; the JAX CLI then runs from the npz
+    the port wrote."""
+    from dpdfnet_tpu_torch.tools.synth_checkpoint import save_checkpoint
+
+    models = tmp_path / "models"
+    models.mkdir()
+    p = contract_params(init_params(get_config(MODEL), seed=5, device="cpu"))
+    save_checkpoint(models / f"{MODEL}.pth", p, get_config(MODEL))
+    src = tmp_path / "noisy.wav"
+    audio_io.write_wav(src, _speech(6, 0.6), SR)
+    ours, theirs = tmp_path / "ours.wav", tmp_path / "theirs.wav"
+    _clear_caches()
+    assert cli.main(["enhance", str(src), str(ours), "--model", MODEL, "--device", "cpu"]) == 0
+    assert "Wrote enhanced audio" in capsys.readouterr().out
+    cached = load_params(models / f"{MODEL}.params.npz", device="cpu")
+    got, want = dict(tree_leaves(cached)), dict(tree_leaves(p))
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert jax_cli.main(["enhance", str(src), str(theirs), "--model", MODEL]) == 0
+    _within_one_step(ours, theirs)
+    _clear_caches()
 
 
 def test_cli_download_with_fake_fetch(tmp_model_dir, monkeypatch, capsys):

@@ -929,3 +929,40 @@ def test_cuda_api_enhance_equals_engine_path(dev, tmp_path, monkeypatch):
                                      for i in range(-(-T // eng.seg_frames))]
     finally:
         api.clear_engine_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_launches_no_kernel_and_converts(dev, tmp_path):
+    """Two Adam steps on the card run the plain versions only (no launch),
+    lower the loss and leave the filterbanks alone; an engine on the
+    trained weights launches the kernels again; a synthetic ``.pth``
+    converts on the card to the same weights, bit for bit."""
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models import convert
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.runtime.engine import Engine
+    from dpdfnet_tpu_torch.tools.synth_checkpoint import save_checkpoint
+    from dpdfnet_tpu_torch.train import make_train_step, trainable_parameters
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_config("dpdfnet2")
+    p = contract_params(init_params(cfg, seed=0, device=dev))
+    save_checkpoint(tmp_path / "m.pth", p, cfg)
+    conv = dict(tree_leaves(convert.load_params(tmp_path / "m.pth", cfg, device=dev)))
+    assert all(conv[k].is_cuda and torch.equal(conv[k], v) for k, v in tree_leaves(p))
+    rng = np.random.default_rng(4)
+    clean = torch.tensor(0.1 * rng.normal(size=(2, 4000)), dtype=torch.float32, device=dev)
+    noisy = clean + 0.05 * torch.randn(clean.shape, generator=torch.Generator(dev).manual_seed(1),
+                                       device=dev)
+    fb = p["erb_fb"].clone()
+    step = make_train_step(cfg, torch.optim.Adam(trainable_parameters(p), lr=1e-3))
+    gru_kernels.reset_launch_counts()
+    losses = [float(step(p, noisy, clean)[0]) for _ in range(2)]
+    assert all(v == 0 for v in gru_kernels.launch_counts().values())
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
+    assert torch.equal(p["erb_fb"], fb)
+    eng = Engine(cfg, tree_map(lambda _, x: x.detach(), p), device=dev)
+    gru_kernels.reset_launch_counts()
+    with torch.no_grad():
+        y = eng.enhance_waveforms(noisy.cpu().numpy())
+    assert np.isfinite(y).all() and gru_kernels.launch_counts()["gru_scan"] > 0
