@@ -34,12 +34,15 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    ``lengths``, on the card and on the CPU with the same weights; checks
    finiteness, the card-vs-CPU deviation and the kernels' launch counts;
 4. throughput: B=64 x 4 s through ``enhance_waveforms``, median of 3 timed
-   calls after a warm-up: xRT, ms per 112-frame segment, peak memory; the
-   same with the DPRNN stack kernel (``DPDFNET_TPU_STACK=1``);
+   calls after a warm-up: xRT, ms per 112-frame segment, peak memory and
+   the launches per segment; the same with the DPRNN stack kernel
+   (``DPDFNET_TPU_STACK=1``, whose launches the kernel list reports);
 5. streaming, card vs CPU: ``process_frames`` with 4 streams x 40 hops in
    exact and throughput modes, with the per-stage DPRNN kernels and with
-   the stack kernel: deviation from the CPU engine, launches per hop, and
-   exact mode bit-identical across three chunkings;
+   the stack kernel: deviation from the CPU engine; on the card each
+   program is a CUDA graph, so the wrappers count the launches of the eager
+   span before each capture and the engine counts the replays of the
+   rest; exact mode bit-identical across three chunkings;
 6. ``StreamEnhancer`` on the card (odd chunk sizes, save/load resume,
    flush) and ``MultiStreamEnhancer`` (8 slots, mixed cadences, each slot
    against a lone stream);
@@ -114,7 +117,34 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    weights that launches the kernels again; and one step on the card
    against the same step on the CPU at B=1 x 0.25 s (the loss, and every
    gradient leaf relative to its largest CPU value);
-15. (run after 17) one JSON line listing the kernels, then the final JSON
+18. the captured streaming programs and export, on ``dpdfnet8_48khz_hr``
+   at full width and depth (run after 17): (a) exact streaming through
+   the CUDA graph at 64 streams x 200 hops in ``highest`` against an eager
+   per-frame loop of the same engine (front / ``forward_spec`` / back
+   called here; ``torch.equal`` expected, max-abs reported), bit-identical
+   across the chunkings of ``stream_spans``, card vs CPU (streams 0-3, 50
+   hops), one eager hop's 16 / 16 / 5 launches before the capture and 199
+   replays; ``turbo`` + V2 exact (chunk invariance, card vs CPU rel_rms)
+   and ``highest`` throughput mode at 8 hops per call (card vs CPU,
+   launches and replays); two ``StreamEnhancer`` s and a
+   ``MultiStreamEnhancer(8)`` on one engine, interleaved call by call, and
+   two ``StreamEnhancer`` s driven from two threads at once, each equal to
+   its own run alone; (b) exact ms per hop at 64 streams, an eager
+   per-frame loop against the graph against the stack kernel's graph
+   (whose cache key must differ), interleaved block by block, in
+   ``highest`` and ``turbo`` + V2, then from the device trace of
+   ``runtime/profile.py --stream`` (graph in both tiers and the stack's
+   graph) device busy share, device ops per hop, gru_scan's time per
+   launch and the port's kernels each replayed hop ran (16 / 16 / 5, the
+   stack 2 / 5), with one replay per hop and no wrapper launch; (c) ``export.export_stream`` at B=1: seconds to export,
+   MB, seconds to load, the graph's ``dpdfnet::*`` nodes, 16 / 16 / 5
+   launches per loaded step, the loaded step against the engine's spec
+   program over 100 frames (1e-5), and
+   ``tools/consume_exported.py`` in a fresh process on a 3 s wav against
+   ``StreamEnhancer`` (2e-4, the 16-bit step; no model module loaded);
+   (d) ``export.export_offline`` at B=4 x 2 s (padded to its bucket)
+   against ``Engine.enhance_waveforms`` (1e-5); the phase's wall time;
+15. (run after 18) one JSON line listing the kernels, then the final JSON
    status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
@@ -129,6 +159,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -231,6 +262,30 @@ def expect_counts(what: str, counts: dict, want: dict) -> None:
         if v != want.get(k, 0) or (k in want and v <= 0):
             raise AssertionError(f"{what}: kernel {k} launched {v} times, expected "
                                  f"{want.get(k, 0)} ({json.dumps(counts)})")
+
+
+def graph_counted(e, gk, fn):
+    """Run ``fn()``, which streams through engine ``e``; returns its result,
+    the launches the wrappers made (they count only launches they make
+    themselves: the eager warm-up span of each graph the run captured), the
+    graphs captured and the graph replays in the run."""
+    torch.cuda.synchronize()
+    gk.reset_launch_counts()
+    graphs, replays = len(e._graphs), e.graph_replays
+    out = fn()
+    torch.cuda.synchronize()
+    return out, gk.launch_counts(), len(e._graphs) - graphs, e.graph_replays - replays
+
+
+def expect_graph_counts(what: str, counted, per_call: dict, calls: int) -> None:
+    """``graph_counted``'s launches and replays for ``calls`` forward_spec
+    calls of ``per_call`` launches each: each captured graph's warm-up span
+    launched once, every other call was one replay."""
+    _, counts, captured, replays = counted
+    expect_counts(what, counts, {k: v * captured for k, v in per_call.items() if captured})
+    if replays != calls - captured:
+        raise AssertionError(f"{what}: {replays} graph replays and {captured} captures for "
+                             f"{calls} calls")
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -605,10 +660,10 @@ def run_chunked(eng, frames, cuts, mode="exact"):
 
 
 def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
-    """process_frames card vs CPU, launches per hop, chunk invariance."""
+    """process_frames card vs CPU, launches and graph replays, chunk
+    invariance."""
     B, T = 4, 40
     frames = stream_frames(rng, B, T, cfg.win_len)
-    launches = {}
     for mode in ("exact", "throughput"):
         calls = T if mode == "exact" else len(stream_spans(T))
         t0 = time.perf_counter()
@@ -616,25 +671,21 @@ def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
         t_cpu = time.perf_counter() - t0
         for name, e, on in (("per-stage", eng, False), ("stack", eng_stack, True)):
             with set_env(STACK, on):
-                torch.cuda.synchronize()
-                gk.reset_launch_counts()
-                y, _ = e.process_frames(frames, e.init_stream_state(batch=B), mode=mode)
-                torch.cuda.synchronize()
-                counts = gk.launch_counts()
+                counted = graph_counted(e, gk, lambda: e.process_frames(
+                    frames, e.init_stream_state(batch=B), mode=mode))
+            (y, _), counts, captured, replays = counted
             per_call = ({"dprnn_stack": 2} if on else
                         {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
                          "dprnn_inter_block": 2 * cfg.dprnn_blocks})
             per_call["gru_scan"] = 5
-            expect_counts(f"streaming {mode} {name}", counts,
-                          {k: v * calls for k, v in per_call.items()})
-            if mode == "exact":
-                launches[name] = counts
+            expect_graph_counts(f"streaming {mode} {name}", counted, per_call, calls)
             if not np.isfinite(y).all():
                 raise AssertionError(f"streaming {mode} {name}: output not finite")
             err = float(np.abs(y - ref).max())
             log(f"streaming {mode} {name} B={B} x {T} hops: card vs CPU max_abs {err:.3e} "
-                f"(tol {ENGINE_TOL:.0e}); launches {json.dumps(counts)} = per forward_spec "
-                f"call {json.dumps(per_call)} x {calls} calls (CPU run {t_cpu:.1f} s)")
+                f"(tol {ENGINE_TOL:.0e}); {calls} forward_spec calls: {captured} graph(s) "
+                f"captured, each after an eager span that launched {json.dumps(per_call)} "
+                f"({json.dumps(counts)} counted), {replays} replays (CPU run {t_cpu:.1f} s)")
             if not err <= ENGINE_TOL:
                 raise AssertionError(f"streaming {mode} {name} deviates from the CPU by {err:.3e}")
             if mode == "exact":
@@ -647,7 +698,6 @@ def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
                                 f"all-at-once by {float(np.abs(other - y).max()):.3e}")
                 log(f"exact streaming {name}: bit-identical for chunkings all-at-once, "
                     f"1+1+..., 3+5+...")
-    return launches
 
 
 def enhancer_phase(cfg, eng, rng):
@@ -896,13 +946,10 @@ def tier_phase(cfg, params, cpu_params, gk, smi, rng, wavs, lengths):
     for name in ("turbo", "turbo+V2"):
         e, v2 = engines[name]
         with set_env(STACK, False), set_env(V2, v2):
-            torch.cuda.synchronize()
-            gk.reset_launch_counts()
-            y = run_chunked(e, frames, [T])
-            torch.cuda.synchronize()
-            counts = gk.launch_counts()
-            expect_counts(f"exact streaming {name}", counts,
-                          {k: T * v for k, v in (per_seg_v2 if v2 else per_seg).items()})
+            counted = graph_counted(e, gk, lambda: run_chunked(e, frames, [T]))
+            y, counts, captured, replays = counted
+            expect_graph_counts(f"exact streaming {name}", counted,
+                                per_seg_v2 if v2 else per_seg, T)
             for cuts in ([1] * T, [3, 5] * (T // 8)):
                 other = run_chunked(e, frames, cuts)
                 if not np.array_equal(other, y):
@@ -914,8 +961,9 @@ def tier_phase(cfg, params, cpu_params, gk, smi, rng, wavs, lengths):
         dtypes = sorted({str(v.dtype).replace("torch.", "") for _, v in tree_leaves(st)})
         y_hi = run_chunked(engines["highest"][0], frames, [T])
         log(f"exact streaming {name} B={B} x {T} hops: bit-identical for chunkings "
-            f"all-at-once, 1+1+..., 3+5+...; launches per hop "
-            f"{json.dumps({k: v // T for k, v in counts.items() if v})}; state leaves "
+            f"all-at-once, 1+1+..., 3+5+...; {captured} graph captured after an eager hop "
+            f"that launched {json.dumps({k: v for k, v in counts.items() if v})}, {replays} "
+            f"replays; state leaves "
             f"{dtypes}; vs highest max_abs {float(np.abs(y - y_hi).max()):.3e}; throughput "
             f"mode vs exact {float(np.abs(y_tp - y).max()):.3e}")
         if not (np.isfinite(y).all() and np.isfinite(y_tp).all()):
@@ -1183,14 +1231,11 @@ def fm_chain_phase(cfg, params, cpu_params, gk, smi, rng):
     # ---- exact streaming at 64 streams through the fm chain (T == 1) ----
     frames = stream_frames(rng, 64, 12, cfg.win_len)
     with set_env(STACK, False), set_env(TM, True):
-        torch.cuda.synchronize()
-        gk.reset_launch_counts()
-        y = run_chunked(eng, frames, [12])
-        torch.cuda.synchronize()
-        counts = gk.launch_counts()
-        expect_counts("fm chain exact streaming", counts,
-                      {"dprnn_intra_block": 12 * 2 * K, "dprnn_inter_block": 12 * 2 * K,
-                       "gru_scan": 12 * 5})
+        counted = graph_counted(eng, gk, lambda: run_chunked(eng, frames, [12]))
+        y, counts, captured, replays = counted
+        expect_graph_counts("fm chain exact streaming", counted,
+                            {"dprnn_intra_block": 2 * K, "dprnn_inter_block": 2 * K,
+                             "gru_scan": 5}, 12)
         for cuts in ([1] * 12, [3, 5, 4]):
             other = run_chunked(eng, frames, cuts)
             if not np.array_equal(other, y):
@@ -1202,8 +1247,9 @@ def fm_chain_phase(cfg, params, cpu_params, gk, smi, rng):
     # (grouped_linear_fm against grouped_linear) sums in another order
     rm_err = float(np.abs(y - y_rm).max())
     log(f"fm chain exact streaming 64 streams x 12 hops: bit-identical for chunkings "
-        f"all-at-once, 1+1+..., 3+5+4; launches per hop "
-        f"{json.dumps({k: v // 12 for k, v in counts.items() if v})}; vs the row-major chain "
+        f"all-at-once, 1+1+..., 3+5+4; {captured} graph captured after an eager hop that "
+        f"launched {json.dumps({k: v for k, v in counts.items() if v})}, {replays} replays; "
+        f"vs the row-major chain "
         f"max_abs {rm_err:.3e} (tol {KERNEL_TOL:.0e})")
     if not rm_err <= KERNEL_TOL:
         raise AssertionError(f"fm chain exact streaming deviates from the row-major chain by "
@@ -1666,6 +1712,370 @@ def train_phase(cfg, gk, smi):
         raise AssertionError("the train step on the card deviates from the CPU step")
 
 
+def _hops(e, frames, per_call=1, mode="exact", st=None):
+    """``frames`` through ``e.process_frames``, ``per_call`` hops per call;
+    returns the output frames and the last state."""
+    st = e.init_stream_state(batch=frames.shape[0]) if st is None else st
+    ys = []
+    for i in range(0, frames.shape[1], per_call):
+        y, st = e.process_frames(frames[:, i:i + per_call], st, mode=mode)
+        ys.append(y)
+    return np.concatenate(ys, axis=1), st
+
+
+def _eager_hops(e, frames, st=None):
+    """The exact hop without a graph, as ``process_frames`` makes it once per
+    hop (frames up, front, ``forward_spec``, back, output down), called here
+    on the engine's weights and math mode; returns the output frames and
+    the last state."""
+    from dpdfnet_tpu_torch.models.dpdfnet import forward_spec
+    from dpdfnet_tpu_torch.runtime.engine import _math_mode
+
+    front, back = e._stream_ends()
+    st = e.init_stream_state(batch=frames.shape[0]) if st is None else st
+    ys = []
+    with _math_mode(e.precision):
+        for t in range(frames.shape[1]):
+            x = torch.from_numpy(np.ascontiguousarray(frames[:, t:t + 1])).cuda()
+            out, st, _ = forward_spec(e.params, e.cfg, front(x), st, precision=e.precision)
+            ys.append(back(out).cpu().numpy())
+    return np.concatenate(ys, axis=1), st
+
+
+def graph_phase(cfg, params, cpu_eng, cpu_params, gk, rng):
+    """Phase 18a: exact streaming through the captured graph at 64 streams x
+    200 hops on the flagship, against the eager per-frame loop, across
+    chunkings, against the CPU, with the wrappers' launches and the graph
+    replays counted; turbo + V2 exact and highest throughput mode;
+    enhancers sharing one engine, interleaved and from two threads."""
+    from dpdfnet_tpu_torch import Engine, MultiStreamEnhancer, StreamEnhancer
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    B, T = 64, 200
+    frames = stream_frames(rng, B, T, cfg.win_len)
+    per_hop = {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+               "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5}
+    with set_env(STACK, False):
+        e = Engine(cfg, params, precision="highest", device="cuda")
+        counted = graph_counted(e, gk, lambda: _hops(e, frames))
+        (y, _), counts, captured, replays = counted
+        expect_graph_counts("graph exact 64 x 200", counted, per_hop, T)
+        ref, _ = _eager_hops(e, frames)
+        same = bool(np.array_equal(y, ref))
+        log(f"graph exact {MODEL} highest {B} streams x {T} hops, one call per hop: vs the "
+            f"eager per-frame loop torch.equal {same}, max_abs {float(np.abs(y - ref).max()):.3e}; "
+            f"{captured} graph captured after an eager hop that launched {json.dumps(counts)}, "
+            f"{replays} replays (the kernels a replay runs: 18b's traces)")
+        if not np.isfinite(y).all() or not float(np.abs(y - ref).max()) <= KERNEL_TOL:
+            raise AssertionError("graph exact streaming deviates from the eager loop")
+        for cuts in ([T], stream_spans(T), [3, 5] * (T // 8)):
+            other = run_chunked(e, frames, cuts)
+            if not np.array_equal(other, y):
+                raise AssertionError(f"graph exact streaming: chunking {cuts[:4]}... differs "
+                                     f"by {float(np.abs(other - y).max()):.3e}")
+        log("graph exact: bit-identical for chunkings 1+1+..., all-at-once, "
+            f"{'+'.join(map(str, stream_spans(T)))}, 3+5+...")
+        n_cpu = 50
+        t0 = time.perf_counter()
+        y_cpu, _ = cpu_eng.process_frames(frames[:4, :n_cpu], cpu_eng.init_stream_state(batch=4))
+        err = float(np.abs(y[:4, :n_cpu] - y_cpu).max())
+        log(f"graph exact card vs CPU (streams 0-3 of the 64, {n_cpu} hops): max_abs {err:.3e} "
+            f"(tol {ENGINE_TOL:.0e}; CPU {time.perf_counter() - t0:.1f} s)")
+        if not err <= ENGINE_TOL:
+            raise AssertionError(f"graph exact streaming deviates from the CPU by {err:.3e}")
+
+        # throughput mode, highest, 8 hops per call
+        counted = graph_counted(e, gk, lambda: _hops(e, frames, per_call=8, mode="throughput"))
+        (y_tp, _), tp_counts, tp_captured, tp_replays = counted
+        expect_graph_counts("graph throughput 64 x 200", counted, per_hop, T // 8)
+        y_tp_cpu, _ = cpu_eng.process_frames(frames[:4, :48], cpu_eng.init_stream_state(batch=4),
+                                             mode="throughput")
+        # the CPU engine splits 48 frames as 32 + 16, the card 6 x 8: chunking moves
+        # throughput mode by about 1e-5, well inside the engine bound
+        err_tp = float(np.abs(y_tp[:4, :48] - y_tp_cpu).max())
+        err_ex = float(np.abs(y_tp - y).max())
+        log(f"graph throughput highest {B} streams x {T} hops, 8 per call: card vs CPU (streams "
+            f"0-3, 48 hops) max_abs {err_tp:.3e} (tol {ENGINE_TOL:.0e}), vs exact {err_ex:.3e}; "
+            f"{tp_captured} graph captured after an eager call that launched "
+            f"{json.dumps(tp_counts)}, {tp_replays} replays")
+        if not (np.isfinite(y_tp).all() and err_tp <= ENGINE_TOL and err_ex <= ENGINE_TOL):
+            raise AssertionError("graph throughput mode deviates from the CPU or from exact")
+
+        # enhancers sharing the engine, interleaved call by call
+        sr, hop = cfg.sample_rate, cfg.hop
+        xs = [(0.1 * rng.standard_normal(sr)).astype(np.float32) for _ in range(10)]
+        chunk = 3 * hop + 7
+
+        def pool_run(pool, sids, i):
+            return pool.process_many({s: xs[2 + j][i:i + chunk] for j, s in enumerate(sids)})
+
+        def alone(x):
+            se = StreamEnhancer(engine=e)
+            return np.concatenate([se.process(x[i:i + chunk]) for i in range(0, sr, chunk)])
+
+        def collect(outs, got):
+            for s, v in got.items():
+                outs.setdefault(s, []).append(v)
+
+        pool_alone = MultiStreamEnhancer(capacity=8, engine=e)
+        sids_alone = [pool_alone.open() for _ in range(8)]
+        ref_pool = {}
+        for i in range(0, sr, chunk):
+            collect(ref_pool, pool_run(pool_alone, sids_alone, i))
+        ref_a, ref_b = alone(xs[0]), alone(xs[1])
+        a, b = StreamEnhancer(engine=e), StreamEnhancer(engine=e)
+        pool = MultiStreamEnhancer(capacity=8, engine=e)
+        sids = [pool.open() for _ in range(8)]
+        got_a, got_b, got_pool = [], [], {}
+        for i in range(0, sr, chunk):
+            got_a.append(a.process(xs[0][i:i + chunk]))
+            collect(got_pool, pool_run(pool, sids, i))
+            got_b.append(b.process(xs[1][i:i + chunk]))
+        ok = (np.array_equal(np.concatenate(got_a), ref_a)
+              and np.array_equal(np.concatenate(got_b), ref_b)
+              and all(np.array_equal(np.concatenate(got_pool[s]), np.concatenate(ref_pool[r]))
+                      for s, r in zip(sids, sids_alone)))
+        log(f"two StreamEnhancers and a MultiStreamEnhancer(8) on one engine, interleaved call "
+            f"by call ({chunk} samples per call, 1 s each): each equal to its own run alone {ok}")
+        if not ok:
+            raise AssertionError("streams sharing one engine are not independent")
+        got_t, errors = {}, []
+
+        def worker(k):
+            try:
+                got_t[k] = alone(xs[k])
+            except Exception as exc:                       # raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        ok = np.array_equal(got_t[0], ref_a) and np.array_equal(got_t[1], ref_b)
+        log(f"two StreamEnhancers on one engine driven from two threads at once: each equal "
+            f"to its own run alone {ok}")
+        if not ok:
+            raise AssertionError("streams sharing one engine across threads are not independent")
+
+    # turbo + V2 exact: chunk invariance at 64 streams, card vs CPU
+    with set_env(STACK, False), set_env(V2, True):
+        et = engine_from_quality(cfg, params, "turbo", device="cuda")
+        counted = graph_counted(et, gk, lambda: _hops(et, frames))
+        (yt, _), counts_t, _, replays_t = counted
+        per_hop_t = {"dprnn_intra_block": per_hop["dprnn_intra_block"],
+                     "dprnn_inter_block_v2": per_hop["dprnn_inter_block"], "gru_scan": 5}
+        expect_graph_counts("graph exact turbo+V2", counted, per_hop_t, T)
+        for cuts in ([T], stream_spans(T)):
+            if not np.array_equal(run_chunked(et, frames, cuts), yt):
+                raise AssertionError(f"graph exact turbo+V2: chunking {cuts[:4]} differs")
+        cpu_t = engine_from_quality(cfg, cpu_params, "turbo", device="cpu")
+        yt_cpu, _ = cpu_t.process_frames(frames[:2, :20], cpu_t.init_stream_state(batch=2))
+        rr = rel_rms(yt[:2, :20], yt_cpu)
+    log(f"graph exact turbo+V2 {B} streams x {T} hops: bit-identical across chunkings 1+1+..., "
+        f"all-at-once, {'+'.join(map(str, stream_spans(T)))}; card vs CPU (streams 0-1, 20 "
+        f"hops) rel_rms {rr:.3e} (tol {TURBO_STREAM_REL_RMS:g}); the eager hop before the "
+        f"capture launched {json.dumps(counts_t)}, {replays_t} replays")
+    if not (np.isfinite(yt).all() and rr <= TURBO_STREAM_REL_RMS):
+        raise AssertionError(f"graph exact turbo+V2 deviates from the CPU: rel_rms {rr:.3e}")
+
+
+def graph_ab_phase(cfg, params, smi, rng, hops=200, block=20):
+    """Phase 18b: exact ms per hop at 64 streams, the eager per-frame loop
+    (``_eager_hops``) against the graph and the stack kernel's graph,
+    interleaved block by block in one process, in highest and turbo + V2;
+    then device busy share, device ops and the port's kernels per replayed
+    hop from the trace of ``runtime/profile.py --stream``."""
+    from dpdfnet_tpu_torch import Engine
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    B = 64
+    frames = stream_frames(rng, B, hops + 8, cfg.win_len)
+    arms = {}
+    for tier, v2 in (("highest", False), ("turbo+V2", True)):
+        for stack in (False, True):
+            with set_env(STACK, stack), set_env(V2, v2):
+                e = (Engine(cfg, params, precision="highest", device="cuda") if not v2 else
+                     engine_from_quality(cfg, params, "turbo", device="cuda"))
+            names = [f"{tier} stack graph"] if stack else [f"{tier} eager", f"{tier} graph"]
+            for name in names:
+                arms[name] = {"e": e, "stack": stack, "v2": v2,
+                              "run": _eager_hops if "eager" in name else
+                              lambda e, f, st: _hops(e, f, st=st)}
+    for a in arms.values():
+        with set_env(STACK, a["stack"]), set_env(V2, a["v2"]):
+            _, a["st"] = a["run"](a["e"], frames[:, :8], None)        # warm-up, capture
+        a["ms"] = []
+    names = list(arms)
+    for k, start in enumerate(range(8, 8 + hops, block)):
+        for name in (names if k % 2 == 0 else names[::-1]):
+            a = arms[name]
+            with set_env(STACK, a["stack"]), set_env(V2, a["v2"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, a["st"] = a["run"](a["e"], frames[:, start:start + block], a["st"])
+                torch.cuda.synchronize()
+                a["ms"].append((time.perf_counter() - t0) * 1e3 / block)
+    res = {}
+    for name, a in arms.items():
+        res[name] = (statistics.median(a["ms"]), min(a["ms"]), max(a["ms"]))
+        log(f"ms per hop {name}: {spread(res[name])} ({B} streams, {hops} hops in blocks of "
+            f"{block}, interleaved) | {smi}")
+    for tier in ("highest", "turbo+V2"):
+        keys = {k for a in (arms[f"{tier} graph"], arms[f"{tier} stack graph"])
+                for k in a["e"]._graphs}
+        stack_flags = {k[2] for k in keys if len(k) > 2 and k[:2] == (B, 1)}
+        if stack_flags != {False, True}:
+            raise AssertionError(f"{tier}: the stack arm's graph key does not differ "
+                                 f"({stack_flags})")
+        log(f"graph speed-up {tier}: eager / graph {res[f'{tier} eager'][0] / res[f'{tier} graph'][0]:.3f}, "
+            f"graph / stack graph {res[f'{tier} graph'][0] / res[f'{tier} stack graph'][0]:.3f}")
+    K = cfg.dprnn_blocks
+    per_hop = {"dprnn_intra_kernel": 2 * K, "dprnn_inter_kernel": 2 * K,
+               "gru_recur_cluster_kernel": 5}
+    prof = {}
+    for label, extra, want in (
+            ("highest graph", ["--quality", "highest"], per_hop),
+            ("highest stack graph", ["--quality", "highest", "--stack"],
+             {"dprnn_stack_kernel": 2, "gru_recur_cluster_kernel": 5}),
+            ("turbo+V2 graph", ["--quality", "turbo", "--v2"],
+             {"dprnn_intra_kernel": 2 * K, "dprnn_inter_v2_kernel": 2 * K,
+              "gru_recur_cluster_kernel": 5})):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "dpdfnet_tpu_torch.runtime.profile",
+                              "--stream", "--hops", "50", *extra], capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise AssertionError(f"profile {label} failed: {out.stderr[-2000:]}")
+        p = json.loads(out.stdout[out.stdout.index("{"):])
+        hops_p = p["hops"]
+        prof[label] = p
+        log(f"profile --stream {label} ({B} streams, {hops_p} hops): ms per hop "
+            f"{p['ms_per_hop']:.3f}, device busy {p['device_busy_ms'] / hops_p:.3f} ms per hop, "
+            f"busy share {p['device_busy_share']:.3f}, device ops per hop "
+            f"{p['device_ops'] / hops_p:.1f}, gru_scan {p['family_ms'].get('gru_scan', 0.0) / hops_p / 5:.4f} "
+            f"ms per launch, families per hop "
+            f"{json.dumps({k: round(v / hops_p, 4) for k, v in p['family_ms'].items()})}; "
+            f"{p['graph_replays']} graph replays, wrapper launches "
+            f"{json.dumps({k: v for k, v in p['launches'].items() if v})}, kernels in the trace "
+            f"{json.dumps(p['kernel_launches'])} ({time.perf_counter() - t0:.1f} s)")
+        if p["graph_replays"] != hops_p or any(p["launches"].values()):
+            raise AssertionError(f"profile {label}: {p['graph_replays']} replays for {hops_p} "
+                                 f"hops, wrapper launches {p['launches']}")
+        if p["kernel_launches"] != {k: v * hops_p for k, v in want.items()}:
+            raise AssertionError(f"profile {label}: the replays ran {p['kernel_launches']}, "
+                                 f"expected {want} per hop")
+    return res, prof
+
+
+def export_phase(cfg, params, eng, gk, smi, rng):
+    """Phase 18c-d: ``export_stream`` at B=1 and ``export_offline`` at B=4 x
+    2 s of the flagship on the card: timings and size, the graph's kernel
+    ops, launches per loaded step, the loaded step against the engine's
+    spec program, the standalone consumer in a fresh process against
+    ``StreamEnhancer``, the offline artifact against the engine."""
+    import collections
+    import tempfile
+    from pathlib import Path
+
+    from dpdfnet_tpu_torch import StreamEnhancer
+    from dpdfnet_tpu_torch import export as ex
+    from dpdfnet_tpu_torch.audio_io import read_wav, write_wav
+
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    with set_env(STACK, False):
+        t0 = time.perf_counter()
+        path = ex.export_stream(params, cfg, d / f"{MODEL}.stream.pt2")
+        t_exp = time.perf_counter() - t0
+        mb = path.stat().st_size / 2 ** 20
+        t0 = time.perf_counter()
+        loaded = ex.load_exported(path)
+        t_load = time.perf_counter() - t0
+        ops = collections.Counter(str(n.target) for n in loaded.program.graph.nodes
+                                  if n.op == "call_function" and str(n.target).startswith("dpdfnet."))
+        log(f"export_stream {MODEL} B=1: {t_exp:.1f} s to export, {mb:.1f} MB on disk, "
+            f"{t_load:.1f} s to load; kernel ops in the graph {json.dumps(dict(ops))}")
+        spec = torch.from_numpy((0.1 * rng.standard_normal((1, 100, cfg.freq_bins, 2))
+                                 ).astype(np.float32)).cuda()
+        ref, _ = eng._stream_spec_fn(1, 100)(spec, eng.init_stream_state(batch=1))
+        flat = torch.from_numpy(ex.build_initial_flat_state(loaded.meta))[None].cuda()
+        loaded.call(spec[:, :1], flat.clone())                            # warm-up
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        outs = []
+        for t in range(100):
+            o, flat = loaded.call(spec[:, t:t + 1], flat)
+            outs.append(o)
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+        got = torch.cat(outs, dim=1)
+        err = (got - ref).abs().max().item()
+        per_step = {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+                    "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5}
+        log(f"loaded step, 100 frames vs the engine's spec program: max_abs {err:.3e} (tol "
+            f"1e-05), torch.equal {torch.equal(got, ref)}; launches {json.dumps(counts)} = "
+            f"{json.dumps(per_step)} per step x 100")
+        expect_counts("loaded export step", counts, {k: 100 * v for k, v in per_step.items()})
+        if not err <= 1e-5:
+            raise AssertionError(f"the exported step deviates from the spec program by {err:.3e}")
+
+        sr = cfg.sample_rate
+        x = (0.2 * np.sin(2 * np.pi * 330 * np.arange(3 * sr) / sr)
+             + 0.05 * rng.standard_normal(3 * sr)).astype(np.float32)
+        in_wav, out_wav = d / "in.wav", d / "out.wav"
+        write_wav(in_wav, x, sr, subtype="PCM_16")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "dpdfnet_tpu_torch.tools.consume_exported",
+                            str(path), str(in_wav), str(out_wav)], capture_output=True,
+                           text=True, timeout=600)
+        t_cons = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"consume_exported failed: {r.stderr[-2000:]}")
+        modules = json.loads(r.stdout.strip().splitlines()[-1].split(" ", 1)[1])
+        got_wav, _ = read_wav(out_wav)
+        se = StreamEnhancer(engine=eng)
+        q = np.asarray(read_wav(in_wav)[0], np.float32)
+        ref_wav = np.concatenate([se.process(q), se.flush()])
+        n = min(got_wav.shape[0], ref_wav.shape[0])
+        err_c = float(np.abs(got_wav[:n] - ref_wav[:n]).max())
+        banned = [m for m in modules if m.startswith(("dpdfnet_tpu_torch.models",
+                                                      "dpdfnet_tpu_torch.runtime",
+                                                      "dpdfnet_tpu_torch.export",
+                                                      "dpdfnet_tpu_torch.stream"))]
+        log(f"consume_exported in a fresh process, 3 s wav: {t_cons:.1f} s wall, vs "
+            f"StreamEnhancer max_abs {err_c:.3e} over {n} samples (tol 2e-04, the 16-bit step); "
+            f"modules loaded {modules}")
+        if not err_c <= 2e-4 or banned or n < 2 * sr:
+            raise AssertionError(f"the consumer deviates by {err_c:.3e} or loaded {banned}")
+
+        # offline at B=4 x 2 s: the bucket enhance_waveforms pads 2 s to
+        S0 = 2 * sr
+        S = eng.bucket_len(S0)
+        wav = (0.1 * rng.standard_normal((4, S0))).astype(np.float32)
+        t0 = time.perf_counter()
+        po = ex.export_offline(params, cfg, d / f"{MODEL}.offline.pt2", batch=4,
+                               seconds=S / sr)
+        t_off = time.perf_counter() - t0
+        lo = ex.load_exported(po)
+        padded = np.zeros((4, S), np.float32)
+        padded[:, :S0] = wav
+        y = lo.call(torch.from_numpy(padded).cuda(), torch.zeros((), device="cuda"))
+        y = y.cpu().numpy()[:, :S0]
+        y_ref = eng.enhance_waveforms(wav)
+        err_o = float(np.abs(y - y_ref).max())
+        log(f"export_offline {MODEL} B=4 x {S / sr:g} s (2 s padded to the bucket): "
+            f"{t_off:.1f} s to export, {po.stat().st_size / 2 ** 20:.1f} MB; vs "
+            f"Engine.enhance_waveforms max_abs {err_o:.3e} (tol 1e-05), equal "
+            f"{np.array_equal(y, y_ref)} | {smi}")
+        if not np.isfinite(y).all() or not err_o <= 1e-5:
+            raise AssertionError(f"the offline artifact deviates from the engine by {err_o:.3e}")
+    tmp.cleanup()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -1753,31 +2163,40 @@ def main() -> int:
         eng_stack = Engine(cfg, params, device="cuda")
     B, secs = 64, 4.0
     big = (0.1 * rng.standard_normal((B, int(secs * sr)))).astype(np.float32)
-    xrt = {}
+    xrt, offline_counts = {}, {}
     for name, e, on in (("per-stage", eng, False), ("stack", eng_stack, True)):
         with set_env(STACK, on):
             e.enhance_waveforms(big)                                    # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            gk.reset_launch_counts()
             times = []
             for _ in range(3):
                 t0 = time.perf_counter()
                 out = e.enhance_waveforms(big)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
+            offline_counts[name] = gk.launch_counts()
         if not np.isfinite(out).all():
             raise AssertionError(f"throughput output ({name}) is not finite")
         wall = statistics.median(times)
         segs = segments(e, big.shape[1])
+        per_seg = ({"dprnn_stack": 2} if on else
+                   {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+                    "dprnn_inter_block": 2 * cfg.dprnn_blocks})
+        per_seg["gru_scan"] = 5
+        expect_counts(f"offline throughput {name}", offline_counts[name],
+                      {k: 3 * segs * v for k, v in per_seg.items()})
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         xrt[name] = B * secs / wall
         log(f"throughput {MODEL} {name} B={B} x {secs} s, f32: xRT {xrt[name]:.1f}, "
             f"median {wall * 1e3:.1f} ms per call (runs {[round(t * 1e3, 1) for t in times]}), "
             f"{wall * 1e3 / segs:.2f} ms per {e.seg_frames}-frame segment ({segs} segments), "
-            f"peak memory {peak:.2f} GiB | {smi}")
+            f"peak memory {peak:.2f} GiB; launches over the 3 calls "
+            f"{json.dumps(offline_counts[name])} | {smi}")
 
     # ---- phase 5: streaming, card vs CPU ----
-    stream_counts = streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng)
+    streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng)
 
     # ---- phase 6: StreamEnhancer and MultiStreamEnhancer ----
     with set_env(STACK, False):
@@ -1838,6 +2257,14 @@ def main() -> int:
     train_phase(cfg, gk, smi)
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s wall")
 
+    # ---- phase 18: the captured streaming programs and export ----
+    t_phase = time.perf_counter()
+    graph_phase(cfg, params, cpu_eng, cpu_params, gk, rng)
+    graph_ab_phase(cfg, params, smi, rng)
+    with set_env(STACK, False):
+        export_phase(cfg, params, eng, gk, smi, rng)
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s wall")
+
     # ---- phase 15: kernel list (printed last) ----
     def entry(name, key, source, replaces, launches, rows=kernel_rows):
         r = rows[key]
@@ -1858,7 +2285,7 @@ def main() -> int:
         entry("gru_bidir", ("gru_bidir", df), f"{csrc}/gru_bidir.cu", f"{PALLAS}:462",
               unfused_counts["gru_bidir"]),
         entry("dprnn_stack", ("dprnn_stack", "stream", df), f"{csrc}/dprnn_stack.cu",
-              f"{PALLAS}:1633", stream_counts["stack"]["dprnn_stack"]),
+              f"{PALLAS}:1633", offline_counts["stack"]["dprnn_stack"]),
         entry("dprnn_intra_block_v2", ("dprnn_intra_block_v2", df),
               f"{csrc}/dprnn_intra_v2.cu", f"{PALLAS}:1934", v2_counts["dprnn_intra_block_v2"]),
         entry("dprnn_inter_block_v2", ("dprnn_inter_block_v2", df),

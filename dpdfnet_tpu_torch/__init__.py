@@ -3,7 +3,8 @@
 The port of ``dpdfnet_tpu`` (JAX/Pallas on TPU), which stays beside it as
 the reference.  It carries the model zoo (reference ``.pth`` checkpoints
 converted on first use), offline batch enhancement, real-time streaming,
-multi-stream serving, the CLI, the bench runner and training:
+multi-stream serving (CUDA graphs on a card), the CLI, the bench runner,
+training and export (``torch.export`` artifacts, ``dpdfnet_tpu_torch.export``):
 
     import dpdfnet_tpu_torch as dp
     y = dp.enhance(audio, 48000, model="dpdfnet8_48khz_hr")    # runs on cuda
@@ -66,6 +67,7 @@ _LAZY = {
 def __getattr__(name: str):
     if name in _LAZY:
         return getattr(importlib.import_module(_LAZY[name], __name__), name)
-    if name in {"config", "audio", "audio_io", "zoo", "metrics", "demo", "serving", "train"}:
+    if name in {"config", "audio", "audio_io", "zoo", "metrics", "demo", "serving", "train",
+                "export"}:
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(f"module 'dpdfnet_tpu_torch' has no attribute {name!r}")

@@ -17,10 +17,19 @@ its plain PyTorch version:
   as the JAX package's does (``pallas_gru.force_disabled``).  Nothing else
   opens one.
 
+Each kernel is also the ``torch.library`` op ``torch.ops.dpdfnet.<wrapper
+name>`` (CPU implementation: the plain version; CUDA: the launch; fake:
+the output shapes), and the wrapper reaches it through that op, so eager
+calls, CUDA graph capture and ``torch.export`` share one dispatch (see
+"The kernels as torch.library ops" below).
+
 Every wrapper carries a launch counter, ``<wrapper>.launches``, raised by
 one where it launches its kernel and nowhere else, so a run can show that
 the main path went through the kernels (``launch_counts`` /
-``reset_launch_counts``).
+``reset_launch_counts``).  A launch recorded into a CUDA graph under
+capture runs nothing and is not counted; the engine counts its graph
+replays apart (``Engine.graph_replays``), and what a replay launches is
+read from a device trace (``runtime/profile.py``).
 
 Layouts follow the port's planes, not the TPU's time-major ones: the
 kernels read ``[B, T, Fq, C]`` through strides.  Weight argument lists are
@@ -76,7 +85,7 @@ import ctypes
 import functools
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -104,10 +113,15 @@ def force_disabled():
         _FORCE_DISABLED.reset(token)
 
 
+def kernels_disabled() -> bool:
+    """Is a :func:`force_disabled` block open in this thread?"""
+    return _FORCE_DISABLED.get() > 0
+
+
 def _plain(x: Tensor) -> bool:
     """Take the plain version: ``x`` lies on the CPU, or a
     :func:`force_disabled` block is open."""
-    return x.device.type == "cpu" or _FORCE_DISABLED.get() > 0
+    return x.device.type == "cpu" or kernels_disabled()
 
 
 # --------------------------------------------------------------------------- #
@@ -492,6 +506,13 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _count_launch(wrapper) -> None:
+    """Count a launch of ``wrapper``'s kernel, unless it was recorded into
+    a CUDA graph under capture: a capture runs nothing."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
 def _require_cuda(what: str, planes: Dict[str, Tensor], weights: Dict[str, Tensor]
                   ) -> torch.device:
     """Every tensor contiguous on one CUDA device; planes float32 or
@@ -866,16 +887,88 @@ def _gru_scan_max_clusters(H: int, device_index: int) -> int:
     return n.value
 
 
-def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
-                      wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
-                      fm_batch: Optional[int] = None) -> Tensor:
-    """Fused DPRNN intra stage ``x + LN(fc(bidirGRU(x)))`` on ``x [N, Fq, C]``
-    (``N = B*T`` rows of the plane, recurrence along Fq, zero state).
-    ``fm_batch=B``: the fm chain's layout, ``x [Fq, T*B, C]`` (t-major
-    rows) in and ``[T, Fq, B, C]`` out.  Replaces
-    ``pallas_gru.dprnn_intra_block`` / ``dprnn_intra_block_tm``."""
-    if _plain(x):
-        return dprnn_intra_block_plain(x, wi2, wh2, b2, wfc, bfc, g, bln, fm_batch=fm_batch)
+# --------------------------------------------------------------------------- #
+# The kernels as ``torch.library`` ops
+#
+# Each kernel is the op ``torch.ops.dpdfnet.<wrapper name>``: its CPU
+# implementation is the plain version, its CUDA implementation the kernel's
+# launch (checks, plan, launch counter; it raises on what the kernel does
+# not take), and its fake implementation gives the output shapes and dtypes
+# only.  Eager calls, CUDA graph capture (``runtime.engine``) and
+# ``torch.export`` (``export``) then share one dispatch, and a traced
+# program holds each kernel as one node.  Every layout switch is an
+# argument of the op's schema, never read from the environment inside it,
+# so a traced program records the switch it was traced with.  Workspaces a
+# launch allocates (intra's fc partials, gru_scan's projections) stay
+# inside the op.
+#
+# The public wrappers keep their arguments: they resolve the switches,
+# pack ``dprnn_stack``'s dict into the op's fixed tensor list and run the
+# deferred inter tail, around one op call.  They call the plain version
+# directly inside ``force_disabled()`` and on the CPU while autograd
+# records (the ops have no backward; training takes the plain versions).
+# --------------------------------------------------------------------------- #
+
+def _records(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, Tensor) and t.requires_grad for t in tensors)
+
+
+def _direct(x: Tensor, *tensors) -> bool:
+    """Call the plain version itself, not the op: inside
+    :func:`force_disabled`, and on the CPU while autograd records through
+    ``x`` or ``tensors``."""
+    return _plain(x) and (kernels_disabled() or _records(x, *tensors))
+
+
+def _op_device(what: str, x: Tensor) -> None:
+    """A plane neither on the CPU nor on a card (a meta tensor, say) has no
+    implementation but the fake one: raise, as the kernel's checks do."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: x is on {x.device}, expected a CUDA tensor")
+
+
+def _fresh(out: Tensor, *inputs: Tensor) -> Tensor:
+    """``out`` contiguous and sharing no storage with ``inputs``: an op's
+    outputs may not alias its inputs, and a plain version returns a view
+    where its permute or cast is a no-op."""
+    out = out.contiguous()
+    ptr = out.untyped_storage().data_ptr()
+    if any(t is not None and t.untyped_storage().data_ptr() == ptr for t in inputs):
+        out = out.clone()
+    return out
+
+
+def _new(like: Tensor, shape, dtype: Optional[torch.dtype] = None) -> Tensor:
+    return like.new_empty(tuple(shape), dtype=dtype or like.dtype)
+
+
+def _register(name: str, cpu, fake, cuda):
+    """``torch.ops.dpdfnet.<name>`` with the CPU implementation ``cpu``
+    (whose annotations give the schema), ``fake`` and the CUDA launch
+    ``cuda``."""
+    op = torch.library.custom_op(f"dpdfnet::{name}", cpu, mutates_args=(), device_types="cpu")
+    op.register_fake(fake)
+    op.register_kernel("cuda", cuda)
+    return op
+
+
+# dprnn_intra_block ------------------------------------------------------------
+
+def _intra_cpu(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor, wfc: Tensor, bfc: Tensor,
+               g: Tensor, bln: Tensor, fm_batch: int) -> Tensor:
+    return _fresh(dprnn_intra_block_plain(x, wi2, wh2, b2, wfc, bfc, g, bln,
+                                          fm_batch=fm_batch or None), x)
+
+
+def _intra_fake(x, wi2, wh2, b2, wfc, bfc, g, bln, fm_batch):
+    if fm_batch:
+        Fq, N, C = x.shape
+        return _new(x, (N // fm_batch, Fq, fm_batch, C))
+    return _new(x, x.shape)
+
+
+def _intra_cuda(x, wi2, wh2, b2, wfc, bfc, g, bln, fm_batch):
     dev = _require_cuda("dprnn_intra_block", {"x": x},
                         dict(wi2=wi2, wh2=wh2, b2=b2, wfc=wfc, bfc=bfc, g=g, bln=bln))
     if fm_batch:
@@ -900,41 +993,48 @@ def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
         fm_batch or 0, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
         _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_intra_block")
-    dprnn_intra_block.launches += 1
+    _count_launch(dprnn_intra_block)
     return out
 
 
-def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
-                      bh: Tensor, wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
-                      fm_batch: Optional[int] = None, h_bm: bool = False,
-                      defer: Optional[bool] = None) -> Tuple[Tensor, Tensor]:
-    """Fused DPRNN inter stage on the plane ``x [B, T, Fq, C]`` from the
-    carried ``h0 [B, Fq, C]``: ``out[t] = x[t] + LN(fc(GRUstep(h, x[t])))``.
-    Returns ``(out, h_last [B, Fq, C])``.
+_register("dprnn_intra_block", _intra_cpu, _intra_fake, _intra_cuda)
 
-    ``fm_batch=B``: the fm chain's layout, ``x [T, Fq*B, C]`` (f-major
-    rows) in, ``out [Fq, T, B, C]``; ``h0`` / ``h_last`` ``[Fq*B, C]`` in
-    the rows' order, or ``[B, Fq, C]`` with ``h_bm``.  ``defer`` (default
-    :func:`inter_defer` of T): the kernel writes the raw hidden and
-    :func:`inter_tail` runs the fc + LayerNorm + residual over the whole
-    plane in PyTorch, x re-read in out's layout.  Replaces
-    ``pallas_gru.dprnn_inter_block``."""
-    T = x.shape[0] if fm_batch else x.shape[1]
-    if defer is None:
-        defer = inter_defer(T)
-    if _plain(x):
-        out, h_last = dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
-                                              fm_batch=fm_batch, h_bm=h_bm, defer=defer)
+
+def dprnn_intra_block(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor,
+                      wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
+                      fm_batch: Optional[int] = None) -> Tensor:
+    """Fused DPRNN intra stage ``x + LN(fc(bidirGRU(x)))`` on ``x [N, Fq, C]``
+    (``N = B*T`` rows of the plane, recurrence along Fq, zero state).
+    ``fm_batch=B``: the fm chain's layout, ``x [Fq, T*B, C]`` (t-major
+    rows) in and ``[T, Fq, B, C]`` out.  Replaces
+    ``pallas_gru.dprnn_intra_block`` / ``dprnn_intra_block_tm``."""
+    if _direct(x, wi2, wh2, b2, wfc, bfc, g, bln):
+        return dprnn_intra_block_plain(x, wi2, wh2, b2, wfc, bfc, g, bln, fm_batch=fm_batch)
+    _op_device("dprnn_intra_block", x)
+    return torch.ops.dpdfnet.dprnn_intra_block(x, wi2, wh2, b2, wfc, bfc, g, bln,
+                                               int(fm_batch or 0))
+
+
+# dprnn_inter_block ------------------------------------------------------------
+
+def _inter_cpu(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tensor,
+               wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, fm_batch: int, h_bm: bool,
+               defer: bool) -> Tuple[Tensor, Tensor]:
+    out, h_last = dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
+                                          fm_batch=fm_batch or None, h_bm=h_bm, defer=defer)
+    return _fresh(out, x), _fresh(h_last, h0)
+
+
+def _inter_fake(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, fm_batch, h_bm, defer):
+    if fm_batch:
+        T, N, C = x.shape
+        out = _new(x, (N // fm_batch, T, fm_batch, C))
     else:
-        out, h_last = _inter_launch(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
-                                    fm_batch, h_bm, defer)
-    if defer:
-        x_out = (x.reshape(T, -1, fm_batch, x.shape[-1]).transpose(0, 1) if fm_batch else x)
-        out = inter_tail(out, x_out, wfc, bfc, g, bln)
-    return out, h_last
+        out = _new(x, x.shape)
+    return out, _new(h0, h0.shape, torch.float32)
 
 
-def _inter_launch(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, fm_batch, h_bm, defer):
+def _inter_cuda(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, fm_batch, h_bm, defer):
     dev = _require_cuda("dprnn_inter_block", {"x": x},
                         dict(h0=h0, wi=wi, bi=bi, wh=wh, bh=bh, wfc=wfc, bfc=bfc, g=g, bln=bln))
     h_bm = bool(h_bm and fm_batch)
@@ -963,8 +1063,75 @@ def _inter_launch(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, fm_batch, h_bm, defer
         g.data_ptr(), bln.data_ptr(), B, T, Fq, plan.rows_per_warp, plan.ts, plan.warps,
         plan.blocks, _is_bf16(x), int(bool(fm_batch)), int(h_bm), int(bool(defer)), _stream())
     _check_rc(rc, "dprnn_inter_block")
-    dprnn_inter_block.launches += 1
+    _count_launch(dprnn_inter_block)
     return out, h_last
+
+
+_register("dprnn_inter_block", _inter_cpu, _inter_fake, _inter_cuda)
+
+
+def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
+                      bh: Tensor, wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
+                      fm_batch: Optional[int] = None, h_bm: bool = False,
+                      defer: Optional[bool] = None) -> Tuple[Tensor, Tensor]:
+    """Fused DPRNN inter stage on the plane ``x [B, T, Fq, C]`` from the
+    carried ``h0 [B, Fq, C]``: ``out[t] = x[t] + LN(fc(GRUstep(h, x[t])))``.
+    Returns ``(out, h_last [B, Fq, C])``.
+
+    ``fm_batch=B``: the fm chain's layout, ``x [T, Fq*B, C]`` (f-major
+    rows) in, ``out [Fq, T, B, C]``; ``h0`` / ``h_last`` ``[Fq*B, C]`` in
+    the rows' order, or ``[B, Fq, C]`` with ``h_bm``.  ``defer`` (default
+    :func:`inter_defer` of T): the kernel writes the raw hidden and
+    :func:`inter_tail` runs the fc + LayerNorm + residual over the whole
+    plane in PyTorch, x re-read in out's layout.  Replaces
+    ``pallas_gru.dprnn_inter_block``."""
+    T = x.shape[0] if fm_batch else x.shape[1]
+    if defer is None:
+        defer = inter_defer(T)
+    if _direct(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln):
+        out, h_last = dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
+                                              fm_batch=fm_batch, h_bm=h_bm, defer=defer)
+    else:
+        _op_device("dprnn_inter_block", x)
+        out, h_last = torch.ops.dpdfnet.dprnn_inter_block(
+            x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, int(fm_batch or 0), bool(h_bm),
+            bool(defer))
+    if defer:
+        x_out = (x.reshape(T, -1, fm_batch, x.shape[-1]).transpose(0, 1) if fm_batch else x)
+        out = inter_tail(out, x_out, wfc, bfc, g, bln)
+    return out, h_last
+
+
+# relayout_fm ------------------------------------------------------------------
+
+def _relayout_cpu(x: Tensor, out_dtype: torch.dtype) -> Tensor:
+    return _fresh(relayout_fm_plain(x, out_dtype), x)
+
+
+def _relayout_fake(x, out_dtype):
+    B, T, F, C = x.shape
+    return _new(x, (F, T, B, C), out_dtype)
+
+
+def _relayout_cuda(x, out_dtype):
+    dev = _require_cuda("relayout_fm", {"x": x}, {})
+    if out_dtype not in _PLANE_DTYPES or x.dim() != 4:
+        raise ValueError(f"relayout_fm: takes a 4-D plane to float32 or bfloat16; got "
+                         f"x {tuple(x.shape)} to {out_dtype}")
+    B, T, F, C = x.shape
+    out = torch.empty((F, T, B, C), device=dev, dtype=out_dtype)
+    if out.numel() == 0:
+        return out
+    vec = int(C % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
+              and out.data_ptr() % (4 * out.element_size()) == 0)
+    rc = _fn("relayout_fm", "relayout_fm_launch")(
+        x.data_ptr(), out.data_ptr(), B, T, F, C, _is_bf16(x), _is_bf16(out), vec, _stream())
+    _check_rc(rc, "relayout_fm")
+    _count_launch(relayout_fm)
+    return out
+
+
+_register("relayout_fm", _relayout_cpu, _relayout_fake, _relayout_cuda)
 
 
 def relayout_fm(x: Tensor, *, out_dtype: Optional[torch.dtype] = None) -> Tensor:
@@ -973,32 +1140,26 @@ def relayout_fm(x: Tensor, *, out_dtype: Optional[torch.dtype] = None) -> Tensor
     shape (the JAX wrapper's multiple-of-8 fallback is a TPU block limit).
     Replaces ``pallas_gru.relayout_fm``."""
     dtype = x.dtype if out_dtype is None else out_dtype
-    if _plain(x):
+    if _direct(x):
         return relayout_fm_plain(x, dtype)
-    dev = _require_cuda("relayout_fm", {"x": x}, {})
-    if dtype not in _PLANE_DTYPES or x.dim() != 4:
-        raise ValueError(f"relayout_fm: takes a 4-D plane to float32 or bfloat16; got "
-                         f"x {tuple(x.shape)} to {dtype}")
-    B, T, F, C = x.shape
-    out = torch.empty((F, T, B, C), device=dev, dtype=dtype)
-    if out.numel() == 0:
-        return out
-    vec = int(C % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
-              and out.data_ptr() % (4 * out.element_size()) == 0)
-    rc = _fn("relayout_fm", "relayout_fm_launch")(
-        x.data_ptr(), out.data_ptr(), B, T, F, C, _is_bf16(x), _is_bf16(out), vec, _stream())
-    _check_rc(rc, "relayout_fm")
-    relayout_fm.launches += 1
-    return out
+    _op_device("relayout_fm", x)
+    return torch.ops.dpdfnet.relayout_fm(x, dtype)
 
 
-def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
-              ) -> Tuple[Tensor, Tensor]:
-    """Bidirectional GRU along L of ``x [N, L, I]`` from zero state with
-    packed weights; returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``
-    (:func:`gru_bidir_plan`).  Replaces ``pallas_gru.gru_bidir_tm``."""
-    if _plain(x):
-        return gru_bidir_plain(x, wi2, wh2, b2)
+# gru_bidir --------------------------------------------------------------------
+
+def _bidir_cpu(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor) -> Tuple[Tensor, Tensor]:
+    ys_fw, ys_bw = gru_bidir_plain(x, wi2, wh2, b2)
+    return _fresh(ys_fw, x), _fresh(ys_bw, x)
+
+
+def _bidir_fake(x, wi2, wh2, b2):
+    N, L, _ = x.shape
+    H = wh2.shape[0] // 2
+    return _new(x, (N, L, H)), _new(x, (N, L, H))
+
+
+def _bidir_cuda(x, wi2, wh2, b2):
     dev = _require_cuda("gru_bidir", {"x": x}, dict(wi2=wi2, wh2=wh2, b2=b2))
     N, L, C = x.shape
     if C != 64 or N == 0 or L == 0 or tuple(wi2.shape) != (2 * C, 6 * C) \
@@ -1014,23 +1175,43 @@ def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
         b2.data_ptr(), N, L, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
         _is_bf16(x), _stream())
     _check_rc(rc, "gru_bidir")
-    gru_bidir.launches += 1
+    _count_launch(gru_bidir)
     return ys_fw, ys_bw
 
 
-def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
-                ) -> Tuple[Tensor, Tensor]:
-    """The whole DPRNN stack over ``x [B, T, Fq, C]`` from the carried
-    ``h0 [K, B, Fq, C]`` with ``pack_stack`` weights, in one launch
-    (:func:`stack_plan`).  Returns ``(out [B, T, Fq, C], h_last [K, B, Fq,
-    C])``; on float32 planes bit-identical to K x (:func:`dprnn_intra_block`
-    + :func:`dprnn_inter_block`).  Replaces ``pallas_gru.dprnn_stack``."""
-    if _plain(x):
-        return dprnn_stack_plain(x, h0, stacked)
+_register("gru_bidir", _bidir_cpu, _bidir_fake, _bidir_cuda)
+
+
+def gru_bidir(x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor
+              ) -> Tuple[Tensor, Tensor]:
+    """Bidirectional GRU along L of ``x [N, L, I]`` from zero state with
+    packed weights; returns ``(ys_fw, ys_bw)``, each ``[N, L, H]``
+    (:func:`gru_bidir_plan`).  Replaces ``pallas_gru.gru_bidir_tm``."""
+    if _direct(x, wi2, wh2, b2):
+        return gru_bidir_plain(x, wi2, wh2, b2)
+    _op_device("gru_bidir", x)
+    return torch.ops.dpdfnet.gru_bidir(x, wi2, wh2, b2)
+
+
+# dprnn_stack ------------------------------------------------------------------
+
+_STACK_KEYS = tuple(_stack_shapes(1, 1))
+
+
+def _stack_cpu(x: Tensor, h0: Tensor, weights: List[Tensor]) -> Tuple[Tensor, Tensor]:
+    out, h_last = dprnn_stack_plain(x, h0, dict(zip(_STACK_KEYS, weights)))
+    return _fresh(out, x), _fresh(h_last, h0)
+
+
+def _stack_fake(x, h0, weights):
+    return _new(x, x.shape), _new(h0, h0.shape, torch.float32)
+
+
+def _stack_cuda(x, h0, weights):
     B, T, Fq, C = x.shape
     K = h0.shape[0]
     shapes = _stack_shapes(K, C)
-    ws = {k: stacked[k] for k in shapes}
+    ws = dict(zip(_STACK_KEYS, weights))
     dev = _require_cuda("dprnn_stack", {"x": x}, dict(h0=h0, **ws))
     bad = [k for k, shape in shapes.items() if tuple(ws[k].shape) != shape]
     if C != 64 or not 1 <= Fq <= _STACK_FQ_MAX or B == 0 or T == 0 or K == 0 \
@@ -1048,19 +1229,45 @@ def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
         *(w.data_ptr() for w in ws.values()), B, T, Fq, K, plan.ctas, plan.threads,
         _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_stack")
-    dprnn_stack.launches += 1
+    _count_launch(dprnn_stack)
     return out, h_last
 
 
-def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tensor,
-             *, reverse: bool = False) -> Tuple[Tensor, Tensor]:
-    """GRU over ``x [N, T, I]`` (batch-major) from ``h0 [N, H]``, forward
-    or reverse in time; returns ``(ys [N, T, H], h_last [N, H])``.  The
-    kernel takes H a multiple of 32 from 32 to ``GRU_SCAN_H_MAX`` (256,
-    every shipped ``gru_dim``) and raises on any other.  Replaces
-    ``pallas_gru.gru_scan_tm``."""
-    if _plain(x):
-        return gru_scan_plain(x, h0, wi, bi, wh, bh, reverse=reverse)
+_register("dprnn_stack", _stack_cpu, _stack_fake, _stack_cuda)
+
+
+def dprnn_stack(x: Tensor, h0: Tensor, stacked: Dict[str, Tensor]
+                ) -> Tuple[Tensor, Tensor]:
+    """The whole DPRNN stack over ``x [B, T, Fq, C]`` from the carried
+    ``h0 [K, B, Fq, C]`` with ``pack_stack`` weights, in one launch
+    (:func:`stack_plan`).  Returns ``(out [B, T, Fq, C], h_last [K, B, Fq,
+    C])``; on float32 planes bit-identical to K x (:func:`dprnn_intra_block`
+    + :func:`dprnn_inter_block`).  The op takes the weights as a list in
+    ``_stack_shapes``' order.  Replaces ``pallas_gru.dprnn_stack``."""
+    weights = [stacked[k] for k in _STACK_KEYS]
+    if _direct(x, h0, *weights):
+        return dprnn_stack_plain(x, h0, stacked)
+    _op_device("dprnn_stack", x)
+    return torch.ops.dpdfnet.dprnn_stack(x, h0, weights)
+
+
+# gru_scan ---------------------------------------------------------------------
+
+def _scan_cpu(x: Tensor, h0: Optional[Tensor], wi: Tensor, bi: Tensor, wh: Tensor,
+              bh: Tensor, reverse: bool) -> Tuple[Tensor, Tensor]:
+    ys, h_last = gru_scan_plain(x, h0, wi, bi, wh, bh, reverse=reverse)
+    return _fresh(ys, x), _fresh(h_last, h0)
+
+
+def _scan_fake(x, h0, wi, bi, wh, bh, reverse):
+    N, T, _ = x.shape
+    H = wh.shape[0]
+    return _new(x, (N, T, H)), _new(x, (N, H), torch.float32)
+
+
+def _scan_cuda(x, h0, wi, bi, wh, bh, reverse):
+    if h0 is None:
+        raise ValueError("gru_scan: the kernel takes h0 [N, H]; got None")
     dev = _require_cuda("gru_scan", {"x": x}, dict(h0=h0, wi=wi, bi=bi, wh=wh, bh=bh))
     N, T, I = x.shape
     H = wh.shape[0]
@@ -1078,24 +1285,39 @@ def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tens
         bh.data_ptr(), xp.data_ptr(), ys.data_ptr(), h_last.data_ptr(), N, T, I, H,
         int(reverse), plan.rows_per_cluster, plan.clusters, _is_bf16(x), _stream())
     _check_rc(rc, "gru_scan")
-    gru_scan.launches += 1
+    _count_launch(gru_scan)
     return ys, h_last
 
 
-def dprnn_intra_block_v2(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
-                         bfc: Tensor, g: Tensor, bln: Tensor, *, xp_bf16: bool = True
-                         ) -> Tensor:
-    """Fused DPRNN intra stage, v2, on ``x [N, L, C]``: the input
-    projections hoisted off the walk (rounded to bfloat16 when ``xp_bf16``,
-    the JAX wrapper's default), one product ``h . [Wh2 | blockdiag(Wfc)]``
-    per step.  Weights from :func:`pack_intra_v2` plus the v1 ``b2``.  On
-    the card this is the intra kernel reading the v2 packs where
-    :func:`intra_v2_layout` puts them, with the :func:`intra_plan` plan:
-    with ``xp_bf16=False`` its output is bit for bit
-    :func:`dprnn_intra_block`'s on the matching v1 packs.  Replaces
-    ``pallas_gru.dprnn_intra_block_v2``."""
-    if _plain(x):
-        return dprnn_intra_block_v2_plain(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16=xp_bf16)
+_register("gru_scan", _scan_cpu, _scan_fake, _scan_cuda)
+
+
+def gru_scan(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor, bh: Tensor,
+             *, reverse: bool = False) -> Tuple[Tensor, Tensor]:
+    """GRU over ``x [N, T, I]`` (batch-major) from ``h0 [N, H]``, forward
+    or reverse in time; returns ``(ys [N, T, H], h_last [N, H])``.  The
+    kernel takes H a multiple of 32 from 32 to ``GRU_SCAN_H_MAX`` (256,
+    every shipped ``gru_dim``) and raises on any other.  Replaces
+    ``pallas_gru.gru_scan_tm``."""
+    if _direct(x, h0, wi, bi, wh, bh):
+        return gru_scan_plain(x, h0, wi, bi, wh, bh, reverse=reverse)
+    _op_device("gru_scan", x)
+    return torch.ops.dpdfnet.gru_scan(x, h0, wi, bi, wh, bh, bool(reverse))
+
+
+# dprnn_intra_block_v2 ---------------------------------------------------------
+
+def _intra_v2_cpu(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor, bfc: Tensor,
+                  g: Tensor, bln: Tensor, xp_bf16: bool) -> Tensor:
+    return _fresh(dprnn_intra_block_v2_plain(x, wi_cat, wh_big, b2, bfc, g, bln,
+                                             xp_bf16=xp_bf16), x)
+
+
+def _intra_v2_fake(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16):
+    return _new(x, x.shape)
+
+
+def _intra_v2_cuda(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16):
     dev = _require_cuda("dprnn_intra_block_v2", {"x": x},
                         dict(wi_cat=wi_cat, wh_big=wh_big, b2=b2, bfc=bfc, g=g, bln=bln))
     N, L, C = x.shape
@@ -1115,19 +1337,45 @@ def dprnn_intra_block_v2(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
         lay.wi_ld, lay.wh_ld, lay.fc_off, lay.fc_doff, lay.fc_ld, plan.rows_per_warp,
         plan.walk_warps, plan.warps, plan.clusters, int(xp_bf16), _is_bf16(x), _stream())
     _check_rc(rc, "dprnn_intra_block_v2")
-    dprnn_intra_block_v2.launches += 1
+    _count_launch(dprnn_intra_block_v2)
     return out
 
 
-def dprnn_inter_block_v2(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Tensor,
-                         bfc: Tensor, g: Tensor, bln: Tensor) -> Tuple[Tensor, Tensor]:
-    """Fused DPRNN inter stage, v2, on the plane ``x [B, T, Fq, C]`` from
-    ``h0 [B, Fq, C]``, with ``xp [B, T, Fq, 3C] = x . Wi + bi`` computed by
-    the caller (float32 or bfloat16) and ``whfc = [Wh | Wfc]``: one product
-    ``h_new . [Wh | Wfc]`` per step.  Returns ``(out, h_last [B, Fq, C])``.
-    Replaces ``pallas_gru.dprnn_inter_block_v2``."""
-    if _plain(x):
-        return dprnn_inter_block_v2_plain(xp, x, h0, whfc, bh, bfc, g, bln)
+_register("dprnn_intra_block_v2", _intra_v2_cpu, _intra_v2_fake, _intra_v2_cuda)
+
+
+def dprnn_intra_block_v2(x: Tensor, wi_cat: Tensor, wh_big: Tensor, b2: Tensor,
+                         bfc: Tensor, g: Tensor, bln: Tensor, *, xp_bf16: bool = True
+                         ) -> Tensor:
+    """Fused DPRNN intra stage, v2, on ``x [N, L, C]``: the input
+    projections hoisted off the walk (rounded to bfloat16 when ``xp_bf16``,
+    the JAX wrapper's default), one product ``h . [Wh2 | blockdiag(Wfc)]``
+    per step.  Weights from :func:`pack_intra_v2` plus the v1 ``b2``.  On
+    the card this is the intra kernel reading the v2 packs where
+    :func:`intra_v2_layout` puts them, with the :func:`intra_plan` plan:
+    with ``xp_bf16=False`` its output is bit for bit
+    :func:`dprnn_intra_block`'s on the matching v1 packs.  Replaces
+    ``pallas_gru.dprnn_intra_block_v2``."""
+    if _direct(x, wi_cat, wh_big, b2, bfc, g, bln):
+        return dprnn_intra_block_v2_plain(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16=xp_bf16)
+    _op_device("dprnn_intra_block_v2", x)
+    return torch.ops.dpdfnet.dprnn_intra_block_v2(x, wi_cat, wh_big, b2, bfc, g, bln,
+                                                  bool(xp_bf16))
+
+
+# dprnn_inter_block_v2 ---------------------------------------------------------
+
+def _inter_v2_cpu(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Tensor, bfc: Tensor,
+                  g: Tensor, bln: Tensor) -> Tuple[Tensor, Tensor]:
+    out, h_last = dprnn_inter_block_v2_plain(xp, x, h0, whfc, bh, bfc, g, bln)
+    return _fresh(out, x, xp), _fresh(h_last, h0)
+
+
+def _inter_v2_fake(xp, x, h0, whfc, bh, bfc, g, bln):
+    return _new(x, x.shape), _new(h0, h0.shape, torch.float32)
+
+
+def _inter_v2_cuda(xp, x, h0, whfc, bh, bfc, g, bln):
     dev = _require_cuda("dprnn_inter_block_v2", {"xp": xp, "x": x},
                         dict(h0=h0, whfc=whfc, bh=bh, bfc=bfc, g=g, bln=bln))
     B, T, Fq, C = x.shape
@@ -1148,8 +1396,24 @@ def dprnn_inter_block_v2(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Te
         B, T, Fq, plan.rows_per_warp, plan.warps, plan.blocks, _is_bf16(xp), _is_bf16(x),
         _stream())
     _check_rc(rc, "dprnn_inter_block_v2")
-    dprnn_inter_block_v2.launches += 1
+    _count_launch(dprnn_inter_block_v2)
     return out, h_last
+
+
+_register("dprnn_inter_block_v2", _inter_v2_cpu, _inter_v2_fake, _inter_v2_cuda)
+
+
+def dprnn_inter_block_v2(xp: Tensor, x: Tensor, h0: Tensor, whfc: Tensor, bh: Tensor,
+                         bfc: Tensor, g: Tensor, bln: Tensor) -> Tuple[Tensor, Tensor]:
+    """Fused DPRNN inter stage, v2, on the plane ``x [B, T, Fq, C]`` from
+    ``h0 [B, Fq, C]``, with ``xp [B, T, Fq, 3C] = x . Wi + bi`` computed by
+    the caller (float32 or bfloat16) and ``whfc = [Wh | Wfc]``: one product
+    ``h_new . [Wh | Wfc]`` per step.  Returns ``(out, h_last [B, Fq, C])``.
+    Replaces ``pallas_gru.dprnn_inter_block_v2``."""
+    if _direct(x, xp, h0, whfc, bh, bfc, g, bln):
+        return dprnn_inter_block_v2_plain(xp, x, h0, whfc, bh, bfc, g, bln)
+    _op_device("dprnn_inter_block_v2", x)
+    return torch.ops.dpdfnet.dprnn_inter_block_v2(xp, x, h0, whfc, bh, bfc, g, bln)
 
 
 KERNEL_WRAPPERS = {

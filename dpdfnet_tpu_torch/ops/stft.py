@@ -86,29 +86,40 @@ def idft_matrices(n_fft: int, window: np.ndarray) -> np.ndarray:
 
 
 def istft_matmul(spec: Tensor, window: Tensor, hop: int, *, center: bool = True,
-                 idft: Tensor | None = None) -> Tensor:
+                 idft: Tensor | None = None, wss: Tensor | None = None) -> Tensor:
     """Inverse STFT ``[B, T, F, 2] -> [B, S]``: one GEMM, overlap-add,
-    window-sum-square normalisation."""
+    window-sum-square normalisation.  ``idft`` and ``wss`` (the divisor
+    :func:`window_sumsquare` for these T frames, on spec's device) are made
+    from ``window`` when absent, which copies it to the host; the engine
+    holds both on its device."""
     win = window.shape[0]
     if idft is None:
         idft = torch.as_tensor(idft_matrices(win, window.cpu().numpy()),
                                device=spec.device)
     flat = torch.cat([spec[..., 0], spec[..., 1]], dim=-1)       # [B, T, 2F]
     frames = flat @ idft.to(spec.dtype)                          # [B, T, win]
-    return _overlap_add_normalised(frames, window, hop, center)
+    return _overlap_add_normalised(frames, window, hop, center, wss)
 
 
-def _overlap_add_normalised(frames: Tensor, window: Tensor, hop: int, center: bool
-                            ) -> Tensor:
+def window_sumsquare(window: np.ndarray, T: int, hop: int) -> np.ndarray:
+    """The overlap-add divisor of T frames: the window sum-square, with 1
+    where it is below 1e-11."""
+    wss = _window_sumsquare(window, T, hop)
+    return np.where(wss > 1e-11, wss, 1.0).astype(np.float32)
+
+
+def _overlap_add_normalised(frames: Tensor, window: Tensor, hop: int, center: bool,
+                            wss: Tensor | None = None) -> Tensor:
     """Overlap-add the windowed frames ``[B, T, win]``, divide by the window
-    sum-square, and trim ``win//2`` on each side for centred frames."""
+    sum-square (``wss``, or made from ``window`` on the host), and trim
+    ``win//2`` on each side for centred frames."""
     T, win = frames.shape[1:]
     total = win + hop * (T - 1)
     out = _overlap_add(frames, hop, total)
-    wss = _window_sumsquare(window.cpu().numpy(), T, hop)
-    wss = torch.as_tensor(np.where(wss > 1e-11, wss, 1.0), dtype=out.dtype,
-                          device=out.device)
-    out = out / wss
+    if wss is None:
+        wss = torch.as_tensor(window_sumsquare(window.cpu().numpy(), T, hop),
+                              device=out.device)
+    out = out / wss.to(out.dtype)
     if center:
         return out[:, win // 2: total - win // 2]
     return out

@@ -32,13 +32,19 @@ cuBLAS / cuDNN and restores the caller's settings on the way out.
 The streaming path (``init_stream_state`` / ``process_frames``) takes
 sample frames ``[B, T, win]`` and returns windowed time frames ready for
 overlap-add, with the state kept on the engine's device between calls.
-The mesh is a later slice.
+Its programs are the JAX package's compiled streaming programs
+(``_stream_fn``, ``_stream_vec_fn``, ``_stream_spec_fn``): on a CUDA engine
+each is a captured ``torch.cuda.CUDAGraph`` (exact mode and the spec
+program replay the captured T == 1 step once per frame, throughput mode
+one graph per power-of-two bucket; threads may share the engine), on a
+CPU engine the same functions run eagerly.  The mesh is a later slice.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import Callable, Optional
 
 import numpy as np
@@ -48,11 +54,12 @@ from .. import audio as audio_lib
 from ..config import ModelConfig
 from ..models import state as state_lib
 from ..models.dpdfnet import forward_spec
+from ..ops import gru_kernels
 from ..ops import stft as stft_ops
 from ..ops.nn import rounded
 from ..ops.windows import vorbis_window
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.tree import tree_map
+from ..utils.tree import tree_leaves, tree_map
 
 QUALITY_TIERS = {
     # name -> (matmul precision, compute dtype), as dpdfnet_tpu's table
@@ -82,6 +89,50 @@ def _state_f32_hiddens() -> bool:
     made, as in the JAX package): the kernels take and return float32
     hiddens, so a bf16 state would round them at every frame."""
     return os.environ.get("DPDFNET_TPU_STATE_F32H", "1") not in ("0", "false", "False")
+
+
+def stream_graph_key(kind: str, B: int, T: int, precision: str, st) -> tuple:
+    """The cache key of a captured streaming program: the JAX package's key
+    (``(B, T)`` for exact mode, ``("vec", B, T)``, ``("spec", B, T)``), then
+    every switch that ``forward_spec`` and the stream ends read per call and
+    the state's leaf dtypes, so a graph captured under one setting never
+    replays under another."""
+    base = (B, T) if kind == "exact" else (kind, B, T)
+    return base + (
+        gru_kernels.stack_enabled(), gru_kernels.v2_enabled(precision),
+        gru_kernels.intra_tm_enabled(), gru_kernels.entry_relayout_enabled(),
+        gru_kernels.h_ingest_enabled(), gru_kernels.inter_defer(T),
+        gru_kernels.plane_io_bf16(precision), _stream_dft_gemm(),
+        gru_kernels.kernels_disabled(),
+        tuple(leaf.dtype for _, leaf in tree_leaves(st)))
+
+
+# one capture at a time in the process: ``torch.cuda.graph`` synchronizes
+# the device before it captures, which another thread's capture cannot take
+_CAPTURE_LOCK = threading.Lock()
+
+
+class _StateSlot:
+    """The static stream state of B streams that the captured graphs read
+    and rewrite in place, shared by every graph of this batch and these
+    leaf shapes and dtypes.  A call copies the caller's state in and hands
+    a clone out: the returned state is the caller's, never the slot's."""
+
+    def __init__(self, st):
+        self.state = tree_map(lambda _, leaf: torch.empty_like(leaf), st)
+        self.leaves = [leaf for _, leaf in tree_leaves(self.state)]
+
+    def store(self, st) -> None:
+        """Copy ``st`` into the slot (a leaf that shares memory with the
+        slot is cloned first, so no copy reads what another overwrote)."""
+        ptrs = {leaf.untyped_storage().data_ptr() for leaf in self.leaves}
+        src = [leaf.clone() if leaf.untyped_storage().data_ptr() in ptrs else leaf
+               for _, leaf in tree_leaves(st)]
+        torch._foreach_copy_(self.leaves, src)
+
+    def dump(self):
+        """A copy of the slot's state that the caller owns."""
+        return tree_map(lambda _, leaf: leaf.clone(), self.state)
 
 
 def engine_from_quality(cfg, params, quality: str = "high", **kwargs):
@@ -141,7 +192,20 @@ class Engine:
         self.seg_frames = int(seg_frames)
         self.bucket_samples = max(cfg.hop, int(round(bucket_s * cfg.sample_rate)))
         window = vorbis_window(cfg.win_len)
+        self._window_np = window
         self._window = torch.as_tensor(window, device=self.device)
+        self._wss = {}                  # frames -> iSTFT divisor on the device
+        # streaming programs: CUDA graphs on a card (``stream_graph_key``),
+        # sharing one memory pool and one state slot per batch and dtypes;
+        # one call's graph span (state in, replays, state out) at a time,
+        # each after the last one's work on the device
+        self._graphs = {}
+        self._slots = {}
+        self._graph_pool = None
+        self._capture_stream = None
+        self._graph_lock = threading.Lock()
+        self._span_done = None
+        self.graph_replays = 0          # graph replays this engine has made
         self._dft = torch.as_tensor(stft_ops.dft_matrices(cfg.win_len, window),
                                     device=self.device)
         self._idft = torch.as_tensor(stft_ops.idft_matrices(cfg.win_len, window),
@@ -180,8 +244,18 @@ class Engine:
         aligned = torch.nn.functional.pad(spec, (0, 0, 0, 0, k, 0))[:, :-k]
         out = alpha * aligned.float() + (1.0 - alpha) * out.float()
         y = stft_ops.istft_matmul(out / cfg.wnorm, self._window, cfg.hop, center=True,
-                                  idft=self._idft)
+                                  idft=self._idft, wss=self._window_sumsquare(out.shape[1]))
         return y[:, 2 * cfg.win_len:]
+
+    def _window_sumsquare(self, T: int) -> torch.Tensor:
+        """The iSTFT's overlap-add divisor for T frames, made once per T on
+        the host and held on the device (the engine's counterpart of
+        ``_dft`` / ``_idft``)."""
+        wss = self._wss.get(T)
+        if wss is None:
+            wss = self._wss[T] = torch.as_tensor(
+                stft_ops.window_sumsquare(self._window_np, T, self.cfg.hop), device=self.device)
+        return wss
 
     @torch.inference_mode()
     def _offline(self, wav: torch.Tensor, alpha: float,
@@ -268,21 +342,144 @@ class Engine:
                 st[key] = [h.float() for h in st[key]]
         return st
 
+    def _stream_step(self, kind: str):
+        """The step a streaming program runs: ``fn(x, st) -> (y, st)`` over
+        sample frames ``[B, T, win]`` (``"exact"``, ``"vec"``: front,
+        ``forward_spec``, back) or over scaled spec frames ``[B, T, F, 2]``
+        at the compute dtype (``"spec"``: ``forward_spec`` alone)."""
+        def spec_fn(spec, st):
+            out, st, _ = forward_spec(self.params, self.cfg, spec, st, precision=self.precision)
+            return out, st
+
+        if kind == "spec":
+            return spec_fn
+        front, back = self._stream_ends()
+
+        def frames_fn(frames, st):
+            out, st = spec_fn(front(frames), st)
+            return back(out), st
+
+        return frames_fn
+
+    def _run_stream(self, kind: str, x: torch.Tensor, st, spans):
+        """Run ``kind``'s step over each ``(pos, frames)`` span of ``x``
+        from state ``st``; returns the output over all of x's frames and the
+        new state.  Eager on a CPU engine; on a CUDA engine through the
+        captured graphs, with the state copied into the batch's slot once
+        and out once per call, under the engine's lock, so threads that
+        share the engine never interleave their spans."""
+        if self.device.type != "cuda":
+            fn = self._stream_step(kind)
+            outs = []
+            for pos, step in spans:
+                y, st = fn(x[:, pos:pos + step], st)
+                outs.append(y)
+            return torch.cat(outs, dim=1), st
+        B, T = x.shape[:2]
+        y = (torch.empty_like(x) if kind == "spec" else
+             torch.empty((B, T, self.cfg.win_len), dtype=torch.float32, device=self.device))
+        sig = tuple((tuple(leaf.shape), leaf.dtype) for _, leaf in tree_leaves(st))
+        with self._graph_lock:
+            cur = torch.cuda.current_stream(self.device)
+            if self._span_done is not None:       # another thread's stream may differ
+                cur.wait_event(self._span_done)
+            slot = self._slots.get((B, sig))
+            if slot is None:
+                slot = self._slots[(B, sig)] = _StateSlot(st)
+            slot.store(st)
+            for pos, step in spans:
+                key = stream_graph_key(kind, B, step, self.precision, st)
+                if key not in self._graphs:
+                    self._graphs[key] = self._capture(kind, x[:, pos:pos + step], slot,
+                                                      y[:, pos:pos + step])
+                    continue
+                graph, gx, gy = self._graphs[key]
+                gx.copy_(x[:, pos:pos + step])
+                graph.replay()
+                self.graph_replays += 1
+                y[:, pos:pos + step].copy_(gy)
+            st = slot.dump()
+            self._span_done = cur.record_event()
+        return y, st
+
+    def _capture(self, kind: str, xs: torch.Tensor, slot: _StateSlot, ys: torch.Tensor):
+        """Run ``kind``'s step once eagerly on the span ``xs`` from the
+        slot's state (its output goes to ``ys``, its state to the slot: the
+        warm-up is this span's real work, and builds the kernel libraries,
+        cuFFT plans and the cuBLAS workspace of the capture stream), then
+        capture the same step on a static input into a CUDA graph that
+        rewrites the slot's state in place; returns the graph, its static
+        input and its static output.  The capture records launches and
+        runs none, so it raises no launch counter."""
+        fn = self._stream_step(kind)
+        xs = xs.contiguous()                    # as the static input the graph reads
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side, main = self._capture_stream, torch.cuda.current_stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            y, new = fn(xs, slot.state)
+            ys.copy_(y)
+            slot.store(new)
+        main.wait_stream(side)
+        x_static = torch.empty_like(xs, memory_format=torch.contiguous_format)
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
+                                             capture_error_mode="thread_local"):
+            y_static, new = fn(x_static, slot.state)
+            slot.store(new)
+        return graph, x_static, y_static
+
+    def _program(self, kind: str, B: int, T: int, spans):
+        def run(x: torch.Tensor, st):
+            if tuple(x.shape[:2]) != (B, T):
+                raise ValueError(f"streaming program for B={B}, T={T} got {tuple(x.shape)}")
+            with _math_mode(self.precision), torch.no_grad():
+                return self._run_stream(kind, x, st, spans)
+        return run
+
+    def _stream_fn(self, B: int, T: int):
+        """Exact streaming of T frames, the JAX ``_stream_fn``:
+        ``run(frames [B, T, win], st) -> (windowed frames [B, T, win], st)``
+        on the engine's device, the T == 1 step once per frame, so the
+        floating-point op sequence per frame is the same for every
+        chunking."""
+        return self._program("exact", B, T, [(t, 1) for t in range(T)])
+
+    def _stream_vec_fn(self, B: int, T: int):
+        """Throughput streaming, the JAX ``_stream_vec_fn``: ``run(frames
+        [B, T, win], st)`` through one ``forward_spec`` over all T frames."""
+        return self._program("vec", B, T, [(0, T)])
+
+    def _stream_spec_fn(self, B: int, T: int):
+        """The streaming step over scaled spec frames, the JAX
+        ``_stream_spec_fn``: ``run(spec [B, T, F, 2], st) -> (spec_out, st)``
+        (spec at the compute dtype), ``forward_spec`` once per frame, so
+        chunking is bit-invariant as in :meth:`_stream_fn`."""
+        return self._program("spec", B, T, [(t, 1) for t in range(T)])
+
     def process_frames(self, frames: np.ndarray, st, mode: str = "exact"):
         """Process ``[B, T, win_len]`` sample frames; returns windowed time
         frames ``[B, T, win_len]`` (numpy) ready for overlap-add, and the
-        new state (on the device).  One host-to-device copy of the frames
-        and one device-to-host copy of the output per call.
+        new state (on the device, owned by the caller).  One host-to-device
+        copy of the frames and one device-to-host copy of the output per
+        call.
 
         ``mode``:
             ``"exact"`` (default): front end, ``forward_spec`` and back end
-            once per frame at T == 1, so the op sequence per frame is the
-            same for every chunking and the output is bit-identical however
-            the stream is cut.
+            once per frame at T == 1 (:meth:`_stream_fn`), so the op
+            sequence per frame is the same for every chunking and the
+            output is bit-identical however the stream is cut.
             ``"throughput"``: one ``forward_spec`` per bucket of the
-            power-of-two ladder (the JAX package's split, chunk for chunk);
-            the same math, with float reduction orders that depend on the
-            chunking (about 1e-5 from exact).
+            power-of-two ladder (the JAX package's split, chunk for chunk;
+            :meth:`_stream_vec_fn`); the same math, with float reduction
+            orders that depend on the chunking (about 1e-5 from exact).
+
+        On a CUDA engine each program is a captured CUDA graph (replayed
+        per frame in exact mode, per bucket in throughput mode), built on
+        the first call that needs it.  Threads may share an engine: a lock
+        runs one call's graph span at a time.
         """
         frames = np.asarray(frames, dtype=np.float32)
         B, T, _ = frames.shape
@@ -290,25 +487,17 @@ class Engine:
             raise ValueError(f"unknown streaming mode {mode!r}")
         if T == 0:
             return np.zeros((B, 0, self.cfg.win_len), np.float32), st
-        front, back = self._stream_ends()
-        outs = []
-        with _math_mode(self.precision), torch.no_grad():
-            x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-            if mode == "exact":
-                spans = [(t, 1) for t in range(T)]
-            else:
-                spans, pos = [], 0
-                while pos < T:
-                    step = max(b for b in _STREAM_T_BUCKETS if b <= T - pos)
-                    spans.append((pos, step))
-                    pos += step
-            for pos, step in spans:
-                out, st, _ = forward_spec(self.params, self.cfg,
-                                          front(x[:, pos:pos + step]), st,
-                                          precision=self.precision)
-                outs.append(back(out))
-            y = torch.cat(outs, dim=1).cpu().numpy()
-        return y, st
+        if mode == "exact":
+            kind, spans = "exact", [(t, 1) for t in range(T)]
+        else:
+            kind, spans, pos = "vec", [], 0
+            while pos < T:
+                step = max(b for b in _STREAM_T_BUCKETS if b <= T - pos)
+                spans.append((pos, step))
+                pos += step
+        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        y, st = self._program(kind, B, T, spans)(x, st)
+        return y.cpu().numpy(), st
 
     def enhance_waveforms(self, wavs: np.ndarray, attn_limit_db: Optional[float] = None,
                           lengths: Optional[np.ndarray] = None,

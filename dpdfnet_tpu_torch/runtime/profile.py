@@ -7,9 +7,9 @@
 Offline (default): runs ``Engine.enhance_waveforms`` once as a warm-up,
 then once under ``torch.profiler``.  ``--stream``: exact streaming of
 ``--batch`` streams, one ``process_frames`` call per hop as a real-time
-server makes them; 8 warm-up hops, then ``--hops`` hops under the
-profiler.  ``--stack`` sets ``DPDFNET_TPU_STACK=1`` (the DPRNN stack
-kernel) before the engine is built; ``--quality`` picks the tier
+server makes them, through the engine's captured CUDA graph; 8 warm-up
+hops, then ``--hops`` hops under the profiler.  ``--stack`` sets
+``DPDFNET_TPU_STACK=1`` (the DPRNN stack kernel) before the engine is built; ``--quality`` picks the tier
 (``engine_from_quality``, default ``high``) and ``--v2`` sets
 ``DPDFNET_TPU_PALLAS_V2=1`` (the inter v2 kernel under ``fast`` /
 ``turbo``).  ``--fm on|off`` sets ``DPDFNET_TPU_INTRA_TM`` (the freq-major
@@ -20,9 +20,11 @@ kernel).
 Prints one JSON object: the wall ms of the profiled span (and ms per hop
 when streaming), the summed device ms per kernel family (the port's CUDA
 kernels, convolutions, GEMMs, FFTs, everything else), the device's busy
-share of the wall time, the kernel launches counted by the wrappers, the
-number of device operations (kernels and copies) the span ran, and the
-top kernels by device time.  Needs a CUDA device; random contracted
+share of the wall time, the kernel launches counted by the wrappers
+(launches they made themselves), the engine's graph replays, the port's
+kernels the device ran by kernel symbol (``kernel_launches``: the trace
+counts what a replayed graph launches), the number of device operations
+(kernels and copies) the span ran, and the top kernels by device time.  Needs a CUDA device; random contracted
 weights (``init_params`` + ``contract_params``, seed 0); the tier sets its
 own cuBLAS / cuDNN math mode for each engine call.
 """
@@ -32,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import time
 from collections import defaultdict
@@ -60,6 +63,25 @@ def family(name: str) -> str:
         if any(k in low for k in keys):
             return fam
     return "other"
+
+
+# the port's kernels by symbol: one per wrapper launch (gru_scan's wrapper
+# also launches proj_gemm_kernel; the v1 and v2 intra wrappers and the
+# intra step ablation are all instances of dprnn_intra_kernel)
+KERNEL_SYMBOLS = ("dprnn_intra_kernel", "dprnn_inter_kernel", "dprnn_inter_v2_kernel",
+                  "dprnn_stack_kernel", "gru_recur_cluster_kernel", "gru_bidir_kernel",
+                  "relayout_fm_kernel")
+
+
+def kernel_launches(names) -> dict:
+    """How many of the device events ``names`` ran each of the port's
+    kernels (``KERNEL_SYMBOLS``); the kernels that did not run are left out."""
+    counts = defaultdict(int)
+    for name in names:
+        hit = [s for s in KERNEL_SYMBOLS if re.search(rf"\b{s}\b", name)]
+        if hit:
+            counts[hit[0]] += 1
+    return dict(counts)
 
 
 def main(argv=None) -> int:
@@ -124,19 +146,22 @@ def main(argv=None) -> int:
         run()
     torch.cuda.synchronize()
     gru_kernels.reset_launch_counts()
+    replays = eng.graph_replays
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = gru_kernels.launch_counts()
+    replays = eng.graph_replays - replays
 
     per_kernel = defaultdict(float)
-    n_device_ops = 0
+    device_names = []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             per_kernel[ev.name] += ev.device_time_total / 1e3
-            n_device_ops += 1
+            device_names.append(ev.name)
+    n_device_ops = len(device_names)
     fams = defaultdict(float)
     for name, ms in per_kernel.items():
         fams[family(name)] += ms
@@ -154,6 +179,7 @@ def main(argv=None) -> int:
         "relayout": args.relayout,
         "card": smi, "wall_ms_profiled": wall_ms, "device_busy_ms": busy,
         "device_busy_share": busy / wall_ms, "launches": launches,
+        "graph_replays": replays, "kernel_launches": kernel_launches(device_names),
         "device_ops": n_device_ops,
         "family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[n[:90], ms] for n, ms in top],

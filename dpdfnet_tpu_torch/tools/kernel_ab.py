@@ -723,7 +723,8 @@ def e2e(gk, log=print, hops: int = 200, rounds: int = 5, seed: int = 0) -> dict:
             f"{rounds} interleaved calls, ms {[round(w * 1e3, 1) for w in walls[name]]}); exact "
             f"{Bb} streams, {hops} interleaved hops: median {res[name]['hop_ms_median']:.3f} ms "
             f"per hop, mean {res[name]['hop_ms_mean']:.3f}; launches per offline call "
-            f"{json.dumps(offline)}, per hop {json.dumps(hop)}")
+            f"{json.dumps(offline)}, per hop {json.dumps(hop)} (the wrappers count what they "
+            f"launch: none where the hop replays a captured graph)")
     os.environ.pop(V2, None)
     return res
 
@@ -780,7 +781,8 @@ def e2e_stack(gk, log=print, hops: int = 200, seed: int = 0) -> dict:
                          launches_hop=hop)
         log(f"e2e-stack {name}: exact {Bb} streams, {hops} interleaved hops: median "
             f"{res[name]['hop_ms_median']:.3f} ms per hop [{res[name]['hop_ms_min']:.3f}-"
-            f"{res[name]['hop_ms_max']:.3f}]; launches per hop {json.dumps(hop)}")
+            f"{res[name]['hop_ms_max']:.3f}]; launches per hop {json.dumps(hop)} (none where "
+            f"the hop replays a captured graph)")
     os.environ.pop(V2, None)
     os.environ.pop("DPDFNET_TPU_STACK", None)
     return res

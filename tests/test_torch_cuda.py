@@ -966,3 +966,188 @@ def test_cuda_train_step_launches_no_kernel_and_converts(dev, tmp_path):
     with torch.no_grad():
         y = eng.enhance_waveforms(noisy.cpu().numpy())
     assert np.isfinite(y).all() and gru_kernels.launch_counts()["gru_scan"] > 0
+
+
+# --------------------------------------------------------------------------- #
+# The captured streaming programs (CUDA graphs) and the exported step
+# --------------------------------------------------------------------------- #
+
+def _graph_engine(dev, quality="highest"):
+    from dpdfnet_tpu_torch import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    cfg = get_config("dpdfnet2")
+    return engine_from_quality(cfg, contract_params(init_params(cfg, seed=0, device=dev)),
+                               quality, device=dev)
+
+
+def _eager_exact(eng, frames):
+    """Front, forward_spec and back once per frame, no graph."""
+    from dpdfnet_tpu_torch.runtime.engine import _math_mode
+
+    st = eng.init_stream_state(batch=frames.shape[0])
+    x = torch.from_numpy(frames).to(eng.device)
+    step, ys = eng._stream_step("exact"), []
+    with _math_mode(eng.precision), torch.no_grad():
+        for t in range(frames.shape[1]):
+            y, st = step(x[:, t:t + 1].contiguous(), st)
+            ys.append(y)
+    return torch.cat(ys, dim=1).cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_cuda_stream_graph_equals_eager_and_counts_replays(dev):
+    """Exact streaming through the captured graph: bit for bit the eager
+    per-frame loop and bit-invariant to chunking.  The wrappers count only
+    the launches of the first hop, which runs eagerly before the capture;
+    every later hop is one graph replay, and a traced replayed hop runs
+    16 / 16 / 5 ... kernels (dpdfnet2: 4 / 4 / 5)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpdfnet_tpu_torch.runtime.profile import kernel_launches
+
+    eng = _graph_engine(dev)
+    B, T = 4, 12
+    blocks = 2 * eng.cfg.dprnn_blocks
+    per_hop = {"dprnn_intra_block": blocks, "dprnn_inter_block": blocks, "gru_scan": 5}
+    frames = (0.1 * np.random.default_rng(21).normal(size=(B, T, eng.cfg.win_len))
+              ).astype(np.float32)
+    ref = _eager_exact(eng, frames)
+    outs = []
+    for cuts in ([T], [1] * T, [5, 3, 4]):
+        gru_kernels.reset_launch_counts()
+        captured, replays = len(eng._graphs), eng.graph_replays
+        st, ys, pos = eng.init_stream_state(batch=B), [], 0
+        for n in cuts:
+            y, st = eng.process_frames(frames[:, pos:pos + n], st)
+            ys.append(y)
+            pos += n
+        torch.cuda.synchronize()
+        eager = len(eng._graphs) - captured
+        counts = gru_kernels.launch_counts()
+        assert counts == {**dict.fromkeys(counts, 0),
+                          **{k: v * eager for k, v in per_hop.items()}}
+        assert eng.graph_replays - replays == T - eager
+        outs.append(np.concatenate(ys, axis=1))
+    assert len(eng._graphs) == 1
+    for y in outs:
+        np.testing.assert_array_equal(y, ref)
+    gru_kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.process_frames(frames[:, :3], eng.init_stream_state(batch=B))
+        torch.cuda.synchronize()
+    traced = kernel_launches(ev.name for ev in prof.events()
+                             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    assert traced == {"dprnn_intra_kernel": 3 * blocks, "dprnn_inter_kernel": 3 * blocks,
+                      "gru_recur_cluster_kernel": 15}
+    assert not any(gru_kernels.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_cuda_stream_graph_threads_sharing_an_engine(dev):
+    """Two threads that each drive a StreamEnhancer on one engine, hop by
+    hop at once, each get their single-threaded output bit for bit (the
+    engine's lock serialises the graph spans; a capture in one thread may
+    overlap the other's frame upload, which thread-local capture allows)."""
+    import threading
+
+    from dpdfnet_tpu_torch import StreamEnhancer
+
+    eng = _graph_engine(dev)
+    hop = eng.cfg.hop
+    rng = np.random.default_rng(24)
+    xs = [(0.1 * rng.normal(size=60 * hop)).astype(np.float32) for _ in range(2)]
+    chunk = 2 * hop + 5
+
+    def run(x):
+        se = StreamEnhancer(engine=eng)
+        return np.concatenate([se.process(x[i:i + chunk]) for i in range(0, len(x), chunk)])
+
+    got, errors = {}, []
+
+    def worker(k):
+        try:
+            got[k] = run(xs[k])
+        except Exception as exc:                           # reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for k in range(2):
+        np.testing.assert_array_equal(got[k], run(xs[k]))
+
+
+@pytest.mark.cuda
+def test_cuda_stream_graph_shared_engine_streams_are_independent(dev):
+    """Two StreamEnhancers and a pool on one engine, interleaved call by
+    call, each equal to its own run alone."""
+    from dpdfnet_tpu_torch import MultiStreamEnhancer, StreamEnhancer
+
+    eng = _graph_engine(dev)
+    hop = eng.cfg.hop
+    rng = np.random.default_rng(22)
+    xs = [(0.1 * rng.normal(size=40 * hop)).astype(np.float32) for _ in range(4)]
+    chunk = 3 * hop + 7
+
+    def alone(x):
+        se = StreamEnhancer(engine=eng)
+        return np.concatenate([se.process(x[i:i + chunk]) for i in range(0, len(x), chunk)])
+
+    refs = [alone(x) for x in xs[:2]]
+    pool_alone = MultiStreamEnhancer(capacity=4, engine=eng)
+    sids = [pool_alone.open() for _ in range(2)]
+    pool_ref = {s: [] for s in sids}
+    for i in range(0, len(xs[2]), chunk):
+        for s, y in pool_alone.process_many({sids[0]: xs[2][i:i + chunk],
+                                             sids[1]: xs[3][i:i + chunk]}).items():
+            pool_ref[s].append(y)
+
+    a, b = StreamEnhancer(engine=eng), StreamEnhancer(engine=eng)
+    pool = MultiStreamEnhancer(capacity=4, engine=eng)
+    psids = [pool.open() for _ in range(2)]
+    got = {"a": [], "b": [], **{s: [] for s in psids}}
+    for i in range(0, len(xs[0]), chunk):
+        got["a"].append(a.process(xs[0][i:i + chunk]))
+        for s, y in pool.process_many({psids[0]: xs[2][i:i + chunk],
+                                       psids[1]: xs[3][i:i + chunk]}).items():
+            got[s].append(y)
+        got["b"].append(b.process(xs[1][i:i + chunk]))
+    np.testing.assert_array_equal(np.concatenate(got["a"]), refs[0])
+    np.testing.assert_array_equal(np.concatenate(got["b"]), refs[1])
+    for s, r in zip(psids, sids):
+        np.testing.assert_array_equal(np.concatenate(got[s]), np.concatenate(pool_ref[r]))
+
+
+@pytest.mark.cuda
+def test_cuda_spec_program_and_exported_step_launch_the_kernels(dev, tmp_path):
+    """The spec program replays per frame; the exported step on the card
+    holds the kernel ops and launches the kernels, within 1e-5 of it."""
+    from dpdfnet_tpu_torch import export as ex
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+
+    eng = _graph_engine(dev, "high")
+    cfg = eng.cfg
+    rng = np.random.default_rng(23)
+    spec = torch.tensor(0.1 * rng.normal(size=(1, 10, cfg.freq_bins, 2)), dtype=torch.float32,
+                        device=dev)
+    ref, _ = eng._stream_spec_fn(1, 10)(spec, eng.init_stream_state(batch=1))
+    path = ex.export_stream(contract_params(init_params(cfg, seed=0, device=dev)), cfg,
+                            tmp_path / "m.stream.pt2", device=dev)
+    loaded = ex.load_exported(path)
+    targets = {str(n.target) for n in loaded.program.graph.nodes if n.op == "call_function"}
+    assert {"dpdfnet.dprnn_intra_block.default", "dpdfnet.dprnn_inter_block.default",
+            "dpdfnet.gru_scan.default"} <= targets
+    flat = torch.from_numpy(ex.build_initial_flat_state(loaded.meta))[None].to(dev)
+    gru_kernels.reset_launch_counts()
+    outs = []
+    for t in range(10):
+        o, flat = loaded.call(spec[:, t:t + 1], flat)
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert gru_kernels.launch_counts()["gru_scan"] == 5 * 10
+    assert (torch.cat(outs, dim=1) - ref).abs().max().item() <= 1e-5
