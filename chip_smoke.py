@@ -144,7 +144,28 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    ``StreamEnhancer`` (2e-4, the 16-bit step; no model module loaded);
    (d) ``export.export_offline`` at B=4 x 2 s (padded to its bucket)
    against ``Engine.enhance_waveforms`` (1e-5); the phase's wall time;
-15. (run after 18) one JSON line listing the kernels, then the final JSON
+19. multi-device on ``dpdfnet8_48khz_hr`` at full width and depth (run
+   after 18): (a) ``Engine(mesh=make_mesh())`` over every visible card,
+   offline B=64 x 4 s and exact / throughput streaming at 64 streams x 40
+   hops, against the engine without a mesh (``torch.equal`` on one card,
+   MESH_TOL on more); (b) the mesh ``[cuda:0, cuda:0]`` (two replicas on
+   one card, the split, the pad and the gather with the real kernels):
+   offline B=63 (padded to 64) and exact / throughput streaming at 64
+   streams in ``highest`` (MESH_TOL) and ``turbo`` + V2 (rel_rms
+   TURBO_MESH_REL_RMS), the launches per segment per replica, the graph
+   replays per replica, and a stream batch of 63 raising; (c)
+   ``make_train_step(mesh=[cuda:0, cuda:0])`` at B=4 x 1.0 s against the
+   step without a mesh (TRAIN_LOSS_REL, TRAIN_GRAD_REL), then its ms per
+   step and peak memory; (d) what the mesh wrapper costs on one card:
+   offline xRT and exact ms per hop of the engine without a mesh, the mesh
+   of one card and ``[cuda:0, cuda:0]``, interleaved; (e) the native host
+   library built from ``native/`` and loaded, ``ola_commit`` bit-equal to
+   NumPy, ``resample`` within 1e-3 of ``resample_poly``, the PCM16 WAV
+   codec equal to the NumPy codec; (f) ``enhance-dir --distributed`` in
+   one process per card (two on one card) through
+   ``torch.distributed.run`` against one process: the hosts' shards, the
+   files within one 16-bit step; the phase's wall time;
+15. (run after 19) one JSON line listing the kernels, then the final JSON
    status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
@@ -219,6 +240,16 @@ TURBO_STATE_REL_RMS = 0.1
 # leaf by O(1) of its magnitude.
 TRAIN_LOSS_REL = 1e-5
 TRAIN_GRAD_REL = 1e-4
+# The engine on a mesh against the engine without one (phase 19), highest:
+# each shard runs the single-device path on B / n rows, so only the
+# cuBLAS / cuDNN algorithm a smaller batch gets can differ (the hand-written
+# kernels are row-wise); max-abs 1e-5 on outputs of rms about 0.1, twenty
+# times below ENGINE_TOL.  A shard routed to the wrong rows or a lost pad
+# row moves the output by its own magnitude.  turbo + V2: bf16 planes
+# round at other points when the GEMM shapes change, so rel_rms 3e-3, the
+# bound between the port's and the JAX package's turbo tiers.
+MESH_TOL = 1e-5
+TURBO_MESH_REL_RMS = 3e-3
 
 MODEL = "dpdfnet8_48khz_hr"
 PALLAS = "dpdfnet_tpu/ops/pallas_gru.py"
@@ -2076,6 +2107,363 @@ def export_phase(cfg, params, eng, gk, smi, rng):
     return counts
 
 
+def mesh_phase(cfg, params, gk, smi, rng):
+    """Phase 19a-b: the engine on a mesh.  (a) the mesh over every visible
+    card against the engine without a mesh; (b) the mesh ``[cuda:0,
+    cuda:0]``: the split, the pad and the gather with the real kernels, in
+    ``highest`` and ``turbo`` + V2, with the launches and graph replays per
+    replica and a stream batch the mesh cannot split.  Returns the
+    engines 19d times: the one without a mesh, the mesh ``[cuda:0,
+    cuda:0]`` and the mesh over every card when there are several."""
+    from dpdfnet_tpu_torch import Engine
+    from dpdfnet_tpu_torch.parallel.mesh import Sharded, make_mesh
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    K = cfg.dprnn_blocks
+    per_call = {"dprnn_intra_block": 2 * K, "dprnn_inter_block": 2 * K, "gru_scan": 5}
+    B, hops = 64, 40
+    big = (0.1 * rng.standard_normal((B, int(4.0 * cfg.sample_rate)))).astype(np.float32)
+    frames = stream_frames(rng, B, hops, cfg.win_len)
+
+    def runs(e, rows=B):
+        """Offline on ``rows`` utterances, exact and throughput streaming."""
+        y = e.enhance_waveforms(big[:rows])
+        ys, st = e.process_frames(frames, e.init_stream_state(batch=B))
+        tp, _ = e.process_frames(frames, e.init_stream_state(batch=B), mode="throughput")
+        return y, ys, tp, st
+
+    def dev(got, ref):
+        return float(np.abs(got - ref).max()), rel_rms(got, ref)
+
+    with set_env(STACK, False):
+        one = Engine(cfg, params, precision="highest", device="cuda")
+        ref = runs(one)
+
+        # ---- 19a: every visible card ----
+        mesh = make_mesh()
+        em = Engine(cfg, params, precision="highest", mesh=mesh)
+        got = runs(em)
+        errs = [dev(g, r)[0] for g, r in zip(got[:3], ref[:3])]
+        same = [bool(np.array_equal(g, r)) for g, r in zip(got[:3], ref[:3])]
+        log(f"19a mesh over every visible card {[str(d) for d in mesh.devices]}: offline "
+            f"B={B} x 4 s, exact and throughput streaming {B} streams x {hops} hops against "
+            f"the engine without a mesh: max_abs {['%.3e' % e for e in errs]}, "
+            f"bit-identical {same} (tol: equal on one card, {MESH_TOL:.0e} on more)")
+        if mesh.size == 1 and not all(same) or not max(errs) <= MESH_TOL:
+            raise AssertionError(f"19a: the mesh engine deviates from one engine: {errs}")
+        if mesh.size == 1:
+            em = None
+
+        # ---- 19b: [cuda:0, cuda:0], highest ----
+        m2 = make_mesh(["cuda:0", "cuda:0"])
+        e2 = Engine(cfg, params, precision="highest", mesh=m2)
+        n_seg = segments(e2, big.shape[1])
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        y63 = e2.enhance_waveforms(big[:63])
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+        err = dev(y63, ref[0][:63])
+        log(f"19b mesh [cuda:0, cuda:0] highest offline B=63 x 4 s (padded to 64, 2 shards of "
+            f"32): vs the engine without a mesh max_abs {err[0]:.3e} rel_rms {err[1]:.3e} "
+            f"(tol {MESH_TOL:.0e}); launches {json.dumps(counts)} ({n_seg} segments x 2 "
+            f"replicas, expected per segment per replica {json.dumps(per_call)})")
+        expect_counts("19b offline", counts, {k: 2 * n_seg * v for k, v in per_call.items()})
+        if y63.shape != (63, big.shape[1]) or not err[0] <= MESH_TOL:
+            raise AssertionError(f"19b: offline on the mesh deviates by {err[0]:.3e}")
+        for mode, r in (("exact", ref[1]), ("throughput", ref[2])):
+            spans = [1] * hops if mode == "exact" else stream_spans(hops)
+            for call in (1, 2):
+                replays = [rep.graph_replays for rep in e2.replicas]
+                st = e2.init_stream_state(batch=B)
+                torch.cuda.synchronize()
+                gk.reset_launch_counts()
+                y, st = e2.process_frames(frames, st, mode=mode)
+                torch.cuda.synchronize()
+                counts = gk.launch_counts()
+                replays = [rep.graph_replays - r0 for rep, r0 in zip(e2.replicas, replays)]
+                err = dev(y, r)
+                captured = len(set(spans)) if call == 1 else 0
+                log(f"19b {mode} streaming {B} streams x {hops} hops, call {call}: max_abs "
+                    f"{err[0]:.3e} (tol {MESH_TOL:.0e}); state {type(st).__name__} of "
+                    f"{len(st)} shards of {st[0]['enc_gru'][0].shape[0]} streams; graph "
+                    f"replays per replica {replays}, wrapper launches {json.dumps(counts)} "
+                    f"(the eager span of each of the {captured} captures per replica)")
+                expect_counts(f"19b {mode} call {call}", counts,
+                              {k: 2 * captured * v for k, v in per_call.items() if captured})
+                if replays != [len(spans) - captured] * 2 or not isinstance(st, Sharded):
+                    raise AssertionError(f"19b {mode}: replays {replays} for {len(spans)} spans")
+                if not err[0] <= MESH_TOL:
+                    raise AssertionError(f"19b {mode}: the mesh deviates by {err[0]:.3e}")
+        for bad in (lambda: e2.init_stream_state(batch=63),
+                    lambda: e2.process_frames(frames[:63], None)):
+            try:
+                bad()
+            except ValueError as exc:
+                msg = str(exc)
+            else:
+                raise AssertionError("19b: a stream batch of 63 on a mesh of 2 did not raise")
+            if "multiple of the mesh size" not in msg:
+                raise AssertionError(f"19b: unexpected error {msg!r}")
+        log(f"19b a stream batch of 63 raises: {msg}")
+
+    # ---- 19b: turbo + V2 ----
+    with set_env(STACK, False), set_env(V2, True):
+        t1 = engine_from_quality(cfg, params, "turbo", device="cuda")
+        t2 = engine_from_quality(cfg, params, "turbo", mesh=m2)
+        tref = runs(t1)
+        counts = {}
+        for name, e, rows in (("one", t1, 32), ("mesh", t2, 63)):
+            torch.cuda.synchronize()
+            gk.reset_launch_counts()
+            e.enhance_waveforms(big[:rows])
+            torch.cuda.synchronize()
+            counts[name] = gk.launch_counts()
+        tgot = runs(t2, rows=63)
+    errs = [dev(g, r[:g.shape[0]]) for g, r in zip(tgot[:3], tref[:3])]
+    log(f"19b mesh [cuda:0, cuda:0] turbo + V2 against turbo + V2 without a mesh (offline "
+        f"B=63, exact, throughput): max_abs / rel_rms "
+        f"{[('%.3e' % a, '%.3e' % b) for a, b in errs]} (tol rel_rms {TURBO_MESH_REL_RMS:.0e}); "
+        f"offline launches on the mesh {json.dumps(counts['mesh'])}, twice one engine's "
+        f"{json.dumps(counts['one'])}")
+    if not all(b <= TURBO_MESH_REL_RMS for _, b in errs):
+        raise AssertionError(f"19b turbo: the mesh deviates: {errs}")
+    if not counts["one"].get("dprnn_inter_block_v2"):
+        raise AssertionError("19b turbo: the V2 inter kernel did not run")
+    expect_counts("19b turbo offline", counts["mesh"],
+                  {k: 2 * v for k, v in counts["one"].items() if v})
+    return one, e2, em
+
+
+def mesh_train_phase(cfg, smi):
+    """Phase 19c: ``make_train_step(mesh=[cuda:0, cuda:0])`` at B=4 x 1.0 s
+    against the step without a mesh (the loss, and each gradient leaf
+    against its largest value), then ms per step and peak memory."""
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.parallel.mesh import make_mesh
+    from dpdfnet_tpu_torch.quality import speechlike_test_signal
+    from dpdfnet_tpu_torch.train import make_train_step, trainable_parameters
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves
+
+    rng = np.random.default_rng(19)
+    clean = speechlike_test_signal(1.0, cfg.sample_rate, seed=0, batch=4)
+    noisy = clean + (0.02 * rng.standard_normal(clean.shape)).astype(np.float32)
+    clean_t, noisy_t = torch.from_numpy(clean).cuda(), torch.from_numpy(noisy).cuda()
+    m2 = make_mesh(["cuda:0", "cuda:0"])
+    steps = {}
+    for name, mesh in (("none", None), ("mesh", m2)):
+        p = contract_params(init_params(cfg, seed=0, device="cuda"))
+        st = make_train_step(cfg, torch.optim.SGD(trainable_parameters(p), lr=0.0), mesh=mesh)
+        loss, _ = st(p, noisy_t, clean_t)
+        steps[name] = (float(loss), {k: (torch.zeros_like(v) if v.grad is None else v.grad)
+                                     for k, v in tree_leaves(p) if v.requires_grad})
+    (l_m, g_m), (l_1, g_1) = steps["mesh"], steps["none"]
+    loss_rel = abs(l_m - l_1) / abs(l_1)
+    worst = sorted(((float((g_m[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30), k)
+                    for k, g in g_1.items()), reverse=True)
+    log(f"19c train step on the mesh [cuda:0, cuda:0] vs without, B=4 x 1.0 s: loss "
+        f"{l_m:.8f} vs {l_1:.8f} (rel {loss_rel:.2e}, tol {TRAIN_LOSS_REL:.0e}); "
+        f"{len(g_1)} gradient leaves, worst max-abs / leaf max "
+        f"{[(k, f'{e:.2e}') for e, k in worst[:3]]} (tol {TRAIN_GRAD_REL:.0e})")
+    if not loss_rel <= TRAIN_LOSS_REL or not worst[0][0] <= TRAIN_GRAD_REL:
+        raise AssertionError("the train step on the mesh deviates from the step without one")
+    p = contract_params(init_params(cfg, seed=0, device="cuda"))
+    step = make_train_step(cfg, torch.optim.Adam(trainable_parameters(p), lr=1e-3), mesh=m2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        loss, _ = step(p, noisy_t, clean_t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"19c train step on the mesh [cuda:0, cuda:0], B=4 x 1.0 s, Adam: "
+        f"{statistics.median(times[1:]) * 1e3:.1f} ms per step (median of steps 2-4; steps "
+        f"{[round(t * 1e3, 1) for t in times]} ms), peak memory {peak:.2f} GiB, losses "
+        f"{[round(v, 6) for v in losses]} | {smi}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"19c: mesh train losses not finite or not falling: {losses}")
+
+
+def mesh_cost_phase(cfg, params, one, e2, em, smi, rng):
+    """Phase 19d: what the mesh wrapper costs on one card: offline xRT at
+    B=64 x 4 s and exact ms per hop at 64 streams for the engine without a
+    mesh, the mesh of one card and the mesh ``[cuda:0, cuda:0]`` (and the
+    mesh ``em`` over every card, when there are several), interleaved call
+    by call (offline) and block by block (streaming)."""
+    from dpdfnet_tpu_torch import Engine
+    from dpdfnet_tpu_torch.parallel.mesh import make_mesh
+
+    B, secs, block = 64, 4.0, 20
+    big = (0.1 * rng.standard_normal((B, int(secs * cfg.sample_rate)))).astype(np.float32)
+    frames = stream_frames(rng, B, 8 + 4 * block, cfg.win_len)
+    with set_env(STACK, False):
+        arms = {"no mesh": one,
+                "mesh [cuda:0]": Engine(cfg, params, precision="highest",
+                                        mesh=make_mesh(["cuda:0"])),
+                "mesh [cuda:0, cuda:0]": e2}
+        if em is not None:
+            arms[f"mesh over {em.mesh.size} cards"] = em
+        names = list(arms)
+        off = {n: [] for n in names}
+        hop = {n: [] for n in names}
+        states = {}
+        for n, e in arms.items():
+            e.enhance_waveforms(big)                                   # warm-up
+            _, states[n] = _hops(e, frames[:, :8])                     # capture
+        for k in range(3):
+            for n in (names if k % 2 == 0 else names[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                arms[n].enhance_waveforms(big)
+                torch.cuda.synchronize()
+                off[n].append(B * secs / (time.perf_counter() - t0))
+        for k in range(4):
+            for n in (names if k % 2 == 0 else names[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, states[n] = _hops(arms[n], frames[:, 8 + k * block:8 + (k + 1) * block],
+                                     st=states[n])
+                torch.cuda.synchronize()
+                hop[n].append((time.perf_counter() - t0) * 1e3 / block)
+    for n in names:
+        log(f"19d {n}: offline xRT B={B} x {secs} s median {statistics.median(off[n]):.1f} "
+            f"[{min(off[n]):.1f}-{max(off[n]):.1f}] (3 calls), exact ms per hop {B} streams "
+            f"median {statistics.median(hop[n]):.3f} [{min(hop[n]):.3f}-{max(hop[n]):.3f}] "
+            f"(4 blocks of {block}), interleaved | {smi}")
+
+
+def native_phase(smi):
+    """Phase 19e: the native host library, built from ``native/`` and loaded
+    on the card's machine: ``ola_commit`` bit-equal to the NumPy form,
+    ``resample`` within 1e-3 of scipy's ``resample_poly``, and the PCM16
+    WAV writer's bytes and the reader's samples equal to the NumPy
+    codec's."""
+    import tempfile
+    from pathlib import Path
+
+    from scipy.signal import resample_poly
+
+    from dpdfnet_tpu_torch import audio_io, native
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    log(f"19e native library {native.lib_path()} built and loaded {ok} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if not ok:
+        raise AssertionError("19e: the native host library did not build or load")
+    rng = np.random.default_rng(5)
+    frames = rng.standard_normal((50, 960)).astype(np.float32)
+    tail0 = rng.standard_normal(480).astype(np.float32)
+    tail = tail0.copy()
+    got = native.ola_commit(frames, tail)
+    plain = (frames[:, :480] + np.concatenate([tail0[None], frames[:-1, 480:]])).reshape(-1)
+    if not (np.array_equal(got, plain) and np.array_equal(tail, frames[-1, 480:])):
+        raise AssertionError("19e: ola_commit differs from the NumPy form")
+    t = np.arange(16000) / 16000
+    x = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * 1330 * t)
+         ).astype(np.float32)
+    errs = {}
+    for up, down in ((3, 1), (1, 3), (160, 441), (441, 160)):
+        y = native.resample(x, up, down)
+        r = resample_poly(x.astype(np.float64), up, down).astype(np.float32)
+        n = min(len(y), len(r))
+        errs[f"{up}/{down}"] = float(np.abs(y[200:n - 200] - r[200:n - 200]).max())
+        if abs(len(y) - len(r)) > 1 or not errs[f"{up}/{down}"] <= 1e-3:
+            raise AssertionError(f"19e: resample {up}/{down} deviates from scipy")
+    with tempfile.TemporaryDirectory() as d:
+        a, b = Path(d) / "native.wav", Path(d) / "numpy.wav"
+        w = np.clip(0.5 * rng.standard_normal((48000, 2)), -1, 1).astype(np.float32)
+        if not native.wav_write(a, w, 48000):
+            raise AssertionError("19e: the native WAV writer failed")
+        load = native.load
+        native.load = lambda: None                 # the NumPy codec
+        try:
+            audio_io.write_wav(b, w, 48000)
+            y_plain, _ = audio_io.read_wav(a)
+        finally:
+            native.load = load
+        y, sr = native.wav_read(a)
+        same = a.read_bytes() == b.read_bytes() and sr == 48000 and np.array_equal(y, y_plain)
+    log(f"19e ola_commit bit-equal to NumPy True; resample vs resample_poly max_abs "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (tol 1e-3); PCM16 "
+        f"WAV 1 s x 2 channels: native bytes and samples equal to the NumPy codec's {same}")
+    if not same:
+        raise AssertionError("19e: the native WAV codec differs from the NumPy codec")
+
+
+def distributed_phase(cfg, params, smi):
+    """Phase 19f: ``enhance-dir --distributed`` in one process per visible
+    card (two on one card) through ``torch.distributed.run``, against one
+    ``enhance-dir`` run in one process: each host's ``[INFO]`` line, the
+    shards' files disjoint and together the single run's files, each
+    within one 16-bit step of it."""
+    import tempfile
+    from pathlib import Path
+
+    from dpdfnet_tpu_torch import audio_io
+    from dpdfnet_tpu_torch.utils.serialization import save_params
+
+    procs = max(2, torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        save_params(d / f"{MODEL}.params.npz", params)
+        src = d / "in"
+        src.mkdir()
+        rng = np.random.default_rng(6)
+        for i in range(2 * procs + 1):
+            n = int((1.0 + 0.25 * i) * cfg.sample_rate)
+            audio_io.write_wav(src / f"u{i}.wav",
+                               (0.1 * rng.standard_normal(n)).astype(np.float32),
+                               cfg.sample_rate)
+        env = dict(os.environ, DPDFNET_TPU_MODEL_DIR=str(d), DPDFNET_TPU_CACHE_DIR=str(d / "c"),
+                   NO_BANNER="1")
+        for k in ("DPDFNET_TPU_NUM_HOSTS", "DPDFNET_TPU_HOST_ID"):
+            env.pop(k, None)
+        cmd = ["-m", "dpdfnet_tpu_torch", "enhance-dir", str(src)]
+        args = ["--model", MODEL, "--batch-size", "4"]
+        t0 = time.perf_counter()
+        one = subprocess.run([sys.executable, *cmd, str(d / "one"), *args], env=env,
+                             capture_output=True, text=True, timeout=600)
+        t_one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               f"--nproc-per-node={procs}", *cmd, str(d / "dist"), *args,
+                               "--distributed"], env=env, capture_output=True, text=True,
+                              timeout=600)
+        t_dist = time.perf_counter() - t0
+        if one.returncode != 0 or dist.returncode != 0:
+            raise AssertionError(f"19f enhance-dir failed: {one.stderr[-1500:]}\n"
+                                 f"{dist.stderr[-3000:]}")
+        info = sorted(line for line in dist.stdout.splitlines() if line.startswith("[INFO] host"))
+        whole = {p.name: audio_io.read_wav(p)[0] for p in (d / "one").iterdir()}
+        got = {p.name: audio_io.read_wav(p)[0] for p in (d / "dist").iterdir()}
+        worst = max(float(np.abs(got[k] - whole[k]).max()) for k in whole) if \
+            sorted(got) == sorted(whole) else float("inf")
+    want = [f"[INFO] host {h}/{procs}: processing {len(range(h, 2 * procs + 1, procs))} of "
+            f"{2 * procs + 1} files" for h in range(procs)]
+    log(f"19f enhance-dir --distributed, {procs} processes on {torch.cuda.device_count()} "
+        f"card(s) (torch.distributed.run, NCCL): {info}; {len(got)} files, max-abs against one "
+        f"process {worst:.3e} (tol one 16-bit step); wall {t_dist:.1f} s against {t_one:.1f} s "
+        f"in one process | {smi}")
+    if info != want or not worst <= 1.0 / 32768.0:
+        raise AssertionError(f"19f: the distributed run differs: {info} (want {want}), "
+                             f"max-abs {worst}")
+
+
+def phase19(cfg, params, gk, smi) -> None:
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+    one, e2, em = mesh_phase(cfg, params, gk, smi, rng)
+    mesh_train_phase(cfg, smi)
+    mesh_cost_phase(cfg, params, one, e2, em, smi, rng)
+    native_phase(smi)
+    distributed_phase(cfg, params, smi)
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s wall")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2264,6 +2652,9 @@ def main() -> int:
     with set_env(STACK, False):
         export_phase(cfg, params, eng, gk, smi, rng)
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s wall")
+
+    # ---- phase 19: the mesh, the mesh train step, the native library ----
+    phase19(cfg, params, gk, smi)
 
     # ---- phase 15: kernel list (printed last) ----
     def entry(name, key, source, replaces, launches, rows=kernel_rows):

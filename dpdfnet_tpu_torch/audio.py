@@ -5,9 +5,10 @@ attenuation limit and the STFT framing.
 Resampling takes the JAX package's backend order: ``soxr`` (HQ, the
 reference pipeline's resampler) where it imports, else scipy's
 Kaiser-windowed polyphase ``resample_poly``; ``DPDFNET_TPU_RESAMPLER``
-(``auto`` / ``soxr`` / ``scipy``) forces one.  The JAX package's
-``native`` backend (the C++ polyphase of ``native/``) waits for the
-``native.py`` slice and takes scipy here.
+(``auto`` / ``soxr`` / ``scipy`` / ``native``) forces one.  ``native`` is
+the C++ polyphase of ``native/`` (``native.py``; the filter of
+``resample_poly``), for mono input, where the library builds; scipy
+otherwise.
 """
 
 from __future__ import annotations
@@ -48,8 +49,10 @@ def _soxr_available() -> bool:
 def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     """Resample between rates (float32 out); a no-op when the rates agree.
     ``soxr`` at its HQ profile where it imports (unless
-    ``DPDFNET_TPU_RESAMPLER=scipy``), else scipy's polyphase
-    ``resample_poly`` in float64."""
+    ``DPDFNET_TPU_RESAMPLER`` says ``scipy`` or ``native``); the native
+    polyphase for mono input under ``DPDFNET_TPU_RESAMPLER=native`` where
+    the library builds; else scipy's polyphase ``resample_poly`` in
+    float64."""
     if sr_in == sr_out:
         return np.asarray(audio, dtype=np.float32)
     backend = os.environ.get("DPDFNET_TPU_RESAMPLER", "auto")
@@ -58,10 +61,19 @@ def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 
         return np.asarray(soxr.resample(np.asarray(audio, np.float32), int(sr_in),
                                         int(sr_out), quality="HQ"), dtype=np.float32)
-    from scipy.signal import resample_poly
-
     g = math.gcd(int(sr_in), int(sr_out))
     up, down = sr_out // g, sr_in // g
+    x32 = np.asarray(audio, np.float32)
+    if backend == "native" and x32.ndim == 1:
+        # mono only: the native resampler would read [S, C] as one
+        # interleaved signal; multi-channel input takes scipy along axis 0
+        from . import native
+
+        y = native.resample(x32, up, down)
+        if y is not None:
+            return y
+    from scipy.signal import resample_poly
+
     return resample_poly(np.asarray(audio, dtype=np.float64), up, down).astype(np.float32)
 
 

@@ -4,8 +4,9 @@ A NumPy RIFF/WAVE reader and writer (PCM 8/16/24/32, IEEE float 32/64,
 any channel count) that writes the same bytes as the JAX package's
 writer; ``soundfile`` for FLAC / OGG / AIFF / AU and ``pydub`` or an
 ``ffmpeg`` binary for compressed containers, each only where it is
-installed.  The JAX package's native C++ WAV codec waits for the
-``native.py`` slice.
+installed.  PCM16 and float32 WAV files are read, and float audio is
+written as PCM16, by the native C++ codec (``native.py``) where it builds,
+with the same samples and bytes as the NumPy forms.
 """
 
 from __future__ import annotations
@@ -29,7 +30,14 @@ _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
 
 
 def read_wav(path: Union[str, Path]) -> Tuple[np.ndarray, int]:
-    """Read a RIFF/WAVE file -> (float32 samples [S] or [S, C], sample_rate)."""
+    """Read a RIFF/WAVE file -> (float32 samples [S] or [S, C], sample_rate).
+    The native decoder reads PCM16 and float32 where it builds; NumPy reads
+    the rest."""
+    from . import native
+
+    got = native.wav_read(path)
+    if got is not None:
+        return got
     data = Path(path).read_bytes()
     if len(data) < 12 or data[:4] != b"RIFF" or data[8:12] != b"WAVE":
         raise ValueError(f"Not a RIFF/WAVE file: {path}")
@@ -105,6 +113,11 @@ def write_wav(
     """Write float32 audio ([S] or [S, C]) as PCM_16 or FLOAT wav; int16
     input is written as it is."""
     x = np.asarray(audio)
+    if subtype == "PCM_16" and x.dtype != np.int16:
+        from . import native
+
+        if native.wav_write(path, np.asarray(x, np.float32), sample_rate):
+            return
     channels = 1 if x.ndim == 1 else x.shape[1]
     if subtype == "PCM_16":
         if x.dtype != np.int16:

@@ -8,8 +8,10 @@ The subcommands, flags, exit codes and model table are the JAX CLI's,
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 ``enhance-dir`` groups utterances into padded batches, one engine call per
 batch from the main thread; ``--workers`` threads decode and encode files
-only.  The JAX CLI's multi-host flags of ``enhance-dir`` and ``eval
---vs-onnx`` are not ported yet.
+only.  ``enhance-dir --distributed`` (a ``torch.distributed`` process
+group, e.g. under ``torchrun``) or ``--num-hosts N --host-id K`` processes
+only this host's shard of the file list (``parallel/multihost.py``).  The
+JAX CLI's ``eval --vs-onnx`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,6 +91,18 @@ def _build_parser() -> argparse.ArgumentParser:
     p_dir.add_argument(
         "--batch-size", type=int, default=8, metavar="B",
         help="Utterances per device batch (default: 8).")
+    p_dir.add_argument(
+        "--distributed", action="store_true",
+        help="Multi-host mode: bring up torch.distributed (torchrun's "
+             "MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK) and process only "
+             "this host's deterministic shard of the file list.")
+    p_dir.add_argument(
+        "--num-hosts", type=int, default=None, metavar="N",
+        help="Manual multi-machine fan-out without torch.distributed: total "
+             "hosts (same file shards as --distributed).")
+    p_dir.add_argument(
+        "--host-id", type=int, default=None, metavar="K",
+        help="This host's index in 0..N-1 for --num-hosts.")
     _add_attn_limit_arg(p_dir)
     _add_quality_arg(p_dir)
     _add_model_resolution_args(p_dir)
@@ -252,6 +266,22 @@ def _run_enhance_dir(args: argparse.Namespace) -> int:
         raise FileNotFoundError(
             f"No supported audio files found in {input_dir}\n"
             f"Supported extensions: {supported}")
+
+    # multi-host: only this host's shard of the (identically sorted) list
+    if args.distributed or args.num_hosts is not None \
+            or "DPDFNET_TPU_NUM_HOSTS" in os.environ:
+        from .parallel import multihost
+
+        if args.distributed:
+            multihost.initialize()
+        n_all = len(audio_files)
+        audio_files = multihost.shard_files_for_host(
+            audio_files, host_id=args.host_id, num_hosts=args.num_hosts)
+        hid, nh = multihost.host_info(args.host_id, args.num_hosts)
+        print(f"[INFO] host {hid}/{nh}: processing {len(audio_files)} of "
+              f"{n_all} files")
+        if not audio_files:
+            return 0
 
     output_dir.mkdir(parents=True, exist_ok=True)
     B = max(1, args.batch_size)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its
-own shared library with a plain C interface, in ``dpdfnet_tpu_torch/_build/``
-(listed in ``.gitignore``), on first use.  All missing libraries are built
+own shared library with a plain C interface, in
+``utils.compile_cache.build_dir()`` (by default ``dpdfnet_tpu_torch/_build/``,
+listed in ``.gitignore``), on first use.  All missing libraries are built
 by parallel ``nvcc`` processes.  A library's file name carries a hash of
 its sources and flags, so an edited source is rebuilt.  Libraries are
 loaded with ``ctypes``; nothing here runs at import time.
@@ -19,9 +20,10 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from ..utils import compile_cache
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
 
 # library name -> (main source, headers it includes)
 SOURCES: Dict[str, tuple] = {
@@ -59,7 +61,7 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (main,) + tuple(headers):
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    return compile_cache.build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -71,7 +73,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compile_cache.build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()

@@ -502,15 +502,24 @@ def _check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _count_launch(wrapper) -> None:
     """Count a launch of ``wrapper``'s kernel, unless it was recorded into
     a CUDA graph under capture: a capture runs nothing."""
     if not torch.cuda.is_current_stream_capturing():
         wrapper.launches += 1
+
+
+def _launch(what: str, wrapper, dev: torch.device, fn, *args) -> None:
+    """Call the C entry ``fn(*args, stream)`` with ``dev``, the device of
+    the tensors that :func:`_require_cuda` checked, as the current device
+    and ``stream`` its current stream: the entry sets per-device kernel
+    attributes and launches on the current device, so a tensor on another
+    card than the current one still runs where it lies.  Then check the
+    entry's return code and count the launch on ``wrapper``."""
+    with torch.cuda.device(dev):
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        _check_rc(rc, what)
+        _count_launch(wrapper)
 
 
 def _require_cuda(what: str, planes: Dict[str, Tensor], weights: Dict[str, Tensor]
@@ -987,13 +996,12 @@ def _intra_cuda(x, wi2, wh2, b2, wfc, bfc, g, bln, fm_batch):
            if fm_batch else torch.empty_like(x))
     plan = intra_plan(N, Fq, _sm_count(dev))
     part = torch.empty((2, N, Fq, C), device=dev, dtype=torch.float32)
-    rc = _fn("dprnn_intra", "dprnn_intra_launch")(
-        x.data_ptr(), out.data_ptr(), part.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
-        b2.data_ptr(), wfc.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(), N, Fq,
-        fm_batch or 0, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
-        _is_bf16(x), _stream())
-    _check_rc(rc, "dprnn_intra_block")
-    _count_launch(dprnn_intra_block)
+    _launch("dprnn_intra_block", dprnn_intra_block, dev,
+            _fn("dprnn_intra", "dprnn_intra_launch"),
+            x.data_ptr(), out.data_ptr(), part.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
+            b2.data_ptr(), wfc.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(), N, Fq,
+            fm_batch or 0, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
+            _is_bf16(x))
     return out
 
 
@@ -1057,13 +1065,12 @@ def _inter_cuda(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln, fm_batch, h_bm, defer):
     _require_aligned("dprnn_inter_block", wi=wi, wh=wh, wfc=wfc)
     h_last = torch.empty_like(h0)
     plan = inter_v1_plan(B * Fq, T, _sm_count(dev))
-    rc = _fn("dprnn_inter", "dprnn_inter_launch")(
-        x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(), wi.data_ptr(),
-        bi.data_ptr(), wh.data_ptr(), bh.data_ptr(), wfc.data_ptr(), bfc.data_ptr(),
-        g.data_ptr(), bln.data_ptr(), B, T, Fq, plan.rows_per_warp, plan.ts, plan.warps,
-        plan.blocks, _is_bf16(x), int(bool(fm_batch)), int(h_bm), int(bool(defer)), _stream())
-    _check_rc(rc, "dprnn_inter_block")
-    _count_launch(dprnn_inter_block)
+    _launch("dprnn_inter_block", dprnn_inter_block, dev,
+            _fn("dprnn_inter", "dprnn_inter_launch"),
+            x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(), wi.data_ptr(),
+            bi.data_ptr(), wh.data_ptr(), bh.data_ptr(), wfc.data_ptr(), bfc.data_ptr(),
+            g.data_ptr(), bln.data_ptr(), B, T, Fq, plan.rows_per_warp, plan.ts, plan.warps,
+            plan.blocks, _is_bf16(x), int(bool(fm_batch)), int(h_bm), int(bool(defer)))
     return out, h_last
 
 
@@ -1124,10 +1131,9 @@ def _relayout_cuda(x, out_dtype):
         return out
     vec = int(C % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0
               and out.data_ptr() % (4 * out.element_size()) == 0)
-    rc = _fn("relayout_fm", "relayout_fm_launch")(
-        x.data_ptr(), out.data_ptr(), B, T, F, C, _is_bf16(x), _is_bf16(out), vec, _stream())
-    _check_rc(rc, "relayout_fm")
-    _count_launch(relayout_fm)
+    _launch("relayout_fm", relayout_fm, dev,
+            _fn("relayout_fm", "relayout_fm_launch"),
+            x.data_ptr(), out.data_ptr(), B, T, F, C, _is_bf16(x), _is_bf16(out), vec)
     return out
 
 
@@ -1170,12 +1176,11 @@ def _bidir_cuda(x, wi2, wh2, b2):
     ys_fw = torch.empty_like(x)
     ys_bw = torch.empty_like(x)
     plan = gru_bidir_plan(N, L, _sm_count(dev))
-    rc = _fn("gru_bidir", "gru_bidir_launch")(
-        x.data_ptr(), ys_fw.data_ptr(), ys_bw.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
-        b2.data_ptr(), N, L, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
-        _is_bf16(x), _stream())
-    _check_rc(rc, "gru_bidir")
-    _count_launch(gru_bidir)
+    _launch("gru_bidir", gru_bidir, dev,
+            _fn("gru_bidir", "gru_bidir_launch"),
+            x.data_ptr(), ys_fw.data_ptr(), ys_bw.data_ptr(), wi2.data_ptr(), wh2.data_ptr(),
+            b2.data_ptr(), N, L, plan.rows_per_warp, plan.walk_warps, plan.warps, plan.clusters,
+            _is_bf16(x))
     return ys_fw, ys_bw
 
 
@@ -1224,12 +1229,11 @@ def _stack_cuda(x, h0, weights):
     plan = stack_plan(B, Fq, K, _sm_count(dev))
     out = torch.empty_like(x)
     h_last = torch.empty_like(h0)
-    rc = _fn("dprnn_stack", "dprnn_stack_launch")(
-        x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
-        *(w.data_ptr() for w in ws.values()), B, T, Fq, K, plan.ctas, plan.threads,
-        _is_bf16(x), _stream())
-    _check_rc(rc, "dprnn_stack")
-    _count_launch(dprnn_stack)
+    _launch("dprnn_stack", dprnn_stack, dev,
+            _fn("dprnn_stack", "dprnn_stack_launch"),
+            x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
+            *(w.data_ptr() for w in ws.values()), B, T, Fq, K, plan.ctas, plan.threads,
+            _is_bf16(x))
     return out, h_last
 
 
@@ -1280,12 +1284,11 @@ def _scan_cuda(x, h0, wi, bi, wh, bh, reverse):
     xp = torch.empty((N, T, 3 * H), device=dev, dtype=torch.float32)
     ys = torch.empty((N, T, H), device=dev, dtype=x.dtype)
     h_last = torch.empty((N, H), device=dev, dtype=torch.float32)
-    rc = _fn("gru_scan", "gru_scan_launch")(
-        x.data_ptr(), h0.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
-        bh.data_ptr(), xp.data_ptr(), ys.data_ptr(), h_last.data_ptr(), N, T, I, H,
-        int(reverse), plan.rows_per_cluster, plan.clusters, _is_bf16(x), _stream())
-    _check_rc(rc, "gru_scan")
-    _count_launch(gru_scan)
+    _launch("gru_scan", gru_scan, dev,
+            _fn("gru_scan", "gru_scan_launch"),
+            x.data_ptr(), h0.data_ptr(), wi.data_ptr(), bi.data_ptr(), wh.data_ptr(),
+            bh.data_ptr(), xp.data_ptr(), ys.data_ptr(), h_last.data_ptr(), N, T, I, H,
+            int(reverse), plan.rows_per_cluster, plan.clusters, _is_bf16(x))
     return ys, h_last
 
 
@@ -1331,13 +1334,12 @@ def _intra_v2_cuda(x, wi_cat, wh_big, b2, bfc, g, bln, xp_bf16):
     plan = intra_plan(N, L, _sm_count(dev))
     lay = intra_v2_layout(C)
     part = torch.empty((2, N, L, C), device=dev, dtype=torch.float32)
-    rc = _fn("dprnn_intra_v2", "dprnn_intra_v2_launch")(
-        x.data_ptr(), out.data_ptr(), part.data_ptr(), wi_cat.data_ptr(), wh_big.data_ptr(),
-        b2.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(), N, L, lay.wi_drow,
-        lay.wi_ld, lay.wh_ld, lay.fc_off, lay.fc_doff, lay.fc_ld, plan.rows_per_warp,
-        plan.walk_warps, plan.warps, plan.clusters, int(xp_bf16), _is_bf16(x), _stream())
-    _check_rc(rc, "dprnn_intra_block_v2")
-    _count_launch(dprnn_intra_block_v2)
+    _launch("dprnn_intra_block_v2", dprnn_intra_block_v2, dev,
+            _fn("dprnn_intra_v2", "dprnn_intra_v2_launch"),
+            x.data_ptr(), out.data_ptr(), part.data_ptr(), wi_cat.data_ptr(), wh_big.data_ptr(),
+            b2.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(), N, L, lay.wi_drow,
+            lay.wi_ld, lay.wh_ld, lay.fc_off, lay.fc_doff, lay.fc_ld, plan.rows_per_warp,
+            plan.walk_warps, plan.warps, plan.clusters, int(xp_bf16), _is_bf16(x))
     return out
 
 
@@ -1390,13 +1392,11 @@ def _inter_v2_cuda(xp, x, h0, whfc, bh, bfc, g, bln):
     plan = inter_v2_plan(B * Fq, _sm_count(dev))
     out = torch.empty_like(x)
     h_last = torch.empty_like(h0)
-    rc = _fn("dprnn_inter_v2", "dprnn_inter_v2_launch")(
-        xp.data_ptr(), x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
-        whfc.data_ptr(), bh.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
-        B, T, Fq, plan.rows_per_warp, plan.warps, plan.blocks, _is_bf16(xp), _is_bf16(x),
-        _stream())
-    _check_rc(rc, "dprnn_inter_block_v2")
-    _count_launch(dprnn_inter_block_v2)
+    _launch("dprnn_inter_block_v2", dprnn_inter_block_v2, dev,
+            _fn("dprnn_inter_v2", "dprnn_inter_v2_launch"),
+            xp.data_ptr(), x.data_ptr(), out.data_ptr(), h0.data_ptr(), h_last.data_ptr(),
+            whfc.data_ptr(), bh.data_ptr(), bfc.data_ptr(), g.data_ptr(), bln.data_ptr(),
+            B, T, Fq, plan.rows_per_warp, plan.warps, plan.blocks, _is_bf16(xp), _is_bf16(x))
     return out, h_last
 
 

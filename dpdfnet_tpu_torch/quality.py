@@ -2,10 +2,10 @@
 ``tier_deviation`` in ``dpdfnet_tpu.quality``).
 
 ``tier_deviation`` enhances a deterministic speech-shaped signal with each
-quality tier and reports its waveform deviation from the ``highest``
-tier: max-abs, RMS relative to the reference output, and RMS relative to
-the input in dB.  The perceptual proxies of the JAX function (STOI,
-SI-SNR, now in the port's ``metrics.py``) are not columns here yet.
+quality tier and reports its deviation from the ``highest`` tier: max-abs, RMS
+relative to the reference output, RMS relative to the input in dB, and
+two perceptual proxies at 16 kHz, STOI (1.0 is transparent) and SI-SNR
+in dB (``metrics.py``), as the JAX function does.
 """
 
 from __future__ import annotations
@@ -50,8 +50,12 @@ def tier_deviation(model: str = "dpdfnet8_48khz_hr", *, seconds: float = 4.0,
     every >= 2-D weight rescaled to spectral norm ``contract`` (a trained
     checkpoint's stable dynamics rather than raw random init's).  Returns
     ``{"_ref_rms", "_input_rms", tier: {"rel_rms", "max_abs",
-    "rms_vs_input_db"}}``.  Runs on ``device`` (the card unless the CPU is
-    asked for)."""
+    "rms_vs_input_db", "stoi_vs_highest", "sisnr_vs_highest_db"}}``, the
+    last two the mean over the batch of each utterance's STOI and SI-SNR
+    against the ``highest`` output, both resampled to 16 kHz.  Runs on
+    ``device`` (the card unless the CPU is asked for)."""
+    from . import metrics
+    from .audio import ensure_sample_rate
     from .config import get_config
     from .models.params import contract_params, init_params
     from .runtime.engine import engine_from_quality
@@ -67,13 +71,19 @@ def tier_deviation(model: str = "dpdfnet8_48khz_hr", *, seconds: float = 4.0,
     ref_rms = float(np.sqrt(np.mean(ref ** 2)))
     in_rms = float(np.sqrt(np.mean(wav ** 2)))
     out = {"_ref_rms": ref_rms, "_input_rms": in_rms}
+    ref16 = [ensure_sample_rate(r, cfg.sample_rate, 16000) for r in ref]
     for tier in tiers:
         y = engine_from_quality(cfg, params, tier, device=device).enhance_waveforms(wav)
         d = y - ref
         d_rms = float(np.sqrt(np.mean(d ** 2)))
+        y16 = [ensure_sample_rate(yi, cfg.sample_rate, 16000) for yi in y]
         out[tier] = {
             "rel_rms": d_rms / max(ref_rms, 1e-12),
             "max_abs": float(np.abs(d).max()),
             "rms_vs_input_db": float(20.0 * np.log10(max(d_rms, 1e-12) / max(in_rms, 1e-12))),
+            "stoi_vs_highest": float(np.mean([metrics.stoi(r, yi, 16000)
+                                              for r, yi in zip(ref16, y16)])),
+            "sisnr_vs_highest_db": float(np.mean([metrics.si_snr(r, yi)
+                                                  for r, yi in zip(ref16, y16)])),
         }
     return out

@@ -38,7 +38,12 @@ from ..utils.device import DeviceLike, resolve_device
 # The offline xRT that ``vs_baseline`` divides by: the port's first card
 # figure, Engine.enhance_waveforms on dpdfnet8_48khz_hr, B=64 x 4 s,
 # float32 (TF32 off), chip_smoke.py phase 4 on an NVIDIA H100 80GB HBM3 at
-# 700 W (PERF.md, Findings).  Not the TPU target of BASELINE.md.
+# 700 W (PERF.md, Findings).  Not the TPU target of BASELINE.md.  That
+# figure is timed through enhance_waveforms, host copies included (the
+# NumPy pad, the upload, the download); the runner's xRT that
+# ``vs_baseline`` divides by it is ``Engine._offline`` on a batch already
+# on the device, with no host copies, so the ratio is not a gain of the
+# device path alone.
 CARD_BASELINE_XRT = 362.4
 
 

@@ -37,7 +37,20 @@ Its programs are the JAX package's compiled streaming programs
 each is a captured ``torch.cuda.CUDAGraph`` (exact mode and the spec
 program replay the captured T == 1 step once per frame, throughput mode
 one graph per power-of-two bucket; threads may share the engine), on a
-CPU engine the same functions run eagerly.  The mesh is a later slice.
+CPU engine the same functions run eagerly.
+
+On a mesh (``Engine(..., mesh=parallel.mesh.make_mesh(...))``, the JAX
+package's ``shard_map`` over the utterance axis) the engine holds one
+replica engine per mesh device (``replicas``; the first is the engine
+itself): the weights on each device, and per replica its own CUDA graphs,
+graph pool, capture stream, state slots and lock.  A batch is cut into
+consecutive equal shards, each shard runs its replica's single-device
+path, and the outputs are gathered in order.  Offline batches are padded
+with zero rows to a multiple of the mesh size; a streaming batch must be
+such a multiple, and its state is the per-device form
+(``parallel.mesh.Sharded``).  Every shard's work is enqueued before the
+first copy back to the host, so the devices run side by side.  With one
+device in the mesh the engine runs the code it runs without one.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ from ..ops import gru_kernels
 from ..ops import stft as stft_ops
 from ..ops.nn import rounded
 from ..ops.windows import vorbis_window
+from ..parallel.mesh import Mesh, Sharded, make_mesh, shard_batch
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tree import tree_leaves, tree_map
 
@@ -167,15 +181,23 @@ def _math_mode(precision: str):
 
 
 class Engine:
-    """Holds params on one device for one model configuration."""
+    """Holds params on one device, or replicated over a mesh, for one model
+    configuration."""
 
     def __init__(self, cfg: ModelConfig, params, *, precision: str = "high",
                  compute_dtype: torch.dtype = torch.float32, seg_frames: int = 112,
-                 bucket_s: float = 1.0, fuse: bool = True, device: DeviceLike = None):
+                 bucket_s: float = 1.0, fuse: bool = True, device: DeviceLike = None,
+                 mesh: Optional[Mesh] = None):
         if precision not in _PRECISIONS:
             raise ValueError(f"precision {precision!r}: choose from {_PRECISIONS}")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        if mesh is not None:
+            if device is not None and make_mesh([device]).devices[0] != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first device "
+                                 f"{mesh.devices[0]}; pass one or the other")
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.precision = precision
@@ -210,6 +232,18 @@ class Engine:
                                     device=self.device)
         self._idft = torch.as_tensor(stft_ops.idft_matrices(cfg.win_len, window),
                                      device=self.device)
+        # the engines that run the shards of a batch, in mesh order; a
+        # device listed twice gets a replica of its own on the same weights
+        self.replicas = (self,)
+        if mesh is not None and mesh.size > 1:
+            weights = {self.device: self.params}
+            for d in mesh.devices[1:]:
+                if d not in weights:
+                    weights[d] = tree_map(lambda _, x: x.to(d), self.params)
+            self.replicas += tuple(
+                Engine(cfg, weights[d], precision=precision, compute_dtype=compute_dtype,
+                       seg_frames=seg_frames, bucket_s=bucket_s, fuse=False, device=d)
+                for d in mesh.devices[1:])
 
     def bucket_len(self, S: int) -> int:
         """Padded length for ``S`` samples: x1.5 geometric ladder of
@@ -257,13 +291,12 @@ class Engine:
                 stft_ops.window_sumsquare(self._window_np, T, self.cfg.hop), device=self.device)
         return wss
 
-    @torch.inference_mode()
     def _offline(self, wav: torch.Tensor, alpha: float,
                  progress_callback: Optional[Callable[[int, int], None]] = None
                  ) -> torch.Tensor:
         """Front, the segments with the state carried from one to the next,
-        back.  Up to ``seg_frames`` frames run as one segment; longer inputs
-        are zero-padded to whole segments.
+        back, on this engine's device.  Up to ``seg_frames`` frames run as
+        one segment; longer inputs are zero-padded to whole segments.
 
         With ``progress_callback`` this is the segment-stepped path of the
         JAX package (``_run_offline_stepped``): the same calls, with
@@ -271,25 +304,41 @@ class Engine:
         after each segment, ``done = min((i + 1) * seg_frames, T)`` (ints
         only).  Before each report one scalar of the segment is copied to
         the host, so the report follows the device and not the enqueue."""
-        spec = self._front(wav)
-        st = state_lib.init_state(self.cfg, batch=wav.shape[0], dtype=spec.dtype,
-                                  device=self.device)
-        T = spec.shape[1]
+        return self._offline_shards([wav], alpha, progress_callback)[0]
+
+    @torch.inference_mode()
+    def _offline_shards(self, wavs, alpha: float,
+                        progress_callback: Optional[Callable[[int, int], None]] = None):
+        """:meth:`_offline` over one shard ``[b, S]`` per replica, each on its
+        replica's device: every shard's front, then segment by segment
+        every shard's segment (a progress report after each segment of all
+        shards), then every shard's back.  Nothing here waits for a device
+        unless progress is reported, so the replicas' devices run side by
+        side.  Returns one output per shard, on its device."""
+        runs = list(zip(self.replicas, wavs))
+        specs = [rep._front(w) for rep, w in runs]
+        states = [state_lib.init_state(self.cfg, batch=w.shape[0], dtype=spec.dtype,
+                                       device=rep.device)
+                  for (rep, w), spec in zip(runs, specs)]
+        T = specs[0].shape[1]
         seg = self.seg_frames
         n_seg = -(-T // seg)
-        spec_p = spec if n_seg == 1 else torch.nn.functional.pad(
-            spec, (0, 0, 0, 0, 0, n_seg * seg - T))
+        specs_p = specs if n_seg == 1 else [
+            torch.nn.functional.pad(spec, (0, 0, 0, 0, 0, n_seg * seg - T)) for spec in specs]
         if progress_callback is not None:
             progress_callback(0, T)
-        outs = []
+        outs = [[] for _ in runs]
         for i in range(n_seg):
-            o, st = self._segment(spec_p[:, i * seg:(i + 1) * seg].contiguous(), st)
-            outs.append(o)
+            for j, (rep, _) in enumerate(runs):
+                o, states[j] = rep._segment(specs_p[j][:, i * seg:(i + 1) * seg].contiguous(),
+                                            states[j])
+                outs[j].append(o)
             if progress_callback is not None:
-                o[:1, -1, :1].sum().item()
+                for o in outs:
+                    o[-1][:1, -1, :1].sum().item()
                 progress_callback(min((i + 1) * seg, T), T)
-        out = outs[0] if n_seg == 1 else torch.cat(outs, dim=1)[:, :T]
-        return self._back(spec, out, alpha)
+        return [rep._back(spec, o[0] if n_seg == 1 else torch.cat(o, dim=1)[:, :T], alpha)
+                for (rep, _), spec, o in zip(runs, specs, outs)]
 
     def _scale_spec(self, spec: torch.Tensor) -> torch.Tensor:
         """The float32 spectrum at the compute dtype, times wnorm rounded to
@@ -330,11 +379,26 @@ class Engine:
                 return y * window
         return front, back
 
+    def _check_stream_batch(self, batch: int) -> None:
+        if self.mesh is not None and batch % self.mesh.size:
+            raise ValueError(f"streaming batch ({batch}) must be a multiple of the mesh size "
+                             f"({self.mesh.size}) on a sharded engine")
+
     def init_stream_state(self, batch: int = 1):
         """Fresh state for ``batch`` streams on the engine's device, at the
         compute dtype; under bf16 compute the DPRNN inter-GRU hiddens stay
         float32 unless ``DPDFNET_TPU_STATE_F32H=0`` (the kernels carry them
-        in float32; the conv tails and delay lines join the bf16 planes)."""
+        in float32; the conv tails and delay lines join the bf16 planes).
+        On a mesh of several devices: the :class:`~parallel.mesh.Sharded`
+        form, ``batch / mesh.size`` streams on each device (``batch`` must
+        be a multiple of the mesh size)."""
+        self._check_stream_batch(batch)
+        if len(self.replicas) > 1:
+            n = len(self.replicas)
+            return Sharded(rep._init_state(batch // n) for rep in self.replicas)
+        return self._init_state(batch)
+
+    def _init_state(self, batch: int):
         st = state_lib.init_state(self.cfg, batch=batch, dtype=self.compute_dtype,
                                   device=self.device)
         if self.compute_dtype != torch.float32 and _state_f32_hiddens():
@@ -379,7 +443,8 @@ class Engine:
         y = (torch.empty_like(x) if kind == "spec" else
              torch.empty((B, T, self.cfg.win_len), dtype=torch.float32, device=self.device))
         sig = tuple((tuple(leaf.shape), leaf.dtype) for _, leaf in tree_leaves(st))
-        with self._graph_lock:
+        # the capture, the replays and the span's event on this engine's card
+        with self._graph_lock, torch.cuda.device(self.device):
             cur = torch.cuda.current_stream(self.device)
             if self._span_done is not None:       # another thread's stream may differ
                 cur.wait_event(self._span_done)
@@ -431,12 +496,32 @@ class Engine:
             slot.store(new)
         return graph, x_static, y_static
 
+    def _run_shards(self, kind: str, x: torch.Tensor, st, spans):
+        """:meth:`_run_stream` on a mesh: ``x`` cut into one shard per
+        replica (all uploaded first), each shard through its replica from
+        its part of the :class:`~parallel.mesh.Sharded` state (a whole-batch
+        state tree is sharded first).  Returns the output shards, each on
+        its device, and the new sharded state."""
+        self._check_stream_batch(x.shape[0])
+        if not isinstance(st, Sharded):
+            st = shard_batch(self.mesh, st)
+        if len(st) != len(self.replicas):
+            raise ValueError(f"a state of {len(st)} shards on a mesh of {len(self.replicas)}")
+        b = x.shape[0] // len(self.replicas)
+        xs = [x[j * b:(j + 1) * b].to(rep.device) for j, rep in enumerate(self.replicas)]
+        runs = [rep._run_stream(kind, xj, sj, spans)
+                for rep, xj, sj in zip(self.replicas, xs, st)]
+        return [y for y, _ in runs], Sharded(s for _, s in runs)
+
     def _program(self, kind: str, B: int, T: int, spans):
         def run(x: torch.Tensor, st):
             if tuple(x.shape[:2]) != (B, T):
                 raise ValueError(f"streaming program for B={B}, T={T} got {tuple(x.shape)}")
             with _math_mode(self.precision), torch.no_grad():
-                return self._run_stream(kind, x, st, spans)
+                if len(self.replicas) == 1:
+                    return self._run_stream(kind, x, st, spans)
+                ys, st = self._run_shards(kind, x, st, spans)
+                return torch.cat([y.to(self.device) for y in ys]), st
         return run
 
     def _stream_fn(self, B: int, T: int):
@@ -480,9 +565,16 @@ class Engine:
         per frame in exact mode, per bucket in throughput mode), built on
         the first call that needs it.  Threads may share an engine: a lock
         runs one call's graph span at a time.
+
+        On a mesh ``B`` must be a multiple of the mesh size (else
+        ``ValueError``); with several devices ``st`` is the
+        :class:`~parallel.mesh.Sharded` state (a whole-batch tree is
+        sharded first), each shard runs on its replica, and the output is
+        gathered in order.
         """
         frames = np.asarray(frames, dtype=np.float32)
         B, T, _ = frames.shape
+        self._check_stream_batch(B)
         if mode not in ("exact", "throughput"):
             raise ValueError(f"unknown streaming mode {mode!r}")
         if T == 0:
@@ -495,6 +587,11 @@ class Engine:
                 step = max(b for b in _STREAM_T_BUCKETS if b <= T - pos)
                 spans.append((pos, step))
                 pos += step
+        if len(self.replicas) > 1:
+            with _math_mode(self.precision), torch.no_grad():
+                ys, st = self._run_shards(kind, torch.from_numpy(np.ascontiguousarray(frames)),
+                                          st, spans)
+            return np.concatenate([y.cpu().numpy() for y in ys]), st
         x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
         y, st = self._program(kind, B, T, spans)(x, st)
         return y.cpu().numpy(), st
@@ -523,12 +620,17 @@ class Engine:
         alpha = 0.0 if value is None else float(np.float32(10.0 ** (-value / 20.0)))
 
         S_pad = self.bucket_len(S)
-        xp = np.zeros((B, S_pad), np.float32)
-        xp[:, :S] = x
+        n = len(self.replicas)
+        # on a mesh the batch is padded with zero rows to a multiple of its size
+        xp = np.zeros((-(-B // n) * n, S_pad), np.float32)
+        xp[:B, :S] = x
+        b = xp.shape[0] // n
+        wavs = [torch.from_numpy(xp[j * b:(j + 1) * b]).to(rep.device)
+                for j, rep in enumerate(self.replicas)]
         with _math_mode(self.precision):
-            y = self._offline(torch.from_numpy(xp).to(self.device), alpha,
-                              progress_callback)
-        y = y.cpu().numpy()
+            ys = self._offline_shards(wavs, alpha, progress_callback)
+        ys = [y.cpu().numpy() for y in ys]
+        y = ys[0] if n == 1 else np.concatenate(ys)
 
         out = np.zeros_like(x)
         n = min(S, y.shape[1])

@@ -1,9 +1,10 @@
 """Chunked real-time streaming enhancer (counterpart of ``dpdfnet_tpu.stream``).
 
 Arbitrary chunk sizes, causal framing with one-window latency, Vorbis-COLA
-overlap-add committing one hop per frame, ``process`` / ``flush`` /
-``reset``, internal resampling, and an error on a mid-stream sample-rate
-change.  The engine's exact mode runs every frame through the same op
+overlap-add committing one hop per frame (through the native host
+library's ``ola_commit`` where it builds, bit-identical to the NumPy form),
+``process`` / ``flush`` / ``reset``, internal resampling, and an error on a
+mid-stream sample-rate change.  The engine's exact mode runs every frame through the same op
 sequence, so the output is bit-identical for every chunking; the model
 state stays on the engine's device between calls.
 """
@@ -15,6 +16,7 @@ from typing import Optional, Union
 
 import numpy as np
 
+from . import native
 from .audio import ensure_sample_rate, to_mono
 from .models import state as state_lib
 from .utils.device import DeviceLike
@@ -50,6 +52,9 @@ class StreamEnhancer:
         self._win_len: int = cfg.win_len
         self._hop_size: int = cfg.hop
         self._input_sr: Optional[int] = None
+        # load (and on first use build) the native library now, not on the
+        # first hop of a live stream
+        native.load()
         self.reset()
 
     # ------------------------------------------------------------------ #
@@ -96,10 +101,13 @@ class StreamEnhancer:
         y = y[0]                                                  # [T, win]
 
         # Overlap-add at 50% overlap (win == 2*hop): each committed hop is
-        # this frame's first half plus the previous frame's second half.
-        tails = np.concatenate([self._ola_tail[None], y[:-1, hop:]], axis=0)
-        committed = (y[:, :hop] + tails).reshape(-1)
-        self._ola_tail = y[-1, hop:].copy()
+        # this frame's first half plus the previous frame's second half
+        # (the native form updates the tail in place).
+        committed = native.ola_commit(y, self._ola_tail)
+        if committed is None:
+            tails = np.concatenate([self._ola_tail[None], y[:-1, hop:]], axis=0)
+            committed = (y[:, :hop] + tails).reshape(-1)
+            self._ola_tail = y[-1, hop:].copy()
         self._in_buf = self._in_buf[T * hop:]
         return committed
 

@@ -207,11 +207,9 @@ def run_inter(spec: str, x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tens
     fn = getattr(_build.load("inter_step_ablation"), "inter_ablation_launch")
     fn.argtypes = [gk._I] + [gk._P] * 12 + [gk._L] + [gk._I] * 6 + [gk._P]
     fn.restype = gk._I
-    rc = fn(spec_id, *(t.data_ptr() for t in (x, out, h0, h_last, wi, bi, wh, bh, wfc, bfc, g,
-                                              bln)),
-            *sizes_plan, gk._is_bf16(x), gk._stream())
-    gk._check_rc(rc, f"inter_step_ablation {spec}")
-    run_inter.launches += 1
+    ptrs = (t.data_ptr() for t in (x, out, h0, h_last, wi, bi, wh, bh, wfc, bfc, g, bln))
+    gk._launch(f"inter_step_ablation {spec}", run_inter, dev, fn, spec_id, *ptrs,
+               *sizes_plan, gk._is_bf16(x))
     return out, h_last
 
 

@@ -227,10 +227,9 @@ def run_intra(spec: str, x: Tensor, wi2: Tensor, wh2: Tensor, b2: Tensor, wfc: T
     fn = getattr(_build.load("intra_step_ablation"), "intra_ablation_launch")
     fn.argtypes = [gk._I] + [gk._P] * 10 + [gk._L] + [gk._I] * 7 + [gk._P]
     fn.restype = gk._I
-    rc = fn(spec_id, *(t.data_ptr() for t in (x, out, part, wi2, wh2, b2, wfc, bfc, g, bln)),
-            *sizes_plan, gk._is_bf16(x), gk._stream())
-    gk._check_rc(rc, f"intra_step_ablation {spec}")
-    run_intra.launches += 1
+    ptrs = (t.data_ptr() for t in (x, out, part, wi2, wh2, b2, wfc, bfc, g, bln))
+    gk._launch(f"intra_step_ablation {spec}", run_intra, dev, fn, spec_id, *ptrs,
+               *sizes_plan, gk._is_bf16(x))
     return out
 
 

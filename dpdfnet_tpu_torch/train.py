@@ -32,7 +32,7 @@ from .ops import stft as stft_ops
 from .ops.extras import LocalSnrTarget
 from .ops.windows import vorbis_window
 from .runtime.engine import _math_mode
-from .utils.tree import tree_leaves
+from .utils.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
@@ -145,12 +145,51 @@ def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer, mesh=Non
     (``gru_kernels.force_disabled``) in full float32 (TF32 off), then
     ``optimizer.step()``, which updates ``params`` in place.  Build
     ``optimizer`` over :func:`trainable_parameters` of the same tree: a
-    filterbank that requires grad raises.  ``mesh`` (the JAX step's
-    batch-sharded form) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): the batch-sharded train step is part of the "
-            "multi-device item of ROADMAP.md queue 1 and is not ported yet")
+    filterbank that requires grad raises.
+
+    ``mesh`` (``parallel.mesh.make_mesh``; the JAX step's batch-sharded
+    form): ``params`` live on ``mesh.devices[0]``, the batch (a multiple of
+    the mesh size, else the step raises) is cut into one consecutive shard
+    per device, and each shard's loss, weighted by its share of the batch,
+    is backed through on its device: the first shard on ``params``, every
+    other one on a copy of the current weights made on its device at each
+    step (a copy also where a device repeats, so no gradient lands on the
+    params twice).  The copies' gradients are summed onto the params' and
+    the optimizer steps once: the loss and the update are those of the
+    whole batch, since every term of :func:`enhancement_loss` is a mean
+    over utterances of the same length.  ``loss`` and ``aux`` come back on
+    ``mesh.devices[0]``."""
+    n = 1 if mesh is None else mesh.size
+
+    def shard_losses(params, noisy: Tensor, clean: Tensor):
+        """Each shard's weighted loss and aux, backed through; returns them
+        on the params' device."""
+        B = noisy.shape[0]
+        if B % n:
+            raise ValueError(f"train batch ({B}) must be a multiple of the mesh size ({n})")
+        b = B // n
+        home = mesh.devices[0]
+        if any(leaf.device != home for _, leaf in tree_leaves(params)):
+            raise ValueError(f"params must lie on the mesh's first device {home}")
+        losses, auxes, copies = [], [], []
+        for i, dev in enumerate(mesh.devices):
+            if i == 0:
+                rep = params
+            else:
+                rep = tree_map(lambda _, x: x.detach().to(dev, copy=True)
+                               .requires_grad_(x.requires_grad), params)
+                copies.append(rep)
+            loss, aux = enhancement_loss(rep, cfg, noisy[i * b:(i + 1) * b].to(dev),
+                                         clean[i * b:(i + 1) * b].to(dev))
+            (loss * (b / B)).backward()
+            losses.append(loss.detach().to(home) * (b / B))
+            auxes.append({k: v.detach().to(home) * (b / B) for k, v in aux.items()})
+        for rep in copies:
+            for (_, p), (_, r) in zip(tree_leaves(params), tree_leaves(rep)):
+                if r.grad is not None:
+                    g = r.grad.to(home)
+                    p.grad = g if p.grad is None else p.grad + g
+        return sum(losses), {k: sum(a[k] for a in auxes) for k in auxes[0]}
 
     def step(params, noisy: Tensor, clean: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
         for path, leaf in tree_leaves(params):
@@ -159,8 +198,11 @@ def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer, mesh=Non
                                  "grad; build the optimizer over trainable_parameters(params)")
         optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad(), gru_kernels.force_disabled(), _math_mode("highest"):
-            loss, aux = enhancement_loss(params, cfg, noisy, clean)
-            loss.backward()
+            if mesh is None:
+                loss, aux = enhancement_loss(params, cfg, noisy, clean)
+                loss.backward()
+            else:
+                loss, aux = shard_losses(params, noisy, clean)
         optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 

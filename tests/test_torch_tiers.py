@@ -327,10 +327,12 @@ def test_quality_helpers():
     np.testing.assert_array_equal(speechlike_test_signal(0.05, 16000, seed=4, batch=2),
                                   jax_signal(0.05, 16000, seed=4, batch=2))
     params = params_from_jax(_params_np("dpdfnet2"), device="cpu")
-    dev = tier_deviation("dpdfnet2", seconds=0.05, batch=1, params=params, contract=None,
+    # 0.4 s: STOI, one of the columns, needs 384 ms of speech
+    dev = tier_deviation("dpdfnet2", seconds=0.4, batch=1, params=params, contract=None,
                          device="cpu")
     assert dev["_ref_rms"] > 0 and dev["_input_rms"] > 0
     for tier in ("high", "fast", "turbo"):
-        assert set(dev[tier]) == {"rel_rms", "max_abs", "rms_vs_input_db"}
+        assert set(dev[tier]) == {"rel_rms", "max_abs", "rms_vs_input_db", "stoi_vs_highest",
+                                  "sisnr_vs_highest_db"}
     assert dev["high"]["max_abs"] == 0.0 and dev["fast"]["max_abs"] == 0.0
     assert 0.0 < dev["turbo"]["max_abs"] <= 5e-4

@@ -221,8 +221,14 @@ def test_train_step_rejects_a_trained_filterbank_and_a_mesh():
     noisy, clean = _wavs("dpdfnet2")
     with pytest.raises(ValueError, match="erb_fb"):
         train.make_train_step(cfg, opt)(p, torch.from_numpy(noisy), torch.from_numpy(clean))
-    with pytest.raises(NotImplementedError, match="multi-device item"):
-        train.make_train_step(cfg, opt, mesh=object())
+    # a batch the mesh cannot split raises, as the JAX step's in_shardings do
+    from dpdfnet_tpu_torch.parallel.mesh import make_mesh
+
+    p = params_from_jax(_jax_params("dpdfnet2"), device="cpu")
+    opt = torch.optim.SGD(train.trainable_parameters(p), lr=1e-3)
+    wav3 = torch.from_numpy(np.tile(noisy, (3, 1)))
+    with pytest.raises(ValueError, match="multiple of the mesh size"):
+        train.make_train_step(cfg, opt, mesh=make_mesh(["cpu"] * 2))(p, wav3, wav3)
 
 
 # --------------------------------------------------------------------------- #
