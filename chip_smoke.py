@@ -2109,15 +2109,18 @@ def export_phase(cfg, params, eng, gk, smi, rng):
 
 def mesh_phase(cfg, params, gk, smi, rng):
     """Phase 19a-b: the engine on a mesh.  (a) the mesh over every visible
-    card against the engine without a mesh; (b) the mesh ``[cuda:0,
+    card against the engine without a mesh, and on several cards each
+    shard against one engine on its card; (b) the mesh ``[cuda:0,
     cuda:0]``: the split, the pad and the gather with the real kernels, in
     ``highest`` and ``turbo`` + V2, with the launches and graph replays per
-    replica and a stream batch the mesh cannot split.  Returns the
+    replica, the second shard against one engine on its rows, and a stream
+    batch the mesh cannot split.  Returns the
     engines 19d times: the one without a mesh, the mesh ``[cuda:0,
     cuda:0]`` and the mesh over every card when there are several."""
     from dpdfnet_tpu_torch import Engine
     from dpdfnet_tpu_torch.parallel.mesh import Sharded, make_mesh
     from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+    from dpdfnet_tpu_torch.utils.tree import tree_map
 
     K = cfg.dprnn_blocks
     per_call = {"dprnn_intra_block": 2 * K, "dprnn_inter_block": 2 * K, "gru_scan": 5}
@@ -2125,15 +2128,46 @@ def mesh_phase(cfg, params, gk, smi, rng):
     big = (0.1 * rng.standard_normal((B, int(4.0 * cfg.sample_rate)))).astype(np.float32)
     frames = stream_frames(rng, B, hops, cfg.win_len)
 
-    def runs(e, rows=B):
-        """Offline on ``rows`` utterances, exact and throughput streaming."""
+    def runs(e, rows=B, streams=B):
+        """Offline on ``rows`` utterances, exact and throughput streaming on
+        ``streams`` streams."""
         y = e.enhance_waveforms(big[:rows])
-        ys, st = e.process_frames(frames, e.init_stream_state(batch=B))
-        tp, _ = e.process_frames(frames, e.init_stream_state(batch=B), mode="throughput")
+        fr = frames[:streams]
+        ys, st = e.process_frames(fr, e.init_stream_state(batch=streams))
+        tp, _ = e.process_frames(fr, e.init_stream_state(batch=streams), mode="throughput")
         return y, ys, tp, st
 
     def dev(got, ref):
         return float(np.abs(got - ref).max()), rel_rms(got, ref)
+
+    def shards_vs_one(tag, e, outs, rows, streams):
+        """Each shard k >= 1 of the mesh engine ``e`` against one engine on
+        shard k's device given the same rows: ``outs`` are e's offline
+        output on ``big[:rows]`` and its exact and throughput outputs on
+        ``frames[:streams]``.  Both run the same rows through the same
+        code, so a launch on another card than its tensors' fails or moves
+        the output by its own magnitude."""
+        n = e.mesh.size
+        b, bs = -(-rows // n), streams // n
+        padded = np.zeros((b * n, big.shape[1]), np.float32)
+        padded[:rows] = big[:rows]
+        for k, d in enumerate(e.mesh.devices[1:], 1):
+            ek = Engine(cfg, tree_map(lambda _, x: x.to(d), params), precision="highest",
+                        device=d)
+            y_k = ek.enhance_waveforms(padded[k * b:(k + 1) * b])[:max(0, min(b, rows - k * b))]
+            fr_k = frames[k * bs:(k + 1) * bs]
+            ys_k, _ = ek.process_frames(fr_k, ek.init_stream_state(batch=bs))
+            tp_k, _ = ek.process_frames(fr_k, ek.init_stream_state(batch=bs), mode="throughput")
+            pairs = [(outs[0][k * b:k * b + len(y_k)], y_k), (outs[1][k * bs:(k + 1) * bs], ys_k),
+                     (outs[2][k * bs:(k + 1) * bs], tp_k)]
+            errs_k = [dev(g, r)[0] for g, r in pairs]
+            log(f"{tag} shard {k} of the mesh against one engine on {d} (offline {len(y_k)} "
+                f"rows, exact and throughput {bs} streams): max_abs "
+                f"{['%.3e' % x for x in errs_k]}, bit-identical "
+                f"{[bool(np.array_equal(g, r)) for g, r in pairs]} (tol {MESH_TOL:.0e})")
+            if not max(errs_k) <= MESH_TOL:
+                raise AssertionError(f"{tag}: shard {k} deviates from one engine on {d}: "
+                                     f"{errs_k}")
 
     with set_env(STACK, False):
         one = Engine(cfg, params, precision="highest", device="cuda")
@@ -2141,17 +2175,20 @@ def mesh_phase(cfg, params, gk, smi, rng):
 
         # ---- 19a: every visible card ----
         mesh = make_mesh()
+        n = mesh.size
+        Bs = B - B % n                        # streams: a multiple of the mesh size
         em = Engine(cfg, params, precision="highest", mesh=mesh)
-        got = runs(em)
-        errs = [dev(g, r)[0] for g, r in zip(got[:3], ref[:3])]
-        same = [bool(np.array_equal(g, r)) for g, r in zip(got[:3], ref[:3])]
+        got = runs(em, streams=Bs)
+        errs = [dev(g, r[:len(g)])[0] for g, r in zip(got[:3], ref[:3])]
+        same = [bool(np.array_equal(g, r[:len(g)])) for g, r in zip(got[:3], ref[:3])]
         log(f"19a mesh over every visible card {[str(d) for d in mesh.devices]}: offline "
-            f"B={B} x 4 s, exact and throughput streaming {B} streams x {hops} hops against "
+            f"B={B} x 4 s, exact and throughput streaming {Bs} streams x {hops} hops against "
             f"the engine without a mesh: max_abs {['%.3e' % e for e in errs]}, "
             f"bit-identical {same} (tol: equal on one card, {MESH_TOL:.0e} on more)")
-        if mesh.size == 1 and not all(same) or not max(errs) <= MESH_TOL:
+        if n == 1 and not all(same) or not max(errs) <= MESH_TOL:
             raise AssertionError(f"19a: the mesh engine deviates from one engine: {errs}")
-        if mesh.size == 1:
+        shards_vs_one("19a", em, got[:3], B, Bs)
+        if n == 1:
             em = None
 
         # ---- 19b: [cuda:0, cuda:0], highest ----
@@ -2171,6 +2208,7 @@ def mesh_phase(cfg, params, gk, smi, rng):
         expect_counts("19b offline", counts, {k: 2 * n_seg * v for k, v in per_call.items()})
         if y63.shape != (63, big.shape[1]) or not err[0] <= MESH_TOL:
             raise AssertionError(f"19b: offline on the mesh deviates by {err[0]:.3e}")
+        outs = {}
         for mode, r in (("exact", ref[1]), ("throughput", ref[2])):
             spans = [1] * hops if mode == "exact" else stream_spans(hops)
             for call in (1, 2):
@@ -2195,6 +2233,8 @@ def mesh_phase(cfg, params, gk, smi, rng):
                     raise AssertionError(f"19b {mode}: replays {replays} for {len(spans)} spans")
                 if not err[0] <= MESH_TOL:
                     raise AssertionError(f"19b {mode}: the mesh deviates by {err[0]:.3e}")
+                outs[mode] = y
+        shards_vs_one("19b", e2, (y63, outs["exact"], outs["throughput"]), 63, B)
         for bad in (lambda: e2.init_stream_state(batch=63),
                     lambda: e2.process_frames(frames[:63], None)):
             try:
@@ -2304,7 +2344,7 @@ def mesh_cost_phase(cfg, params, one, e2, em, smi, rng):
                 "mesh [cuda:0]": Engine(cfg, params, precision="highest",
                                         mesh=make_mesh(["cuda:0"])),
                 "mesh [cuda:0, cuda:0]": e2}
-        if em is not None:
+        if em is not None and B % em.mesh.size == 0:
             arms[f"mesh over {em.mesh.size} cards"] = em
         names = list(arms)
         off = {n: [] for n in names}

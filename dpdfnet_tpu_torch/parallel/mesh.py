@@ -14,6 +14,10 @@ A device may appear more than once: ``make_mesh(["cpu"] * 8)`` is the CPU
 tests' mesh (torch has one CPU device where the JAX tests have eight
 virtual ones), and ``make_mesh(["cuda:0", "cuda:0"])`` runs the split,
 the pad and the gather on one card.
+
+The JAX module's placements (``batch_sharding``, ``replicated``: its
+``NamedSharding``s) have no torch caller: :func:`shard_batch` cuts a tree
+itself, and each replica engine copies the weights to its own device.
 """
 
 from __future__ import annotations
@@ -36,7 +40,6 @@ class Mesh:
     """An ordered 1-D mesh of devices over the batch axis."""
 
     devices: Tuple[torch.device, ...]
-    axis_names: Tuple[str, ...] = (BATCH_AXIS,)
 
     @property
     def size(self) -> int:
@@ -48,17 +51,6 @@ class Sharded(tuple):
     one tree per mesh device, in mesh order, each holding its consecutive
     rows of the batch on its device (the form a mesh engine takes and
     returns for stream states)."""
-
-
-@dataclass(frozen=True)
-class Placement:
-    """How :func:`put` places a tree on a mesh: cut along the batch axis
-    (:func:`batch_sharding`) or copied whole to every device
-    (:func:`replicated`).  The torch reading of the JAX package's
-    ``NamedSharding(mesh, P("data"))`` and ``NamedSharding(mesh, P())``."""
-
-    mesh: Mesh
-    batch: bool
 
 
 def _index(dev: torch.device) -> torch.device:
@@ -81,28 +73,16 @@ def make_mesh(devices: Optional[Sequence[DeviceLike]] = None) -> Mesh:
     return Mesh(devs)
 
 
-def batch_sharding(mesh: Mesh) -> Placement:
-    """Cut the leading (batch) axis of every leaf into ``mesh.size``
-    consecutive equal shards, shard i on device i."""
-    return Placement(mesh, True)
-
-
-def replicated(mesh: Mesh) -> Placement:
-    """A whole copy of the tree on every device of the mesh."""
-    return Placement(mesh, False)
-
-
 def _leaf(x) -> torch.Tensor:
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
-def put(tree, placement: Placement) -> Sharded:
-    """Place ``tree`` (leaves: tensors or arrays) as ``placement`` says;
-    returns one tree per mesh device.  A batch that the mesh size does not
-    divide raises."""
-    mesh = placement.mesh
-    if not placement.batch:
-        return Sharded(tree_map(lambda _, x: _leaf(x).to(d), tree) for d in mesh.devices)
+def shard_batch(mesh: Mesh, tree):
+    """Place a tree whose leaves (tensors or arrays) lead with the batch
+    axis onto the mesh: its :class:`Sharded` form, ``mesh.size``
+    consecutive equal shards, shard i on device i; on a mesh of one device
+    the tree itself on that device (what a single-device engine takes).
+    A batch that the mesh size does not divide raises."""
     n = mesh.size
 
     def shard(i, d):
@@ -115,15 +95,8 @@ def put(tree, placement: Placement) -> Sharded:
             return x[i * b:(i + 1) * b].to(d).contiguous()
         return tree_map(cut, tree)
 
-    return Sharded(shard(i, d) for i, d in enumerate(mesh.devices))
-
-
-def shard_batch(mesh: Mesh, tree):
-    """Place a tree whose leaves lead with the batch axis onto the mesh: its
-    :class:`Sharded` form, or on a mesh of one device the tree itself on
-    that device (what a single-device engine takes)."""
-    parts = put(tree, batch_sharding(mesh))
-    return parts[0] if mesh.size == 1 else parts
+    parts = Sharded(shard(i, d) for i, d in enumerate(mesh.devices))
+    return parts[0] if n == 1 else parts
 
 
 def gather(tree) -> np.ndarray:

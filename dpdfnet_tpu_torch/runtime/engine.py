@@ -49,13 +49,17 @@ path, and the outputs are gathered in order.  Offline batches are padded
 with zero rows to a multiple of the mesh size; a streaming batch must be
 such a multiple, and its state is the per-device form
 (``parallel.mesh.Sharded``).  Every shard's work is enqueued before the
-first copy back to the host, so the devices run side by side.  With one
-device in the mesh the engine runs the code it runs without one.
+first copy back to the host, so that the devices can run side by side;
+the replicas' host work runs one after another on the calling thread,
+so host-bound work (the exact hop) does not overlap.  Without a mesh,
+or with one device in it, the engine is its only replica and runs the
+same path on the whole batch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import os
 import threading
 from typing import Callable, Optional
@@ -180,6 +184,25 @@ def _math_mode(precision: str):
          m.allow_bf16_reduced_precision_reduction) = saved
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector off for the block (callers hold
+    ``_CAPTURE_LOCK``, so no two blocks interleave their restores)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def _host(ys) -> np.ndarray:
+    """Output shards, one per replica, as one host array in mesh order."""
+    parts = [y.cpu().numpy() for y in ys]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
 class Engine:
     """Holds params on one device, or replicated over a mesh, for one model
     configuration."""
@@ -232,18 +255,27 @@ class Engine:
                                     device=self.device)
         self._idft = torch.as_tensor(stft_ops.idft_matrices(cfg.win_len, window),
                                      device=self.device)
-        # the engines that run the shards of a batch, in mesh order; a
+        # the engines that run the shards after the first, in mesh order; a
         # device listed twice gets a replica of its own on the same weights
-        self.replicas = (self,)
+        self._others = ()
         if mesh is not None and mesh.size > 1:
             weights = {self.device: self.params}
             for d in mesh.devices[1:]:
                 if d not in weights:
                     weights[d] = tree_map(lambda _, x: x.to(d), self.params)
-            self.replicas += tuple(
+            self._others = tuple(
                 Engine(cfg, weights[d], precision=precision, compute_dtype=compute_dtype,
                        seg_frames=seg_frames, bucket_s=bucket_s, fuse=False, device=d)
                 for d in mesh.devices[1:])
+
+    @property
+    def replicas(self) -> tuple:
+        """The engines that run the shards of a batch, in mesh order: this
+        engine, then one per further mesh entry.  Built on each read, so an
+        engine holds no reference to itself and is freed (its CUDA graphs
+        with it) as soon as it is dropped, never by the cyclic garbage
+        collector in the middle of another engine's capture."""
+        return (self,) + self._others
 
     def bucket_len(self, S: int) -> int:
         """Padded length for ``S`` samples: x1.5 geometric ladder of
@@ -313,8 +345,8 @@ class Engine:
         replica's device: every shard's front, then segment by segment
         every shard's segment (a progress report after each segment of all
         shards), then every shard's back.  Nothing here waits for a device
-        unless progress is reported, so the replicas' devices run side by
-        side.  Returns one output per shard, on its device."""
+        unless progress is reported, so the replicas' devices can run side
+        by side.  Returns one output per shard, on its device."""
         runs = list(zip(self.replicas, wavs))
         specs = [rep._front(w) for rep, w in runs]
         states = [state_lib.init_state(self.cfg, batch=w.shape[0], dtype=spec.dtype,
@@ -490,38 +522,44 @@ class Engine:
         main.wait_stream(side)
         x_static = torch.empty_like(xs, memory_format=torch.contiguous_format)
         graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._graph_pool, stream=side,
-                                             capture_error_mode="thread_local"):
+        # no cyclic garbage collection inside the capture: collecting a dead
+        # object that holds a CUDA graph destroys that graph, a call that
+        # invalidates the capture in progress
+        with _CAPTURE_LOCK, _gc_paused(), torch.cuda.graph(
+                graph, pool=self._graph_pool, stream=side, capture_error_mode="thread_local"):
             y_static, new = fn(x_static, slot.state)
             slot.store(new)
         return graph, x_static, y_static
 
     def _run_shards(self, kind: str, x: torch.Tensor, st, spans):
-        """:meth:`_run_stream` on a mesh: ``x`` cut into one shard per
-        replica (all uploaded first), each shard through its replica from
-        its part of the :class:`~parallel.mesh.Sharded` state (a whole-batch
-        state tree is sharded first).  Returns the output shards, each on
-        its device, and the new sharded state."""
+        """:meth:`_run_stream` over the replicas: ``x`` cut into one shard
+        per replica (all uploaded first), each shard through its replica.
+        With one replica ``st`` is its state tree; with several it is the
+        :class:`~parallel.mesh.Sharded` state (a whole-batch state tree is
+        sharded first).  Returns the output shards, each on its device, and
+        the new state in the form it came in."""
         self._check_stream_batch(x.shape[0])
-        if not isinstance(st, Sharded):
-            st = shard_batch(self.mesh, st)
-        if len(st) != len(self.replicas):
-            raise ValueError(f"a state of {len(st)} shards on a mesh of {len(self.replicas)}")
-        b = x.shape[0] // len(self.replicas)
+        n = len(self.replicas)
+        if n == 1:
+            states = (st,)
+        else:
+            states = st if isinstance(st, Sharded) else shard_batch(self.mesh, st)
+            if len(states) != n:
+                raise ValueError(f"a state of {len(states)} shards on a mesh of {n}")
+        b = x.shape[0] // n
         xs = [x[j * b:(j + 1) * b].to(rep.device) for j, rep in enumerate(self.replicas)]
         runs = [rep._run_stream(kind, xj, sj, spans)
-                for rep, xj, sj in zip(self.replicas, xs, st)]
-        return [y for y, _ in runs], Sharded(s for _, s in runs)
+                for rep, xj, sj in zip(self.replicas, xs, states)]
+        return [y for y, _ in runs], (runs[0][1] if n == 1 else Sharded(s for _, s in runs))
 
     def _program(self, kind: str, B: int, T: int, spans):
         def run(x: torch.Tensor, st):
             if tuple(x.shape[:2]) != (B, T):
                 raise ValueError(f"streaming program for B={B}, T={T} got {tuple(x.shape)}")
             with _math_mode(self.precision), torch.no_grad():
-                if len(self.replicas) == 1:
-                    return self._run_stream(kind, x, st, spans)
                 ys, st = self._run_shards(kind, x, st, spans)
-                return torch.cat([y.to(self.device) for y in ys]), st
+            return (ys[0] if len(ys) == 1 else
+                    torch.cat([y.to(self.device) for y in ys])), st
         return run
 
     def _stream_fn(self, B: int, T: int):
@@ -587,14 +625,10 @@ class Engine:
                 step = max(b for b in _STREAM_T_BUCKETS if b <= T - pos)
                 spans.append((pos, step))
                 pos += step
-        if len(self.replicas) > 1:
-            with _math_mode(self.precision), torch.no_grad():
-                ys, st = self._run_shards(kind, torch.from_numpy(np.ascontiguousarray(frames)),
-                                          st, spans)
-            return np.concatenate([y.cpu().numpy() for y in ys]), st
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-        y, st = self._program(kind, B, T, spans)(x, st)
-        return y.cpu().numpy(), st
+        with _math_mode(self.precision), torch.no_grad():
+            ys, st = self._run_shards(kind, torch.from_numpy(np.ascontiguousarray(frames)),
+                                      st, spans)
+        return _host(ys), st
 
     def enhance_waveforms(self, wavs: np.ndarray, attn_limit_db: Optional[float] = None,
                           lengths: Optional[np.ndarray] = None,
@@ -629,8 +663,7 @@ class Engine:
                 for j, rep in enumerate(self.replicas)]
         with _math_mode(self.precision):
             ys = self._offline_shards(wavs, alpha, progress_callback)
-        ys = [y.cpu().numpy() for y in ys]
-        y = ys[0] if n == 1 else np.concatenate(ys)
+        y = _host(ys)
 
         out = np.zeros_like(x)
         n = min(S, y.shape[1])

@@ -140,70 +140,62 @@ def trainable_parameters(params) -> List[Tensor]:
 
 def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer, mesh=None):
     """A train step ``step(params, noisy, clean) -> (loss, aux)`` on
-    ``[B, S]`` waveforms on the params' device: zero the grads, run
-    :func:`enhancement_loss` and its backward with the kernels off
-    (``gru_kernels.force_disabled``) in full float32 (TF32 off), then
-    ``optimizer.step()``, which updates ``params`` in place.  Build
-    ``optimizer`` over :func:`trainable_parameters` of the same tree: a
-    filterbank that requires grad raises.
+    ``[B, S]`` waveforms: zero the grads, run :func:`enhancement_loss` and
+    its backward with the kernels off (``gru_kernels.force_disabled``) in
+    full float32 (TF32 off), then ``optimizer.step()``, which updates
+    ``params`` in place.  Build ``optimizer`` over
+    :func:`trainable_parameters` of the same tree: a filterbank that
+    requires grad raises.
 
     ``mesh`` (``parallel.mesh.make_mesh``; the JAX step's batch-sharded
-    form): ``params`` live on ``mesh.devices[0]``, the batch (a multiple of
-    the mesh size, else the step raises) is cut into one consecutive shard
-    per device, and each shard's loss, weighted by its share of the batch,
-    is backed through on its device: the first shard on ``params``, every
-    other one on a copy of the current weights made on its device at each
-    step (a copy also where a device repeats, so no gradient lands on the
-    params twice).  The copies' gradients are summed onto the params' and
-    the optimizer steps once: the loss and the update are those of the
-    whole batch, since every term of :func:`enhancement_loss` is a mean
-    over utterances of the same length.  ``loss`` and ``aux`` come back on
-    ``mesh.devices[0]``."""
-    n = 1 if mesh is None else mesh.size
-
-    def shard_losses(params, noisy: Tensor, clean: Tensor):
-        """Each shard's weighted loss and aux, backed through; returns them
-        on the params' device."""
-        B = noisy.shape[0]
-        if B % n:
-            raise ValueError(f"train batch ({B}) must be a multiple of the mesh size ({n})")
-        b = B // n
-        home = mesh.devices[0]
-        if any(leaf.device != home for _, leaf in tree_leaves(params)):
-            raise ValueError(f"params must lie on the mesh's first device {home}")
-        losses, auxes, copies = [], [], []
-        for i, dev in enumerate(mesh.devices):
-            if i == 0:
-                rep = params
-            else:
-                rep = tree_map(lambda _, x: x.detach().to(dev, copy=True)
-                               .requires_grad_(x.requires_grad), params)
-                copies.append(rep)
-            loss, aux = enhancement_loss(rep, cfg, noisy[i * b:(i + 1) * b].to(dev),
-                                         clean[i * b:(i + 1) * b].to(dev))
-            (loss * (b / B)).backward()
-            losses.append(loss.detach().to(home) * (b / B))
-            auxes.append({k: v.detach().to(home) * (b / B) for k, v in aux.items()})
-        for rep in copies:
-            for (_, p), (_, r) in zip(tree_leaves(params), tree_leaves(rep)):
-                if r.grad is not None:
-                    g = r.grad.to(home)
-                    p.grad = g if p.grad is None else p.grad + g
-        return sum(losses), {k: sum(a[k] for a in auxes) for k in auxes[0]}
+    form) lists the devices the batch is split over; without one it is
+    the params' device alone.  ``params`` live on the first device, the
+    batch (a multiple of the device count, else the step raises) is cut
+    into one consecutive shard per device, and each shard's loss, weighted
+    by its share of the batch, is backed through on its device: the first
+    shard on ``params``, every other one on a copy of the current weights
+    made on its device at each step (a copy also where a device repeats,
+    so no gradient lands on the params twice).  The copies' gradients are
+    summed onto the params' and the optimizer steps once: the loss and the
+    update are those of the whole batch, since every term of
+    :func:`enhancement_loss` is a mean over utterances of the same length.
+    With one device this is the loss and its backward on the whole batch
+    (a weight of 1, no copies).  ``loss`` and ``aux`` come back on the
+    first device."""
 
     def step(params, noisy: Tensor, clean: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
         for path, leaf in tree_leaves(params):
             if _frozen(path) and leaf.requires_grad:
                 raise ValueError(f"{path} is a constant filterbank and must not require "
                                  "grad; build the optimizer over trainable_parameters(params)")
+        leaves = [leaf for _, leaf in tree_leaves(params)]
+        devices = mesh.devices if mesh is not None else (leaves[0].device,)
+        home, n, B = devices[0], len(devices), noisy.shape[0]
+        if B % n:
+            raise ValueError(f"train batch ({B}) must be a multiple of the mesh size ({n})")
+        if any(leaf.device != home for leaf in leaves):
+            raise ValueError(f"params must lie on one device, the mesh's first ({home})")
+        b = B // n
         optimizer.zero_grad(set_to_none=True)
+        losses, auxes, copies = [], [], []
         with torch.enable_grad(), gru_kernels.force_disabled(), _math_mode("highest"):
-            if mesh is None:
-                loss, aux = enhancement_loss(params, cfg, noisy, clean)
-                loss.backward()
-            else:
-                loss, aux = shard_losses(params, noisy, clean)
+            for i, dev in enumerate(devices):
+                rep = params
+                if i:
+                    rep = tree_map(lambda _, x: x.detach().to(dev, copy=True)
+                                   .requires_grad_(x.requires_grad), params)
+                    copies.append(rep)
+                loss, aux = enhancement_loss(rep, cfg, noisy[i * b:(i + 1) * b].to(dev),
+                                             clean[i * b:(i + 1) * b].to(dev))
+                (loss * (b / B)).backward()
+                losses.append(loss.detach().to(home) * (b / B))
+                auxes.append({k: v.detach().to(home) * (b / B) for k, v in aux.items()})
+        for rep in copies:
+            for p, (_, r) in zip(leaves, tree_leaves(rep)):
+                if r.grad is not None:
+                    g = r.grad.to(home)
+                    p.grad = g if p.grad is None else p.grad + g
         optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        return sum(losses), {k: sum(a[k] for a in auxes) for k in auxes[0]}
 
     return step

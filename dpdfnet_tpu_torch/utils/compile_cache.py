@@ -12,8 +12,8 @@ there, so this module names that directory:
   ``.gitignore``);
 - ``enable(path)``, or ``DPDFNET_TPU_COMPILE_CACHE=/path``, moves it, e.g.
   for an installed package whose directory is read-only;
-- ``DPDFNET_TPU_COMPILE_CACHE=0`` (or ``1``) keeps the default.  The
-  libraries are built either way, never skipped.
+- ``DPDFNET_TPU_COMPILE_CACHE=0`` keeps the default.  The libraries are
+  built either way, never skipped.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from pathlib import Path
 from typing import Optional, Union
 
 DEFAULT_DIR = Path(__file__).resolve().parent.parent / "_build"
-_FLAGS = ("0", "1", "false", "False", "true", "True", "off", "on")
 
 _dir: Optional[Path] = None
 
@@ -40,10 +39,10 @@ def enable(path: Optional[Union[str, Path]] = None) -> Path:
 def build_dir() -> Path:
     """The directory the kernel and native libraries build into and load
     from: the one :func:`enable` set, else ``DPDFNET_TPU_COMPILE_CACHE``
-    when it names a path, else :data:`DEFAULT_DIR`."""
+    unless it is ``0``, else :data:`DEFAULT_DIR`."""
     if _dir is not None:
         return _dir
     env = os.environ.get("DPDFNET_TPU_COMPILE_CACHE")
-    if env and env not in _FLAGS:
+    if env and env != "0":
         return Path(env).expanduser()
     return DEFAULT_DIR

@@ -170,7 +170,7 @@ def test_native_switches(monkeypatch, tmp_path, libs):
 
 def test_compile_cache_sets_the_build_directory(monkeypatch, tmp_path):
     monkeypatch.setattr(compile_cache, "_dir", None)
-    for flag in (None, "0", "1"):
+    for flag in (None, "0"):
         with monkeypatch.context() as m:
             if flag is None:
                 m.delenv("DPDFNET_TPU_COMPILE_CACHE", raising=False)
