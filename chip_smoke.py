@@ -165,7 +165,18 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    one process per card (two on one card) through
    ``torch.distributed.run`` against one process: the hosts' shards, the
    files within one 16-bit step; the phase's wall time;
-15. (run after 19) one JSON line listing the kernels, then the final JSON
+20. (run after 19) the frequency-folded 48 kHz plane
+   (``models.fuse.fold_hr_tail``, left out of the default tree that every
+   earlier phase runs): the default engine holds no folded weights; a
+   folded engine on the card against one on the CPU within ENGINE_TOL;
+   folded against the default on the card, offline and exact streaming,
+   FOLD_TOL in highest and FOLD_TURBO_REL_RMS in turbo; the A/B, offline
+   xRT at B=64 x 4 s and exact ms per hop at 64 streams through the CUDA
+   graph, in highest and turbo, interleaved (median [min-max]); one point
+   each of the
+   ``bench_sweep``, ``stream_sweep`` and ``tier_accuracy`` tools on the
+   card; the phase's wall time;
+15. (run after 20) one JSON line listing the kernels, then the final JSON
    status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
@@ -175,6 +186,7 @@ Needs one CUDA device; exits non-zero without one, and without the
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import statistics
@@ -250,6 +262,13 @@ TRAIN_GRAD_REL = 1e-4
 # bound between the port's and the JAX package's turbo tiers.
 MESH_TOL = 1e-5
 TURBO_MESH_REL_RMS = 3e-3
+# The folded 48 kHz plane against the unfolded one on the card (phase 20):
+# the same linear maps with the taps of three convs summed in another
+# order, so highest differs by float32 rounding (about 7e-9 on the CPU)
+# and turbo by bf16 roundings that flip (rel_rms about 3e-6 on the CPU);
+# a tap at the wrong fold position moves the mask by its own size.
+FOLD_TOL = 1e-5
+FOLD_TURBO_REL_RMS = 1e-3
 
 MODEL = "dpdfnet8_48khz_hr"
 PALLAS = "dpdfnet_tpu/ops/pallas_gru.py"
@@ -2504,6 +2523,141 @@ def phase19(cfg, params, gk, smi) -> None:
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s wall")
 
 
+def _interleaved(arms: dict, rounds: int, run) -> dict:
+    """``run(arm)`` once per arm per round after a warm-up round, the arms'
+    order reversed every other round (A B, B A, ...), each timed on the host
+    clock around a synchronised call; returns each arm's list of seconds."""
+    names = list(arms)
+    for name in names:
+        run(arms[name])                                         # warm-up, capture
+    walls = {n: [] for n in names}
+    for k in range(rounds):
+        for name in (names if k % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(arms[name])
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    return walls
+
+
+def fold_phase(cfg, params, cpu_params, eng, smi, rng, wavs, lengths):
+    """Phase 20: the frequency-folded 48 kHz plane (``models.fuse.
+    fold_hr_tail``, which the JAX package's ``prepare_inference_params``
+    runs and the port's leaves out) against the default, unfolded tree on
+    the card: (a) the default engine holds no folded weights, and a folded
+    engine (``fuse_separable``, ``fold_hr_tail``, ``pack_dprnn_bidir``,
+    ``fuse=False``) on the card agrees with one on the CPU within
+    ENGINE_TOL on phase 3's utterances; (b) folded against unfolded on the
+    card, offline (phase 3's utterances) and exact streaming (4 streams x
+    40 hops), max-abs FOLD_TOL in highest and rel_rms FOLD_TURBO_REL_RMS in
+    turbo; (c) the A/B: offline xRT at B=64 x 4 s (5 interleaved rounds)
+    and exact ms per hop at 64 streams through the CUDA graph (200 hops in
+    interleaved blocks of 20), in highest and turbo, median [min-max]; (d)
+    one point each of the ``bench_sweep``, ``stream_sweep`` and
+    ``tier_accuracy`` tools on the card.  Returns the A/B's medians and
+    ranges."""
+    from dpdfnet_tpu_torch import Engine
+    from dpdfnet_tpu_torch.models.fuse import fold_hr_tail, fuse_separable, pack_dprnn_bidir
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+    from dpdfnet_tpu_torch.tools import bench_sweep, stream_sweep, tier_accuracy
+
+    def fold(p):
+        return pack_dprnn_bidir(fold_hr_tail(fuse_separable(p, cfg), cfg), cfg)
+
+    t_phase = time.perf_counter()
+    if "erb_conv0_folded" in eng.params["enc"]:
+        raise AssertionError("the default engine holds folded weights")
+    folded = fold(params)
+    y_card = Engine(cfg, folded, fuse=False, device="cuda").enhance_waveforms(wavs,
+                                                                             lengths=lengths)
+    y_cpu = Engine(cfg, fold(cpu_params), fuse=False, device="cpu").enhance_waveforms(
+        wavs, lengths=lengths)
+    err = float(np.abs(y_card - y_cpu).max())
+    log(f"fold: folded engine B=3 (phase 3's utterances) card vs CPU max_abs {err:.3e} "
+        f"(tol {ENGINE_TOL:.0e})")
+    if not (np.isfinite(y_card).all() and err <= ENGINE_TOL):
+        raise AssertionError(f"the folded card engine deviates from the CPU by {err:.3e}")
+
+    B, hops, block = 64, 200, 20
+    big = (0.1 * rng.standard_normal((B, int(4.0 * cfg.sample_rate)))).astype(np.float32)
+    frames = stream_frames(rng, B, hops, cfg.win_len)
+    small = stream_frames(rng, 4, 40, cfg.win_len)
+    res = {}
+    for q in ("highest", "turbo"):
+        arms = {"folded": {"e": engine_from_quality(cfg, folded, q, device="cuda",
+                                                    fuse=False)},
+                "unfolded": {"e": engine_from_quality(cfg, params, q, device="cuda")}}
+        for what, fn in (("offline", lambda e: e.enhance_waveforms(wavs, lengths=lengths)),
+                         ("exact", lambda e: e.process_frames(
+                             small, e.init_stream_state(batch=4))[0])):
+            yf, yu = fn(arms["folded"]["e"]), fn(arms["unfolded"]["e"])
+            d = yf - yu
+            if q == "highest":
+                dev, tol = float(np.abs(d).max()), FOLD_TOL
+            else:
+                dev, tol = rel_rms(yf, yu), FOLD_TURBO_REL_RMS
+            log(f"fold {q} {what}: folded vs unfolded on the card "
+                f"{'max_abs' if q == 'highest' else 'rel_rms'} {dev:.3e} (tol {tol:.0e})")
+            if not (np.isfinite(yf).all() and dev <= tol):
+                raise AssertionError(f"fold {q} {what}: folded deviates from unfolded by {dev:.3e}")
+        walls = _interleaved(arms, 5, lambda a: a["e"].enhance_waveforms(big))
+        for name, w in walls.items():
+            xs = sorted(B * 4.0 / t for t in w)
+            res[(q, "xrt", name)] = (statistics.median(xs), xs[0], xs[-1])
+        for a in arms.values():
+            a["st"] = a["e"].init_stream_state(batch=B)
+            a["pos"] = 0
+
+        def hop_block(a):
+            i = a["pos"] % hops
+            n = min(block, hops - i)
+            _, a["st"] = _hops(a["e"], frames[:, i:i + n], st=a["st"])
+            a["pos"] += n
+        walls = _interleaved(arms, hops // block, hop_block)
+        for name, w in walls.items():
+            ms = sorted(t * 1e3 / block for t in w)
+            res[(q, "ms", name)] = (statistics.median(ms), ms[0], ms[-1])
+        for name in arms:
+            log(f"fold A/B {q} {name}: offline B={B} x 4 s xRT {spread(res[(q, 'xrt', name)])} "
+                f"(5 interleaved calls); exact ms per hop {spread(res[(q, 'ms', name)])} "
+                f"({B} streams, {hops} hops in interleaved blocks of {block}, CUDA graph) | {smi}")
+        log(f"fold A/B {q}: folded / unfolded xRT "
+            f"{res[(q, 'xrt', 'folded')][0] / res[(q, 'xrt', 'unfolded')][0]:.4f}, ms per hop "
+            f"{res[(q, 'ms', 'folded')][0] / res[(q, 'ms', 'unfolded')][0]:.4f}")
+
+    def tool(mod, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        out = buf.getvalue().strip().splitlines()
+        if rc != 0 or not out:
+            raise AssertionError(f"{mod.__name__} {argv}: exit {rc}, output {out}")
+        return [json.loads(line) for line in out]
+
+    t0 = time.perf_counter()
+    (b,) = tool(bench_sweep, ["--model", MODEL, "--points", "b64:s112", "--seconds", "4",
+                              "--reps", "3"])
+    (s,) = tool(stream_sweep, ["--model", MODEL, "--points", "exact:s64:high"])
+    (t,) = tool(tier_accuracy, ["--model", MODEL, "--json"])
+    dev_name = torch.cuda.get_device_name(0)
+    if not b["device"] == s["device"] == t["device"] == dev_name:
+        raise AssertionError(f"a tool ran off the card: {b['device']}, {s['device']}, {t['device']}")
+    dev_tiers = {f"{r}/{k}": (round(v["max_abs"], 8), round(v["rel_rms"], 6))
+                 for r, tiers in t["results"].items() for k, v in tiers.items()
+                 if not k.startswith("_")}
+    log(f"tools on the card ({time.perf_counter() - t0:.1f} s): bench_sweep {json.dumps(b)}; "
+        f"stream_sweep {s['point']} {s['value']} ms per hop; tier_accuracy (max_abs, rel_rms) "
+        f"{json.dumps(dev_tiers)} | {smi}")
+    contractive = t["results"]["contractive"]
+    for tier in ("fast", "turbo"):
+        if not (contractive[tier]["max_abs"] <= TIER_TOL
+                and contractive[tier]["rel_rms"] <= TIER_REL_RMS):
+            raise AssertionError(f"tier_accuracy {tier}: {contractive[tier]}")
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s wall")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2695,6 +2849,10 @@ def main() -> int:
 
     # ---- phase 19: the mesh, the mesh train step, the native library ----
     phase19(cfg, params, gk, smi)
+
+    # ---- phase 20: the frequency-folded plane against the unfolded one ----
+    with set_env(STACK, False), set_env(V2, False):
+        fold_phase(cfg, params, cpu_params, eng, smi, rng, wavs, lengths)
 
     # ---- phase 15: kernel list (printed last) ----
     def entry(name, key, source, replaces, launches, rows=kernel_rows):

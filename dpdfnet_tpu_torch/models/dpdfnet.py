@@ -272,9 +272,20 @@ def _encoder(params: Params, cfg: ModelConfig, feat_erb: Tensor, feat_spec: Tens
         x_in, tail = x_erb, tail_in
     new_erb_tail = torch.cat([tail_in.to(x_erb.dtype), x_erb], dim=1)[:, -2:]
 
-    e0, _ = onn.conv_block(p["erb_conv0"], x_in, kt=kt, kf=kf, act="relu",
-                           time_tail=tail)
-    e1, _ = onn.conv_block(p["erb_conv1"], e0, kt=1, kf=kfc, fstride=s1, act="relu")
+    if cfg.hr and "erb_conv0_folded" in p:
+        # the frequency-folded 480-bin plane (models.fuse.fold_hr_tail): e0
+        # lives as [B, T, 160, 3C] and erb_conv1's stride 3 becomes stride 1
+        B_, T_, Fb, _ = x_in.shape
+        x_f = x_in.reshape(B_, T_, Fb // s1, s1)
+        tail_f = tail.reshape(B_, tail.shape[1], Fb // s1, s1)
+        e0, _ = onn.conv_block(p["erb_conv0_folded"], x_f, kt=kt, kf=kf, act="relu",
+                               time_tail=tail_f)
+        e1, _ = onn.conv_block(p["erb_conv1_folded"], e0, kt=1, kf=2, fpad=(1, 0),
+                               act="relu")
+    else:
+        e0, _ = onn.conv_block(p["erb_conv0"], x_in, kt=kt, kf=kf, act="relu",
+                               time_tail=tail)
+        e1, _ = onn.conv_block(p["erb_conv1"], e0, kt=1, kf=kfc, fstride=s1, act="relu")
     e2, _ = onn.conv_block(p["erb_conv2"], e1, kt=1, kf=kfc, fstride=s2, act="relu")
     e3, _ = onn.conv_block(p["erb_conv3"], e2, kt=1, kf=kfc, fstride=s3, act="relu")
     # the df branch, and the erb branch of hr configs, feed only the
@@ -357,10 +368,20 @@ def _erb_decoder(params: Params, cfg: ModelConfig, emb: Tensor, e0: Tensor,
 
     x3 = up(p["convt3"], pconv(p["conv3p"], e3) + e, st3)
     x2 = up(p["convt2"], pconv(p["conv2p"], e2) + x3, st2)
-    x1 = up(p["convt1"], pconv(p["conv1p"], e1) + x2, st1)
-    m, _ = onn.conv_block(p["conv0_out"], pconv(p["conv0p"], e0) + x1,
-                          kt=1, kf=kfc, act="sigmoid")
-    m = m[..., 0]                                                # [B,T,E0]
+    if cfg.hr and "conv0_out_folded" in p:
+        # the frequency-folded tail: the last upsample keeps its [160, 3C]
+        # form, the skip (e0 is folded, conv0p a channel-tiled depthwise)
+        # adds in place and the mask head emits its 3 phases as channels
+        x1z = onn.subpixel_block(p["convt1_folded"], pconv(p["conv1p"], e1) + x2,
+                                 kf=kfc, fstride=st1, act="relu", fold=True)
+        mf, _ = onn.conv_block(p["conv0_out_folded"], pconv(p["conv0p_folded"], e0) + x1z,
+                               kt=1, kf=kfc, act="sigmoid")     # [B,T,160,3]
+        m = mf.reshape(B, T, -1)
+    else:
+        x1 = up(p["convt1"], pconv(p["conv1p"], e1) + x2, st1)
+        m, _ = onn.conv_block(p["conv0_out"], pconv(p["conv0p"], e0) + x1,
+                              kt=1, kf=kfc, act="sigmoid")
+        m = m[..., 0]                                            # [B,T,E0]
     if cfg.hr:
         # mirror-duplicate the top bin: 480 -> 481 bins
         m = torch.cat([m, m[:, :, -2:-1]], dim=-1)
@@ -481,3 +502,12 @@ def forward_spec(params: Params, cfg: ModelConfig, spec: Tensor, state: State, *
     new_state.update(df_up)
     new_state.update(mask_up)
     return spec_e, new_state, lsnr
+
+
+def step(params: Params, cfg: ModelConfig, frame: Tensor, state: State, *,
+         precision: str = "highest") -> Tuple[Tensor, State, Tensor]:
+    """Single-frame step: ``frame [B, F, 2]`` -> (enhanced ``[B, F, 2]``,
+    new state, lsnr ``[B]``)."""
+    spec_e, new_state, lsnr = forward_spec(params, cfg, frame[:, None], state,
+                                           precision=precision)
+    return spec_e[:, 0], new_state, lsnr[:, 0]

@@ -3,15 +3,25 @@
 
 - ``fuse_separable``: (depthwise/grouped conv -> 1x1 pointwise) is one
   linear map, so it collapses into a single dense conv kernel.
+- ``fold_hr_tail``: the 48 kHz models' 480-bin plane re-expressed
+  frequency-folded as ``[160, 3C]`` (``erb_conv0``, ``erb_conv1``,
+  ``conv0p``, the mask head and ``convt1`` restructured, exact copies of
+  the weights and zeros); the forward takes the folded branch where the
+  ``*_folded`` weights are present.
 - ``pack_dprnn_bidir``: the DPRNN intra GRUs' weights packed
   direction-blockdiag, gate-major, as the intra kernel takes them; with
   ``DPDFNET_TPU_PALLAS_V2`` set, the v2 kernels' ``wi_cat`` / ``wh_big``
   and ``inter['whfc'] = [Wh | Wfc]``; with ``DPDFNET_TPU_STACK`` set, each
   branch's ``pack_stack`` bundle for the stack kernel.
 
-The JAX package's ``fold_hr_tail`` (the 48 kHz 480-bin plane re-expressed
-as ``[160, 3C]``) is a TPU layout choice and is not ported; the forward
-takes the unfolded branch when the folded weights are absent.
+``prepare_inference_params`` runs ``fuse_separable`` then
+``pack_dprnn_bidir``.  The JAX package folds in between; here the fold
+is left out, since on an H100 the folded engine ran slower than the
+unfolded one beyond both arms' ranges in one of two interleaved A/Bs
+(``PERF.md``).  A folded tree is
+``pack_dprnn_bidir(fold_hr_tail(fuse_separable(params, cfg), cfg), cfg)``,
+run with ``Engine(..., fuse=False)``.  Every tensor is built on the
+tree's device.
 """
 
 from __future__ import annotations
@@ -102,6 +112,117 @@ def fuse_separable(params: Params, cfg: ModelConfig) -> Params:
     return p
 
 
+def _tile_ch(v: torch.Tensor, s: int) -> torch.Tensor:
+    """Per-channel vector [C] -> folded [s*C] for channel index j*C+c."""
+    return v.repeat(s)
+
+
+def _tiled_bn(bn, s: int):
+    return None if bn is None else {"scale": _tile_ch(bn["scale"], s),
+                                    "shift": _tile_ch(bn["shift"], s)}
+
+
+def fold_hr_tail(params: Params, cfg: ModelConfig) -> Params:
+    """Re-express the 480-bin plane of the 48 kHz models frequency-folded
+    (``dpdfnet_tpu.models.fuse.fold_hr_tail``, array for array).
+
+    erb_conv1's stride and convt1's upsample factor are both ``s = 3``, so
+    the plane runs as ``[F/3, 3C]`` with the folded channel index ``j*C+c``
+    (j the position in the fold) and only weight restructures:
+
+    - erb_conv0 ``[kt,3,1,C]`` -> ``[kt,3,3,3C]`` (input folded ``[160, 3]``);
+    - erb_conv1 ``[1,3,C,C]`` stride 3 -> ``[1,2,3C,C]`` stride 1, fpad (1, 0);
+    - conv0p ``[1,1,1,C]`` -> ``[1,1,1,3C]`` (a channel-tiled depthwise scale);
+    - conv0_out ``[1,3,C,1]`` -> ``[1,3,3C,3]`` (the mask head's 3 phases);
+    - convt1: the same ``w_fm``, its BN tiled for the un-reshaped output.
+
+    Original tap ``d = s*(dg-1) + j_in - j_out`` lands at folded tap ``dg``;
+    every other weight is zero.  The identity for configs that are not hr
+    or upsample by transposed convs; a tree that ``fuse_separable`` has
+    not run on raises ``ValueError``."""
+    if not cfg.hr or cfg.upsample != "subpixel":
+        return params
+    s = cfg.erb_fstrides[0]
+    if not s == cfg.dec_fstrides[2] == 3:
+        raise ValueError(f"fold_hr_tail needs erb and decoder strides of 3, not "
+                         f"{cfg.erb_fstrides} / {cfg.dec_fstrides}")
+    C = cfg.conv_ch
+    # on a raw tree (depthwise erb_conv1, no 'w_fm') the erb_conv1 fold would
+    # broadcast a depthwise row over all C input channels
+    ec1_w = params["enc"]["erb_conv1"]["w"]
+    if ec1_w.shape[2] != C or "w_fm" not in params["erb_dec"]["convt1"]:
+        raise ValueError(
+            "fold_hr_tail requires fuse_separable to run first "
+            f"(erb_conv1 weight {tuple(ec1_w.shape)}, convt1 keys "
+            f"{sorted(params['erb_dec']['convt1'])})")
+
+    p = dict(params)
+    enc = dict(p["enc"])
+    dec = dict(p["erb_dec"])
+
+    # erb_conv0: [kt,3,1,C] -> [kt,3,s,s*C]
+    ec0 = enc["erb_conv0"]
+    w = ec0["w"]
+    w2 = w.new_zeros((w.shape[0], 3, s, s * C))
+    for dg in range(3):
+        for jin in range(s):
+            for jout in range(s):
+                d = s * (dg - 1) + jin - jout
+                if -1 <= d <= 1:
+                    w2[:, dg, jin, jout * C:(jout + 1) * C] = w[:, d + 1, 0]
+    enc["erb_conv0_folded"] = {
+        "w": w2,
+        "b": None if ec0.get("b") is None else _tile_ch(ec0["b"], s),
+        "bn": _tiled_bn(ec0.get("bn"), s),
+    }
+
+    # erb_conv1: [1,3,C,C] stride 3 -> [1,2,s*C,C] stride 1, fpad (1, 0)
+    w = ec1_w
+    w1 = w.new_zeros((1, 2, s * C, C))
+    for dg in range(2):
+        for jin in range(s):
+            kd = s * (dg - 1) + jin + 1
+            if 0 <= kd < 3:
+                w1[:, dg, jin * C:(jin + 1) * C, :] = w[:, kd]
+    enc["erb_conv1_folded"] = {**{k: v for k, v in enc["erb_conv1"].items() if k != "w"},
+                               "w": w1}
+
+    # conv0p: depthwise 1x1 -> depthwise over s*C
+    cp = dec["conv0p"]
+    dec["conv0p_folded"] = {
+        "w": _tile_ch(cp["w"][0, 0, 0], s).reshape(1, 1, 1, s * C),
+        "b": None if cp.get("b") is None else _tile_ch(cp["b"], s),
+        "bn": _tiled_bn(cp.get("bn"), s),
+    }
+
+    # conv0_out (the mask head): [1,3,C,1] -> [1,3,s*C,s]
+    co = dec["conv0_out"]
+    w = co["w"]
+    w3 = w.new_zeros((1, 3, s * C, s))
+    for dg in range(3):
+        for jin in range(s):
+            for i in range(s):
+                d = s * (dg - 1) + jin - i
+                if -1 <= d <= 1:
+                    w3[:, dg, jin * C:(jin + 1) * C, i] = w[:, d + 1, :, 0]
+    bn = co.get("bn")
+    dec["conv0_out_folded"] = {
+        "w": w3,
+        "b": None if co.get("b") is None else co["b"].repeat_interleave(s),
+        "bn": None if bn is None else {"scale": bn["scale"].repeat_interleave(s),
+                                       "shift": bn["shift"].repeat_interleave(s)},
+    }
+
+    # convt1: the same freq-major weights, BN tiled for the un-reshaped output
+    ct = dec["convt1"]
+    dec["convt1_folded"] = {"w_fm": ct["w_fm"], "b": ct.get("b"),
+                            "bn": _tiled_bn(ct.get("bn"), s)}
+
+    p["enc"] = enc
+    p["erb_dec"] = dec
+    return p
+
+
 def pack_stack(blocks: list) -> Params:
     """Stack K DPRNN block parameter dicts for ``gru_kernels.dprnn_stack``
     (``pallas_gru.pack_stack``: the same keys; biases and LayerNorm vectors
@@ -162,7 +283,9 @@ def pack_dprnn_bidir(params: Params, cfg: ModelConfig) -> Params:
 
 
 def prepare_inference_params(params: Params, cfg: ModelConfig) -> Params:
-    """Dense-fuse the separable convs, pre-pack the DPRNN intra weights."""
+    """Dense-fuse the separable convs, pre-pack the DPRNN intra weights
+    (the fold of ``fold_hr_tail`` is left out: see the module notes).  The
+    forward on the result matches the raw tree to float32 rounding."""
     params = fuse_separable(params, cfg)
     if cfg.dprnn_blocks:
         params = pack_dprnn_bidir(params, cfg)

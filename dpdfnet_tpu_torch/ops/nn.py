@@ -69,13 +69,16 @@ def conv_block(
     fstride: int = 1,
     act: Optional[str] = "relu",
     time_tail: Optional[Tensor] = None,
+    fpad: Optional[Tuple[int, int]] = None,
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """Causal Conv2d + optional pointwise + BN(eval) + activation.
 
     Groups are inferred from the weight shape (``Cin // w.shape[2]``), so
     the separable (depthwise + ``pw``) and the fused dense trees run through
     the same code.  ``time_tail`` is the carried ``[B, kt-1, F, Cin]``
-    context (zeros == offline causal zero-pad).  Returns ``(y, new_tail)``.
+    context (zeros == offline causal zero-pad).  ``fpad`` is the
+    frequency padding (low, high), ``(kf//2, kf//2)`` when omitted.
+    Returns ``(y, new_tail)``.
     """
     new_tail = None
     if kt > 1:
@@ -83,14 +86,16 @@ def conv_block(
             time_tail = x.new_zeros((x.shape[0], kt - 1) + tuple(x.shape[2:]))
         x = torch.cat([time_tail.to(x.dtype), x], dim=1)
         new_tail = x[:, -(kt - 1):]
+    if fpad is None:
+        fpad = (kf // 2, kf // 2)
     w = p["w"]
     groups = x.shape[-1] // w.shape[2]
-    if (kt == 1 and kf == 1 and fstride == 1 and w.shape[2] == 1
+    if (kt == 1 and kf == 1 and fstride == 1 and fpad == (0, 0) and w.shape[2] == 1
             and w.shape[3] == x.shape[-1]):
         # 1x1 depthwise conv: a per-channel scale, bit-identical to the conv
         y = x * w[0, 0, 0, :].to(x.dtype)
         return _conv_epilogue(p, y, act), new_tail
-    y = _conv2d(x, w, stride=fstride, fpad=(kf // 2, kf // 2), groups=groups)
+    y = _conv2d(x, w, stride=fstride, fpad=fpad, groups=groups)
     return _conv_epilogue(p, y, act), new_tail
 
 
@@ -118,12 +123,15 @@ def conv_transpose_block(p: dict, x: Tensor, *, kf: int, fstride: int,
 
 
 def subpixel_block(p: dict, x: Tensor, *, kf: int, fstride: int,
-                   act: Optional[str] = "relu") -> Tensor:
+                   act: Optional[str] = "relu", fold: bool = False) -> Tensor:
     """Sub-pixel frequency upsampling (kernel time size 1).
 
     ``p['w']`` packs output channel ``c*fstride + i`` (sub-conv ``i``'s
     channel ``c``); a fused ``p['w_fm']`` packs ``i*Cout + c``, which makes
-    the channel->frequency interleave a plain reshape.
+    the channel->frequency interleave a plain reshape.  ``fold=True``
+    returns the frequency-folded form ``[B, T, F, fstride*Cout]`` instead
+    (``w_fm`` weights and a BN tiled per folded channel,
+    ``models.fuse.fold_hr_tail``), which the 48 kHz decoder tail consumes.
     """
     fpad = kf // 2
     freq_major = "w_fm" in p
@@ -132,6 +140,13 @@ def subpixel_block(p: dict, x: Tensor, *, kf: int, fstride: int,
     y = _conv2d(x, w, stride=1, fpad=(fpad, fpad), groups=groups)
     if p.get("b") is not None:
         y = y + p["b"].to(y.dtype)
+    if fold:
+        if not freq_major or p.get("pw") is not None:
+            raise ValueError("subpixel_block(fold=True) needs fused freq-major 'w_fm' "
+                             f"weights and no pointwise stage, not keys {sorted(p)}")
+        if p.get("bn") is not None:
+            y = y * p["bn"]["scale"].to(y.dtype) + p["bn"]["shift"].to(y.dtype)
+        return apply_act(y, act)
     B, T, f, sc = y.shape
     c = sc // fstride
     if freq_major:

@@ -1,7 +1,12 @@
-"""Timing tools of the port: the DPRNN step ablations
+"""Tools of the port: the DPRNN step ablations
 (``python -m dpdfnet_tpu_torch.tools.intra_step_ablation`` and
 ``... .inter_step_ablation``), counterparts of the JAX package's
-``tools/intra_step_ablation.py`` and ``tools/inter_step_ablation.py``.
+``tools/intra_step_ablation.py`` and ``tools/inter_step_ablation.py``;
+the repository's other tools as modules of the port (``tier_accuracy``,
+``bench_sweep``, ``stream_sweep``, ``resampler_delta``,
+``consume_exported``), and the card measurement scripts run by path
+(``kernel_ab.py``, ``mode_off_digest.py``, ``repeat_check.py``,
+``stack_phases.py``).
 
 Shared here: timing a kernel wrapper with CUDA events, the report both
 tools print (ms per call, ns per step, deltas against ``full``), the

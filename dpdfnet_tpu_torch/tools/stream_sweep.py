@@ -1,0 +1,74 @@
+"""Sweep the streaming benchmark over mode, streams, hops per call and tier
+(counterpart of the repository's ``tools/stream_sweep.py``).
+
+    python -m dpdfnet_tpu_torch.tools.stream_sweep [--model dpdfnet8_48khz_hr]
+        --points exact:s64:high exact:s128:turbo thr:s256:h4:turbo exact:s64:high:tm1
+        [--seconds 2] [--device cuda|cpu]
+
+Point grammar: ``<mode>:s<streams>[:h<hops per call>]:<tier>[:tm0|:tm1]``,
+mode ``exact`` or ``thr`` (throughput); ``tm0`` / ``tm1`` sets
+``DPDFNET_TPU_INTRA_TM`` off / on for that point (read per call; the
+caller's value is restored after it), without it the environment is left
+as it is.  Each point is one ``runtime.bench.run_stream_bench`` call;
+prints its JSON line per point with the point added.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import List, Optional
+
+TM = "DPDFNET_TPU_INTRA_TM"
+
+
+def parse_point(point: str) -> dict:
+    """The point grammar above -> ``run_stream_bench`` arguments and ``tm``."""
+    out = {"mode": "exact", "streams": 64, "hops_per_call": 0, "precision": "high", "tm": None}
+    for tok in point.split(":"):
+        if tok in ("exact", "thr", "throughput"):
+            out["mode"] = "exact" if tok == "exact" else "throughput"
+        elif tok[:1] == "s" and tok[1:].isdigit():
+            out["streams"] = int(tok[1:])
+        elif tok[:1] == "h" and tok[1:].isdigit():
+            out["hops_per_call"] = int(tok[1:])
+        elif tok in ("tm0", "tm1"):
+            out["tm"] = tok[-1]
+        else:
+            out["precision"] = tok
+    return out
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="dpdfnet8_48khz_hr")
+    ap.add_argument("--points", nargs="+", required=True)
+    ap.add_argument("--seconds", type=float, default=2.0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from ..runtime.bench import run_stream_bench
+
+    for point in args.points:
+        kw = parse_point(point)
+        tm = kw.pop("tm")
+        saved = os.environ.get(TM)
+        if tm is not None:
+            os.environ[TM] = tm
+        try:
+            result = json.loads(run_stream_bench(model=args.model, seconds=args.seconds,
+                                                 device=args.device, **kw))
+        finally:
+            if tm is not None:
+                if saved is None:
+                    os.environ.pop(TM, None)
+                else:
+                    os.environ[TM] = saved
+        result["point"] = point
+        print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

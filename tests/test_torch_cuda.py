@@ -1151,3 +1151,43 @@ def test_cuda_spec_program_and_exported_step_launch_the_kernels(dev, tmp_path):
     torch.cuda.synchronize()
     assert gru_kernels.launch_counts()["gru_scan"] == 5 * 10
     assert (torch.cat(outs, dim=1) - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", ["highest", "turbo"])
+def test_cuda_folded_plane_matches_unfolded(dev, quality):
+    """chip_smoke phase 20's parity on dpdfnet2_48khz_hr: a folded tree
+    (``fuse_separable``, ``fold_hr_tail``, ``pack_dprnn_bidir``) against
+    the engine's default, unfolded one, offline and exact streaming,
+    max-abs 1e-5 in highest and rel_rms 1e-3 in turbo; the folded engine
+    launches the same kernels per segment."""
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models.fuse import fold_hr_tail, fuse_separable, pack_dprnn_bidir
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
+
+    cfg = get_config("dpdfnet2_48khz_hr")
+    params = contract_params(init_params(cfg, seed=0, device=dev))
+    tree = pack_dprnn_bidir(fold_hr_tail(fuse_separable(params, cfg), cfg), cfg)
+    folded = engine_from_quality(cfg, tree, quality, device=dev, fuse=False)
+    unfolded = engine_from_quality(cfg, params, quality, device=dev)
+    assert "erb_conv0_folded" in folded.params["enc"]
+    assert "erb_conv0_folded" not in unfolded.params["enc"]
+    rng = np.random.default_rng(20)
+    wav = (0.1 * rng.normal(size=(3, cfg.sample_rate))).astype(np.float32)
+    frames = (0.05 * rng.normal(size=(4, 12, cfg.win_len))).astype(np.float32)
+    with torch.no_grad():
+        gru_kernels.reset_launch_counts()
+        yf = folded.enhance_waveforms(wav)
+        counts = gru_kernels.launch_counts()
+        yu = unfolded.enhance_waveforms(wav)
+        sf, _ = folded.process_frames(frames, folded.init_stream_state(batch=4))
+        su, _ = unfolded.process_frames(frames, unfolded.init_stream_state(batch=4))
+    assert counts["dprnn_intra_block"] % (2 * cfg.dprnn_blocks) == 0
+    assert counts["dprnn_inter_block"] == counts["dprnn_intra_block"]
+    for got, ref in ((yf, yu), (sf, su)):
+        assert np.isfinite(got).all()
+        if quality == "highest":
+            assert np.abs(got - ref).max() <= 1e-5
+        else:
+            assert np.sqrt(np.mean((got - ref) ** 2)) <= 1e-3 * np.sqrt(np.mean(ref ** 2))

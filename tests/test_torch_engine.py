@@ -5,10 +5,13 @@ across with ``params_from_jax``; inputs from numpy seeds.  The JAX engine
 runs on the CPU at ``precision="highest"``, the port's on ``device="cpu"``
 (every kernel wrapper takes its plain version).
 
-Tolerance: 1e-4 max-abs on the waveform.  The JAX engine also runs the
-48 kHz plane folded (``fold_hr_tail``), and the DFT / iDFT GEMMs over
-960-sample frames and the overlap-add accumulate float32 rounding; the
-network's own deviation is pinned at 3e-5 by ``test_torch_model.py``.
+Tolerance: 1e-4 max-abs on the waveform.  The JAX engine runs the 48 kHz
+plane folded (``fold_hr_tail``), the port's engine unfolded (its
+``prepare_inference_params`` leaves the fold out: ``PERF.md``);
+the two forms agree to float32 rounding (``test_torch_fold.py``).  The
+DFT / iDFT GEMMs over 960-sample frames and the overlap-add accumulate
+float32 rounding; the network's own deviation is pinned at 3e-5 by
+``test_torch_model.py``.
 """
 
 import numpy as np

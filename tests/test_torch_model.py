@@ -7,6 +7,12 @@ its plain path (``pallas_gru.enabled()`` is false off the TPU); the port
 runs on ``device="cpu"``, where every kernel wrapper takes its plain
 version.
 
+The "prepared" cases run the port's ``prepare_inference_params`` tree
+(fused convs, packed DPRNN weights; the port leaves out the JAX
+package's fold of the 48 kHz plane, ``PERF.md``) against the JAX
+forward on the raw tree; ``test_torch_fold.py`` holds the port's
+``fold_hr_tail`` tree against JAX's folded tree.
+
 Tolerance: 3e-5 max-abs on ``spec_e`` and on every state leaf,
   the bound the JAX package's own fused-vs-plain test uses.  Both sides are
   float32; they differ in summation order, in the EMA associative-scan
