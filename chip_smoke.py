@@ -159,10 +159,10 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    step and peak memory; (d) what the mesh wrapper costs on one card:
    offline xRT and exact ms per hop of the engine without a mesh, the mesh
    of one card and ``[cuda:0, cuda:0]``, interleaved; (e) the native host
-   library built from ``native/`` and loaded, ``ola_commit`` bit-equal to
-   NumPy, ``resample`` within 1e-3 of ``resample_poly``, the PCM16 WAV
-   codec equal to the NumPy codec; (f) ``enhance-dir --distributed`` in
-   one process per card (two on one card) through
+   library built from the port's ``csrc/dpdfnet_host.cpp`` and loaded,
+   ``ola_commit`` bit-equal to NumPy, ``resample`` within 1e-3 of
+   ``resample_poly``, the PCM16 WAV codec equal to the NumPy codec; (f)
+   ``enhance-dir --distributed`` in one process per card (two on one card) through
    ``torch.distributed.run`` against one process: the hosts' shards, the
    files within one 16-bit step; the phase's wall time;
 20. (run after 19) the frequency-folded 48 kHz plane
@@ -176,7 +176,25 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    each of the
    ``bench_sweep``, ``stream_sweep`` and ``tier_accuracy`` tools on the
    card; the phase's wall time;
-15. (run after 20) one JSON line listing the kernels, then the final JSON
+21. (run after 20) the reference-ONNX quality gate through the port's
+   exported step, on ``dpdfnet8_48khz_hr`` at full width and depth: (a)
+   ``export.export_stream`` of phase 3's weights at B=1 behind a session
+   shaped as the reference's ``onnxruntime`` one (``StepSession``: the
+   sidecar as its metadata, the spectrum in and out at the reference's
+   scale), driven by ``quality.enhance_reference_onnx`` over 2 s of 48 kHz
+   ``speechlike_test_signal``: one session call per frame, 16 intra, 16
+   inter and 5 gru_scan launches per call, all but the last ``win_len``
+   samples within rel_rms ONNX_REL_RMS of phase 3's engine (the last
+   ``win_len``, which the reference pipeline zero-fills, zeros), max-abs,
+   SI-SNR against the engine and ms per session call; (b)
+   ``quality.validate_vs_onnx`` on a 2-clip 48 kHz corpus (1.5 s each,
+   clean = noisy), the model resolved by name from an npz of phase 3's
+   weights in a temporary ``DPDFNET_TPU_MODEL_DIR``, the session seeded
+   under the artifact's path: finite STOI and SI-SNR columns for both
+   arms, then rc 1 and the "PESQ unavailable" line where ``pesq`` does not
+   import, or finite PESQ columns and the verdict where it does; the
+   gate's lines, and the phase's wall time;
+15. (run after 21) one JSON line listing the kernels, then the final JSON
    status line.
 
 Needs one CUDA device; exits non-zero without one, and without the
@@ -269,6 +287,15 @@ TURBO_MESH_REL_RMS = 3e-3
 # a tap at the wrong fold position moves the mask by its own size.
 FOLD_TOL = 1e-5
 FOLD_TURBO_REL_RMS = 1e-3
+
+# The reference pipeline (quality.enhance_reference_onnx: NumPy STFT, one
+# exported-step call per frame, float64 overlap-add) against the offline
+# engine on the card, both in ``high``: the same network, the streaming
+# step's T == 1 kernels and per-frame convs against the offline plane's, so
+# float32 rounding in another order (on the CPU the two read 1.3e-9 max-abs
+# on an output peak of 1.2e-4).  A lost state carry, a wrong wnorm or a
+# shifted frame moves the output by its own size, rel_rms near 1.
+ONNX_REL_RMS = 1e-4
 
 MODEL = "dpdfnet8_48khz_hr"
 PALLAS = "dpdfnet_tpu/ops/pallas_gru.py"
@@ -1439,34 +1466,56 @@ def ablation_phase(smi):
     return rows
 
 
+@contextlib.contextmanager
+def model_dir(params):
+    """A temporary ``DPDFNET_TPU_MODEL_DIR`` (and cache directory) holding
+    ``params`` as ``MODEL``'s npz, so the zoo resolves ``MODEL`` by name;
+    any download attempt raises, and the API's engine cache is cleared on
+    entry and exit.  Yields the directory."""
+    import tempfile
+    from pathlib import Path
+
+    from dpdfnet_tpu_torch import api, zoo
+    from dpdfnet_tpu_torch.utils.serialization import save_params
+
+    def no_download(url, destination):
+        raise RuntimeError(f"chip_smoke: a download was attempted ({url})")
+
+    saved_env = {k: os.environ.get(k) for k in ("DPDFNET_TPU_MODEL_DIR",
+                                                "DPDFNET_TPU_CACHE_DIR", "NO_BANNER")}
+    saved_download = zoo._download_one
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        save_params(d / f"{MODEL}.params.npz", params)
+        os.environ.update(DPDFNET_TPU_MODEL_DIR=str(d), DPDFNET_TPU_CACHE_DIR=str(d / "cache"),
+                          NO_BANNER="1")
+        zoo._download_one = no_download
+        api.clear_engine_cache()
+        try:
+            yield d
+        finally:
+            zoo._download_one = saved_download
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            api.clear_engine_cache()
+
+
 def package_phase(cfg, params, eng, gk, smi, rng):
     """Phase 16: the user-facing package on the card.  The model is resolved
     by name from an npz of ``params`` in a temporary
     ``DPDFNET_TPU_MODEL_DIR``; any download attempt raises."""
     import contextlib as cl
     import io
-    import tempfile
-    from pathlib import Path
 
-    from dpdfnet_tpu_torch import MultiStreamEnhancer, StreamEnhancer, api, cli, zoo
+    from dpdfnet_tpu_torch import MultiStreamEnhancer, StreamEnhancer, api, cli
     from dpdfnet_tpu_torch.audio_io import read_wav, write_wav
-    from dpdfnet_tpu_torch.utils.serialization import save_params
-
-    def no_download(url, destination):
-        raise RuntimeError(f"chip_smoke: a download was attempted ({url})")
 
     t_phase = time.perf_counter()
     sr, hop = cfg.sample_rate, cfg.hop
-    tmp = tempfile.TemporaryDirectory()
-    d = Path(tmp.name)
-    save_params(d / f"{MODEL}.params.npz", params)
-    saved_env = {k: os.environ.get(k) for k in ("DPDFNET_TPU_MODEL_DIR",
-                                                "DPDFNET_TPU_CACHE_DIR", "NO_BANNER")}
-    os.environ.update(DPDFNET_TPU_MODEL_DIR=str(d), DPDFNET_TPU_CACHE_DIR=str(d / "cache"),
-                      NO_BANNER="1")
-    saved_download, zoo._download_one = zoo._download_one, no_download
-    api.clear_engine_cache()
-    try:
+    with model_dir(params) as d:
         # ---- 1. enhance by name against the cached engine; the resample path ----
         t = np.arange(3 * sr) / sr
         x = (0.2 * np.sin(2 * np.pi * 330 * t) + 0.05 * rng.standard_normal(t.size)
@@ -1587,15 +1636,6 @@ def package_phase(cfg, params, eng, gk, smi, rng):
             print(line, flush=True)
             log(f"(cli bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s wall)")
         log(f"phase 16: {time.perf_counter() - t_phase:.1f} s wall")
-    finally:
-        zoo._download_one = saved_download
-        for k, v in saved_env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        api.clear_engine_cache()
-        tmp.cleanup()
 
 
 def convert_phase(cfg, params, gk, wavs, lengths, y_ref):
@@ -2395,11 +2435,11 @@ def mesh_cost_phase(cfg, params, one, e2, em, smi, rng):
 
 
 def native_phase(smi):
-    """Phase 19e: the native host library, built from ``native/`` and loaded
-    on the card's machine: ``ola_commit`` bit-equal to the NumPy form,
-    ``resample`` within 1e-3 of scipy's ``resample_poly``, and the PCM16
-    WAV writer's bytes and the reader's samples equal to the NumPy
-    codec's."""
+    """Phase 19e: the native host library, built from the port's
+    ``csrc/dpdfnet_host.cpp`` and loaded on the card's machine:
+    ``ola_commit`` bit-equal to the NumPy form, ``resample`` within 1e-3 of
+    scipy's ``resample_poly``, and the PCM16 WAV writer's bytes and the
+    reader's samples equal to the NumPy codec's."""
     import tempfile
     from pathlib import Path
 
@@ -2658,6 +2698,139 @@ def fold_phase(cfg, params, cpu_params, eng, smi, rng, wavs, lengths):
     return res
 
 
+class StepSession:
+    """A session shaped as the reference's ``onnxruntime`` one over a loaded
+    ``export_stream`` artifact on the card (what ``quality.
+    enhance_reference_onnx`` reads: ``get_modelmeta().custom_metadata_map``,
+    ``get_inputs()``, ``get_outputs()``, ``run()``).  The sidecar is the
+    metadata; ``run`` takes and returns the spectrum at the reference's
+    scale (the artifact's is times ``wnorm``) and the state as ``[S]``, and
+    counts its calls and their wall seconds."""
+
+    def __init__(self, loaded, cfg):
+        from types import SimpleNamespace as NS
+
+        self.loaded, self.wnorm = loaded, cfg.wnorm
+        self._meta = NS(custom_metadata_map={k: str(v) for k, v in loaded.meta.items()})
+        self._inputs = [NS(name="spec", shape=[1, 1, cfg.freq_bins, 2]),
+                        NS(name="state", shape=[int(loaded.meta["state_size"])])]
+        self._outputs = [NS(name="spec_e"), NS(name="state_out")]
+        self.calls, self.seconds = 0, 0.0
+
+    def get_modelmeta(self):
+        return self._meta
+
+    def get_inputs(self):
+        return self._inputs
+
+    def get_outputs(self):
+        return self._outputs
+
+    def run(self, out_names, feed):
+        t0 = time.perf_counter()
+        spec = torch.from_numpy(feed["spec"] * self.wnorm).cuda()
+        flat = torch.from_numpy(feed["state"]).reshape(1, -1).cuda()
+        out, st = self.loaded.call(spec, flat)
+        res = [out.cpu().numpy() / self.wnorm, st.reshape(-1).cpu().numpy()]
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return res
+
+
+def onnx_gate_phase(cfg, params, eng, gk, smi):
+    """Phase 21: the reference-ONNX quality gate on the card through the
+    port's exported step (module docstring, item 21)."""
+    import csv
+    import importlib.util
+
+    from dpdfnet_tpu_torch import metrics, quality
+    from dpdfnet_tpu_torch import export as ex
+    from dpdfnet_tpu_torch.audio_io import write_wav
+    from dpdfnet_tpu_torch.quality import speechlike_test_signal
+
+    t_phase = time.perf_counter()
+    sr, win = cfg.sample_rate, cfg.win_len
+    with model_dir(params) as d:
+        t0 = time.perf_counter()
+        path = str(ex.export_stream(params, cfg, d / f"{MODEL}.stream.pt2",
+                                    precision=eng.precision, device=eng.device))
+        sess = StepSession(ex.load_exported(path), cfg)
+        t_exp = time.perf_counter() - t0
+        sess.run(None, {"spec": np.zeros((1, 1, cfg.freq_bins, 2), np.float32),
+                        "state": np.zeros(int(sess.loaded.meta["state_size"]), np.float32)})
+        sess.calls, sess.seconds = 0, 0.0                               # the warm-up
+        quality._ONNX_SESSIONS[path] = sess
+        try:
+            # ---- (a) the reference pipeline on the exported step against the engine ----
+            x = speechlike_test_signal(2.0, sr, seed=21)[0]
+            frames = (x.size + win) // cfg.hop + 1
+            torch.cuda.synchronize()
+            gk.reset_launch_counts()
+            got = quality.enhance_reference_onnx(x, sr, path, sr)
+            torch.cuda.synchronize()
+            counts = gk.launch_counts()
+            want = eng.enhance_waveforms(x)
+            per_call = {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
+                        "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5}
+            dev = rel_rms(got[:-win], want[:-win])
+            err = float(np.abs(got[:-win] - want[:-win]).max())
+            # SI-SNR on both scaled to the engine's unit rms: metrics.si_snr's
+            # eps (1e-8 on each energy) would floor it at this output level
+            unit = float(np.sqrt(np.mean(want[:-win] ** 2)))
+            sisnr = metrics.si_snr(want[:-win] / unit, got[:-win] / unit)
+            log(f"21a enhance_reference_onnx {MODEL} 2 s at {sr} Hz through export_stream B=1 "
+                f"({eng.precision}; {t_exp:.1f} s to export and load): {sess.calls} session "
+                f"calls for {frames} frames, {sess.seconds * 1e3 / sess.calls:.3f} ms per call "
+                f"(host copies in and out included); vs Engine.enhance_waveforms on all but the "
+                f"last {win} samples rel_rms {dev:.3e} (tol {ONNX_REL_RMS:.0e}), max_abs "
+                f"{err:.3e}, SI-SNR {sisnr:.2f} dB (both at the engine's unit rms), output rms "
+                f"{float(np.sqrt(np.mean(want ** 2))):.3e}; the last {win} samples zeros "
+                f"{not got[-win:].any()} (engine's last sample {float(want[-1]):.3e}); launches "
+                f"{json.dumps(counts)} = {json.dumps(per_call)} per call | {smi}")
+            if sess.calls != frames or got.shape != x.shape or not np.isfinite(got).all():
+                raise AssertionError(f"21a: {sess.calls} session calls for {frames} frames, "
+                                     f"output {got.shape}")
+            expect_counts("21a reference pipeline", counts,
+                          {k: frames * v for k, v in per_call.items()})
+            if not dev <= ONNX_REL_RMS or got[-win:].any():
+                raise AssertionError(f"21a: the reference pipeline deviates from the engine by "
+                                     f"rel_rms {dev:.3e}, or its last {win} samples are not zeros")
+
+            # ---- (b) validate_vs_onnx on a 2-clip corpus, the model resolved by name ----
+            names = [f"clip{i}.wav" for i in range(2)]
+            for i, name in enumerate(names):
+                write_wav(d / name, speechlike_test_signal(1.5, sr, seed=30 + i)[0], sr)
+            (d / "corpus.csv").write_text("noisy_path,clean_path\n"
+                                          + "".join(f"{n},{n}\n" for n in names))
+            sess.calls = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = quality.validate_vs_onnx(str(d / "corpus.csv"), path, model=MODEL,
+                                              out_csv=str(d / "results.csv"), device=eng.device)
+            t_gate = time.perf_counter() - t0
+        finally:
+            quality._ONNX_SESSIONS.pop(path, None)
+        lines = buf.getvalue().splitlines()
+        with open(d / "results.csv", newline="") as f:
+            res = list(csv.DictReader(f))
+    have_pesq = importlib.util.find_spec("pesq") is not None
+    cols = {k: [float(r[k]) for r in res] for k in res[0] if k != "noisy_path"}
+    log(f"21b validate_vs_onnx {MODEL}, 2 clips x 1.5 s at {sr} Hz (clean = noisy), "
+        f"{t_gate:.1f} s wall (engine build included), {sess.calls} session calls: rc {rc}, "
+        f"pesq importable {have_pesq}; per clip {json.dumps(cols)}; the gate's lines "
+        f"{json.dumps(lines)} | {smi}")
+    needed = [k for k in cols if have_pesq or not k.startswith("pesq_")]
+    if len(res) != 2 or len(cols) != 6 or not all(np.isfinite(cols[k]).all() for k in needed):
+        raise AssertionError(f"21b: the results CSV lacks finite metrics: {cols}")
+    if not have_pesq and (rc != 1 or not lines[-1].startswith("FAIL: PESQ unavailable")):
+        raise AssertionError(f"21b: without pesq the gate gave rc {rc}, {lines[-1:]}")
+    if have_pesq and not ((rc, lines[-1]) == (0, "PASS")
+                          or (rc == 1 and lines[-1].startswith("FAIL: |PESQ"))):
+        raise AssertionError(f"21b: with pesq the gate gave rc {rc}, {lines[-1:]}")
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s wall")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2853,6 +3026,10 @@ def main() -> int:
     # ---- phase 20: the frequency-folded plane against the unfolded one ----
     with set_env(STACK, False), set_env(V2, False):
         fold_phase(cfg, params, cpu_params, eng, smi, rng, wavs, lengths)
+
+    # ---- phase 21: the reference-ONNX quality gate through the exported step ----
+    with set_env(STACK, False), set_env(V2, False):
+        onnx_gate_phase(cfg, params, eng, gk, smi)
 
     # ---- phase 15: kernel list (printed last) ----
     def entry(name, key, source, replaces, launches, rows=kernel_rows):

@@ -6,7 +6,7 @@ Resampling takes the JAX package's backend order: ``soxr`` (HQ, the
 reference pipeline's resampler) where it imports, else scipy's
 Kaiser-windowed polyphase ``resample_poly``; ``DPDFNET_TPU_RESAMPLER``
 (``auto`` / ``soxr`` / ``scipy`` / ``native``) forces one.  ``native`` is
-the C++ polyphase of ``native/`` (``native.py``; the filter of
+the C++ polyphase of ``csrc/dpdfnet_host.cpp`` (``native.py``; the filter of
 ``resample_poly``), for mono input, where the library builds; scipy
 otherwise.
 """

@@ -10,8 +10,9 @@ plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 batch from the main thread; ``--workers`` threads decode and encode files
 only.  ``enhance-dir --distributed`` (a ``torch.distributed`` process
 group, e.g. under ``torchrun``) or ``--num-hosts N --host-id K`` processes
-only this host's shard of the file list (``parallel/multihost.py``).  The
-JAX CLI's ``eval --vs-onnx`` is not ported yet.
+only this host's shard of the file list (``parallel/multihost.py``).
+``eval --vs-onnx model.onnx`` runs the reference-ONNX quality gate
+(``quality.validate_vs_onnx``; ``--device`` runs this package's arm).
 """
 
 from __future__ import annotations
@@ -128,12 +129,16 @@ def _build_parser() -> argparse.ArgumentParser:
                         help="Output CSV (default: results.csv next to input)")
     p_eval.add_argument(
         "--vs-onnx", type=Path, default=None, metavar="ONNX",
-        help="The ONNX quality gate of the JAX CLI; not ported yet (it "
-             "needs onnxruntime and an ONNX model): exits 2.")
+        help="Run the BASELINE quality gate instead: enhance the corpus with "
+             "this package AND the reference's exported .onnx graph "
+             "(requires onnxruntime), score both vs clean, and fail if "
+             "|PESQ delta| exceeds --pesq-tolerance.  The CSV must have "
+             "noisy_path,clean_path columns.")
     p_eval.add_argument("--pesq-tolerance", type=float, default=0.01)
     p_eval.add_argument("--model", default="dpdfnet8_48khz_hr",
                         choices=supported_models(),
                         help="Model to evaluate with --vs-onnx.")
+    _add_device_arg(p_eval)
 
     p_demo = sub.add_parser(
         "demo",
@@ -434,10 +439,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             return _run_download(args)
         if args.command == "eval":
             if args.vs_onnx is not None:
-                print("Error: eval --vs-onnx is not ported yet: it waits for "
-                      "onnxruntime and an ONNX model of the reference.",
-                      file=sys.stderr)
-                return 2
+                from .quality import validate_vs_onnx
+
+                return validate_vs_onnx(
+                    str(args.csv), str(args.vs_onnx), model=args.model,
+                    out_csv=args.out, pesq_tolerance=args.pesq_tolerance,
+                    device=args.device)
             from .metrics import evaluate_csv
 
             out = evaluate_csv(str(args.csv), args.out)

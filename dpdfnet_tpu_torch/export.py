@@ -144,20 +144,14 @@ def _export(fn, args, out_path: Path, meta: dict) -> Path:
     return out_path
 
 
-def export_stream(params, cfg: ModelConfig, out_path, *, batch: int = 1,
-                  precision: str = "high", device: DeviceLike = None) -> Path:
-    """Export the streaming step (:func:`make_stream_step`) at ``batch`` as a
-    ``torch.export`` artifact + JSON metadata (the JAX sidecar's keys and
-    values, ``platforms`` the device type, and ``precision``)."""
-    out_path = Path(out_path)
-    dev = resolve_device(device)
-    step = make_stream_step(params, cfg, precision, dev)
-    spec = torch.zeros((batch, 1, cfg.freq_bins, 2), device=dev)
-    flat = torch.zeros((batch, state_lib.state_size(cfg)), device=dev)
+def stream_meta(cfg: ModelConfig, batch: int = 1, precision: str = "high") -> dict:
+    """The streaming artifact's sidecar: the JAX sidecar's keys and values
+    (framing, ``state_size`` and the norm-init segments the reference ONNX
+    graph carries as metadata), with ``precision`` added."""
     E = cfg.freq_bins if cfg.hr else cfg.nb_erb
     erb_init = init_norms.mag_norm_init(E) if cfg.hr else init_norms.erb_norm_init(E)
     spec_init = init_norms.spec_norm_init(cfg.nb_df, cfg.hr)
-    meta = {
+    return {
         "model": cfg.name,
         "sample_rate": cfg.sample_rate,
         "n_fft": cfg.n_fft,
@@ -171,7 +165,19 @@ def export_stream(params, cfg: ModelConfig, out_path, *, batch: int = 1,
         "spec_norm_init": ",".join(str(float(v)) for v in spec_init),
         "precision": precision,
     }
-    return _export(step, (spec, flat), out_path, meta)
+
+
+def export_stream(params, cfg: ModelConfig, out_path, *, batch: int = 1,
+                  precision: str = "high", device: DeviceLike = None) -> Path:
+    """Export the streaming step (:func:`make_stream_step`) at ``batch`` as a
+    ``torch.export`` artifact + JSON metadata (:func:`stream_meta`, with
+    ``platforms`` the device type)."""
+    out_path = Path(out_path)
+    dev = resolve_device(device)
+    step = make_stream_step(params, cfg, precision, dev)
+    spec = torch.zeros((batch, 1, cfg.freq_bins, 2), device=dev)
+    flat = torch.zeros((batch, state_lib.state_size(cfg)), device=dev)
+    return _export(step, (spec, flat), out_path, stream_meta(cfg, batch, precision))
 
 
 def export_offline(params, cfg: ModelConfig, out_path, *, batch: int, seconds: float,

@@ -1,10 +1,12 @@
 """ctypes bindings for the native host library (counterpart of
 ``dpdfnet_tpu.native``).
 
-``native/dpdfnet_host.cpp`` holds the host side of the data path in C++:
-WAV read and write, a polyphase resampler and the streaming overlap-add.
-The port builds it itself, on first use, with ``g++ -O3 -fPIC -std=c++17
--shared`` into ``utils.compile_cache.build_dir()`` (by default the
+``csrc/dpdfnet_host.cpp`` holds the host side of the data path in C++:
+WAV read and write, a polyphase resampler and the streaming overlap-add;
+it is the port's own copy of the JAX package's ``native/dpdfnet_host.cpp``
+(the same bytes, so both libraries run the same C++).  The port builds it
+itself, on first use, with ``g++ -O3 -fPIC -std=c++17 -shared`` into
+``utils.compile_cache.build_dir()`` (by default the
 git-ignored ``dpdfnet_tpu_torch/_build/``), as ``libdpdfnet_host-<hash of
 the source>.so``, so an edited source is rebuilt.  ``DPDFNET_TPU_NATIVE_LIB``
 names a library to load instead; ``DPDFNET_TPU_NATIVE=0`` turns the
@@ -27,7 +29,7 @@ import numpy as np
 
 from .utils import compile_cache
 
-SOURCE = Path(__file__).resolve().parent.parent / "native" / "dpdfnet_host.cpp"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "dpdfnet_host.cpp"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _LIB: Optional[ctypes.CDLL] = None

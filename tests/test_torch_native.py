@@ -3,9 +3,10 @@ host library (``native.py``) and its callers, the build directory
 (``utils/compile_cache.py``) and the perceptual columns of
 ``quality.tier_deviation``.
 
-The port builds ``native/dpdfnet_host.cpp`` itself (``g++``, into its
-build directory); the JAX package builds the same unedited source with
-its Makefile.  Both libraries run the same C++ on the same inputs, so the
+The port builds its own copy of the host source,
+``dpdfnet_tpu_torch/csrc/dpdfnet_host.cpp`` (``g++``, into its build
+directory); the JAX package builds ``native/dpdfnet_host.cpp``, the same
+bytes, with its Makefile.  Both libraries run the same C++ on the same inputs, so the
 outputs are compared bit for bit; the NumPy forms they replace are held
 to the same bits (overlap-add, WAV bytes and samples), the resampler to
 scipy's ``resample_poly`` within 1e-3 (the JAX test's bound).  The
