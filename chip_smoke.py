@@ -41,7 +41,7 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    exact and throughput modes, with the per-stage DPRNN kernels and with
    the stack kernel: deviation from the CPU engine; on the card each
    program is a CUDA graph, so the wrappers count the launches of the eager
-   span before each capture and the engine counts the replays of the
+   run before each capture and the engine counts the replays of the
    rest; exact mode bit-identical across three chunkings;
 6. ``StreamEnhancer`` on the card (odd chunk sizes, save/load resume,
    flush) and ``MultiStreamEnhancer`` (8 slots, mixed cadences, each slot
@@ -122,7 +122,7 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    the CUDA graph at 64 streams x 200 hops in ``highest`` against an eager
    per-frame loop of the same engine (front / ``forward_spec`` / back
    called here; ``torch.equal`` expected, max-abs reported), bit-identical
-   across the chunkings of ``stream_spans``, card vs CPU (streams 0-3, 50
+   across the chunkings of ``stream_steps``, card vs CPU (streams 0-3, 50
    hops), one eager hop's 16 / 16 / 5 launches before the capture and 199
    replays; ``turbo`` + V2 exact (chunk invariance, card vs CPU rel_rms)
    and ``highest`` throughput mode at 8 hops per call (card vs CPU,
@@ -344,7 +344,7 @@ def expect_counts(what: str, counts: dict, want: dict) -> None:
 def graph_counted(e, gk, fn):
     """Run ``fn()``, which streams through engine ``e``; returns its result,
     the launches the wrappers made (they count only launches they make
-    themselves: the eager warm-up span of each graph the run captured), the
+    themselves: the eager warm-up run of each graph the run captured), the
     graphs captured and the graph replays in the run."""
     torch.cuda.synchronize()
     gk.reset_launch_counts()
@@ -356,7 +356,7 @@ def graph_counted(e, gk, fn):
 
 def expect_graph_counts(what: str, counted, per_call: dict, calls: int) -> None:
     """``graph_counted``'s launches and replays for ``calls`` forward_spec
-    calls of ``per_call`` launches each: each captured graph's warm-up span
+    calls of ``per_call`` launches each: each captured graph's warm-up run
     launched once, every other call was one replay."""
     _, counts, captured, replays = counted
     expect_counts(what, counts, {k: v * captured for k, v in per_call.items() if captured})
@@ -716,15 +716,15 @@ def stream_frames(rng, B, T, win):
     return sig[:, idx]
 
 
-def stream_spans(T):
+def stream_steps(T):
     """Throughput mode's forward_spec calls for T frames: the largest
     power-of-two bucket (up to 128) that fits, repeatedly."""
-    spans, pos = [], 0
+    steps, pos = [], 0
     while pos < T:
         step = max(b for b in (1, 2, 4, 8, 16, 32, 64, 128) if b <= T - pos)
-        spans.append(step)
+        steps.append(step)
         pos += step
-    return spans
+    return steps
 
 
 def run_chunked(eng, frames, cuts, mode="exact"):
@@ -742,7 +742,7 @@ def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
     B, T = 4, 40
     frames = stream_frames(rng, B, T, cfg.win_len)
     for mode in ("exact", "throughput"):
-        calls = T if mode == "exact" else len(stream_spans(T))
+        calls = T if mode == "exact" else len(stream_steps(T))
         t0 = time.perf_counter()
         ref, _ = cpu_eng.process_frames(frames, cpu_eng.init_stream_state(batch=B), mode=mode)
         t_cpu = time.perf_counter() - t0
@@ -761,7 +761,7 @@ def streaming_phase(cfg, eng, eng_stack, cpu_eng, gk, rng):
             err = float(np.abs(y - ref).max())
             log(f"streaming {mode} {name} B={B} x {T} hops: card vs CPU max_abs {err:.3e} "
                 f"(tol {ENGINE_TOL:.0e}); {calls} forward_spec calls: {captured} graph(s) "
-                f"captured, each after an eager span that launched {json.dumps(per_call)} "
+                f"captured, each after an eager run that launched {json.dumps(per_call)} "
                 f"({json.dumps(counts)} counted), {replays} replays (CPU run {t_cpu:.1f} s)")
             if not err <= ENGINE_TOL:
                 raise AssertionError(f"streaming {mode} {name} deviates from the CPU by {err:.3e}")
@@ -1858,13 +1858,13 @@ def graph_phase(cfg, params, cpu_eng, cpu_params, gk, rng):
             f"{replays} replays (the kernels a replay runs: 18b's traces)")
         if not np.isfinite(y).all() or not float(np.abs(y - ref).max()) <= KERNEL_TOL:
             raise AssertionError("graph exact streaming deviates from the eager loop")
-        for cuts in ([T], stream_spans(T), [3, 5] * (T // 8)):
+        for cuts in ([T], stream_steps(T), [3, 5] * (T // 8)):
             other = run_chunked(e, frames, cuts)
             if not np.array_equal(other, y):
                 raise AssertionError(f"graph exact streaming: chunking {cuts[:4]}... differs "
                                      f"by {float(np.abs(other - y).max()):.3e}")
         log("graph exact: bit-identical for chunkings 1+1+..., all-at-once, "
-            f"{'+'.join(map(str, stream_spans(T)))}, 3+5+...")
+            f"{'+'.join(map(str, stream_steps(T)))}, 3+5+...")
         n_cpu = 50
         t0 = time.perf_counter()
         y_cpu, _ = cpu_eng.process_frames(frames[:4, :n_cpu], cpu_eng.init_stream_state(batch=4))
@@ -1958,14 +1958,14 @@ def graph_phase(cfg, params, cpu_eng, cpu_params, gk, rng):
         per_hop_t = {"dprnn_intra_block": per_hop["dprnn_intra_block"],
                      "dprnn_inter_block_v2": per_hop["dprnn_inter_block"], "gru_scan": 5}
         expect_graph_counts("graph exact turbo+V2", counted, per_hop_t, T)
-        for cuts in ([T], stream_spans(T)):
+        for cuts in ([T], stream_steps(T)):
             if not np.array_equal(run_chunked(et, frames, cuts), yt):
                 raise AssertionError(f"graph exact turbo+V2: chunking {cuts[:4]} differs")
         cpu_t = engine_from_quality(cfg, cpu_params, "turbo", device="cpu")
         yt_cpu, _ = cpu_t.process_frames(frames[:2, :20], cpu_t.init_stream_state(batch=2))
         rr = rel_rms(yt[:2, :20], yt_cpu)
     log(f"graph exact turbo+V2 {B} streams x {T} hops: bit-identical across chunkings 1+1+..., "
-        f"all-at-once, {'+'.join(map(str, stream_spans(T)))}; card vs CPU (streams 0-1, 20 "
+        f"all-at-once, {'+'.join(map(str, stream_steps(T)))}; card vs CPU (streams 0-1, 20 "
         f"hops) rel_rms {rr:.3e} (tol {TURBO_STREAM_REL_RMS:g}); the eager hop before the "
         f"capture launched {json.dumps(counts_t)}, {replays_t} replays")
     if not (np.isfinite(yt).all() and rr <= TURBO_STREAM_REL_RMS):
@@ -2269,7 +2269,7 @@ def mesh_phase(cfg, params, gk, smi, rng):
             raise AssertionError(f"19b: offline on the mesh deviates by {err[0]:.3e}")
         outs = {}
         for mode, r in (("exact", ref[1]), ("throughput", ref[2])):
-            spans = [1] * hops if mode == "exact" else stream_spans(hops)
+            steps = [1] * hops if mode == "exact" else stream_steps(hops)
             for call in (1, 2):
                 replays = [rep.graph_replays for rep in e2.replicas]
                 st = e2.init_stream_state(batch=B)
@@ -2280,16 +2280,16 @@ def mesh_phase(cfg, params, gk, smi, rng):
                 counts = gk.launch_counts()
                 replays = [rep.graph_replays - r0 for rep, r0 in zip(e2.replicas, replays)]
                 err = dev(y, r)
-                captured = len(set(spans)) if call == 1 else 0
+                captured = len(set(steps)) if call == 1 else 0
                 log(f"19b {mode} streaming {B} streams x {hops} hops, call {call}: max_abs "
                     f"{err[0]:.3e} (tol {MESH_TOL:.0e}); state {type(st).__name__} of "
                     f"{len(st)} shards of {st[0]['enc_gru'][0].shape[0]} streams; graph "
                     f"replays per replica {replays}, wrapper launches {json.dumps(counts)} "
-                    f"(the eager span of each of the {captured} captures per replica)")
+                    f"(the eager step of each of the {captured} captures per replica)")
                 expect_counts(f"19b {mode} call {call}", counts,
                               {k: 2 * captured * v for k, v in per_call.items() if captured})
-                if replays != [len(spans) - captured] * 2 or not isinstance(st, Sharded):
-                    raise AssertionError(f"19b {mode}: replays {replays} for {len(spans)} spans")
+                if replays != [len(steps) - captured] * 2 or not isinstance(st, Sharded):
+                    raise AssertionError(f"19b {mode}: replays {replays} for {len(steps)} steps")
                 if not err[0] <= MESH_TOL:
                     raise AssertionError(f"19b {mode}: the mesh deviates by {err[0]:.3e}")
                 outs[mode] = y

@@ -56,7 +56,7 @@ def _features(params: Params, cfg: ModelConfig, spec: Tensor, state: State
     else:
         feat_erb_raw = _to_db(power @ params["erb_fb"].to(spec.dtype))
     # sequential EMA for single frames (bit-stable chunking), log-depth
-    # associative form for multi-frame spans
+    # associative form for runs of several frames
     ema = onn.ema_scan if spec.shape[1] == 1 else onn.ema_scan_assoc
     mu = ema(feat_erb_raw, state["erb_norm"], cfg.alpha)
     feat_erb = (feat_erb_raw - mu) / 40.0

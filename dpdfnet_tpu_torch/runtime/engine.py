@@ -54,6 +54,11 @@ the replicas' host work runs one after another on the calling thread,
 so host-bound work (the exact hop) does not overlap.  Without a mesh,
 or with one device in it, the engine is its only replica and runs the
 same path on the whole batch.
+
+The engine's calls open the spans of ``runtime.telemetry`` at their phases
+(the host's copies, state, replays, padding, enqueue and waits); they
+record only while a ``torch.profiler`` records or inside
+``telemetry.recording()``.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from ..ops.windows import vorbis_window
 from ..parallel.mesh import Mesh, Sharded, make_mesh, shard_batch
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.tree import tree_leaves, tree_map
+from . import telemetry
 
 QUALITY_TIERS = {
     # name -> (matmul precision, compute dtype), as dpdfnet_tpu's table
@@ -197,10 +203,25 @@ def _gc_paused():
             gc.enable()
 
 
+def _upload(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``x`` on ``device`` (the span ``engine.upload``; the bytes that
+    cross to a card count as ``engine.h2d_bytes``)."""
+    with telemetry.span("engine.upload", card=device.index):
+        y = x.to(device)
+        if device.type != "cpu":
+            telemetry.count("engine.h2d_bytes", y.nbytes)
+        return y
+
+
 def _host(ys) -> np.ndarray:
-    """Output shards, one per replica, as one host array in mesh order."""
-    parts = [y.cpu().numpy() for y in ys]
-    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+    """Output shards, one per replica, as one host array in mesh order (the
+    span ``engine.fetch``: waiting for the devices, then the copies back,
+    whose bytes from a card count as ``engine.d2h_bytes``)."""
+    with telemetry.span("engine.fetch"):
+        parts = [y.cpu().numpy() for y in ys]
+        if ys[0].is_cuda and telemetry.enabled():
+            telemetry.count("engine.d2h_bytes", sum(y.nbytes for y in ys))
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 
 class Engine:
@@ -242,14 +263,14 @@ class Engine:
         self._wss = {}                  # frames -> iSTFT divisor on the device
         # streaming programs: CUDA graphs on a card (``stream_graph_key``),
         # sharing one memory pool and one state slot per batch and dtypes;
-        # one call's graph span (state in, replays, state out) at a time,
+        # one call's graph work (state in, replays, state out) at a time,
         # each after the last one's work on the device
         self._graphs = {}
         self._slots = {}
         self._graph_pool = None
         self._capture_stream = None
         self._graph_lock = threading.Lock()
-        self._span_done = None
+        self._call_done = None
         self.graph_replays = 0          # graph replays this engine has made
         self._dft = torch.as_tensor(stft_ops.dft_matrices(cfg.win_len, window),
                                     device=self.device)
@@ -457,52 +478,60 @@ class Engine:
 
         return frames_fn
 
-    def _run_stream(self, kind: str, x: torch.Tensor, st, spans):
-        """Run ``kind``'s step over each ``(pos, frames)`` span of ``x``
+    def _run_stream(self, kind: str, x: torch.Tensor, st, steps):
+        """Run ``kind``'s step over each ``(pos, frames)`` step of ``x``
         from state ``st``; returns the output over all of x's frames and the
         new state.  Eager on a CPU engine; on a CUDA engine through the
         captured graphs, with the state copied into the batch's slot once
         and out once per call, under the engine's lock, so threads that
-        share the engine never interleave their spans."""
+        share the engine never interleave their calls (the spans
+        ``engine.state_in``, ``engine.replay`` with an ``engine.capture``
+        per graph captured, ``engine.state_out``)."""
         if self.device.type != "cuda":
             fn = self._stream_step(kind)
             outs = []
-            for pos, step in spans:
+            for pos, step in steps:
                 y, st = fn(x[:, pos:pos + step], st)
                 outs.append(y)
             return torch.cat(outs, dim=1), st
         B, T = x.shape[:2]
-        y = (torch.empty_like(x) if kind == "spec" else
-             torch.empty((B, T, self.cfg.win_len), dtype=torch.float32, device=self.device))
-        sig = tuple((tuple(leaf.shape), leaf.dtype) for _, leaf in tree_leaves(st))
-        # the capture, the replays and the span's event on this engine's card
+        card = self.device.index
+        # the capture, the replays and the call's event on this engine's card
         with self._graph_lock, torch.cuda.device(self.device):
-            cur = torch.cuda.current_stream(self.device)
-            if self._span_done is not None:       # another thread's stream may differ
-                cur.wait_event(self._span_done)
-            slot = self._slots.get((B, sig))
-            if slot is None:
-                slot = self._slots[(B, sig)] = _StateSlot(st)
-            slot.store(st)
-            for pos, step in spans:
-                key = stream_graph_key(kind, B, step, self.precision, st)
-                if key not in self._graphs:
-                    self._graphs[key] = self._capture(kind, x[:, pos:pos + step], slot,
-                                                      y[:, pos:pos + step])
-                    continue
-                graph, gx, gy = self._graphs[key]
-                gx.copy_(x[:, pos:pos + step])
-                graph.replay()
-                self.graph_replays += 1
-                y[:, pos:pos + step].copy_(gy)
-            st = slot.dump()
-            self._span_done = cur.record_event()
+            with telemetry.span("engine.state_in", card=card):
+                sig = tuple((tuple(leaf.shape), leaf.dtype) for _, leaf in tree_leaves(st))
+                cur = torch.cuda.current_stream(self.device)
+                if self._call_done is not None:       # another thread's stream may differ
+                    cur.wait_event(self._call_done)
+                slot = self._slots.get((B, sig))
+                if slot is None:
+                    slot = self._slots[(B, sig)] = _StateSlot(st)
+                slot.store(st)
+            with telemetry.span("engine.replay", card=card):
+                y = (torch.empty_like(x) if kind == "spec" else
+                     torch.empty((B, T, self.cfg.win_len), dtype=torch.float32,
+                                 device=self.device))
+                for pos, step in steps:
+                    key = stream_graph_key(kind, B, step, self.precision, st)
+                    if key not in self._graphs:
+                        with telemetry.span("engine.capture", card=card):
+                            self._graphs[key] = self._capture(kind, x[:, pos:pos + step], slot,
+                                                              y[:, pos:pos + step])
+                        continue
+                    graph, gx, gy = self._graphs[key]
+                    gx.copy_(x[:, pos:pos + step])
+                    graph.replay()
+                    self.graph_replays += 1
+                    y[:, pos:pos + step].copy_(gy)
+            with telemetry.span("engine.state_out", card=card):
+                st = slot.dump()
+                self._call_done = cur.record_event()
         return y, st
 
     def _capture(self, kind: str, xs: torch.Tensor, slot: _StateSlot, ys: torch.Tensor):
-        """Run ``kind``'s step once eagerly on the span ``xs`` from the
+        """Run ``kind``'s step once eagerly on the step ``xs`` from the
         slot's state (its output goes to ``ys``, its state to the slot: the
-        warm-up is this span's real work, and builds the kernel libraries,
+        warm-up is this step's real work, and builds the kernel libraries,
         cuFFT plans and the cuBLAS workspace of the capture stream), then
         capture the same step on a static input into a CUDA graph that
         rewrites the slot's state in place; returns the graph, its static
@@ -531,7 +560,7 @@ class Engine:
             slot.store(new)
         return graph, x_static, y_static
 
-    def _run_shards(self, kind: str, x: torch.Tensor, st, spans):
+    def _run_shards(self, kind: str, x: torch.Tensor, st, steps):
         """:meth:`_run_stream` over the replicas: ``x`` cut into one shard
         per replica (all uploaded first), each shard through its replica.
         With one replica ``st`` is its state tree; with several it is the
@@ -547,17 +576,17 @@ class Engine:
             if len(states) != n:
                 raise ValueError(f"a state of {len(states)} shards on a mesh of {n}")
         b = x.shape[0] // n
-        xs = [x[j * b:(j + 1) * b].to(rep.device) for j, rep in enumerate(self.replicas)]
-        runs = [rep._run_stream(kind, xj, sj, spans)
+        xs = [_upload(x[j * b:(j + 1) * b], rep.device) for j, rep in enumerate(self.replicas)]
+        runs = [rep._run_stream(kind, xj, sj, steps)
                 for rep, xj, sj in zip(self.replicas, xs, states)]
         return [y for y, _ in runs], (runs[0][1] if n == 1 else Sharded(s for _, s in runs))
 
-    def _program(self, kind: str, B: int, T: int, spans):
+    def _program(self, kind: str, B: int, T: int, steps):
         def run(x: torch.Tensor, st):
             if tuple(x.shape[:2]) != (B, T):
                 raise ValueError(f"streaming program for B={B}, T={T} got {tuple(x.shape)}")
             with _math_mode(self.precision), torch.no_grad():
-                ys, st = self._run_shards(kind, x, st, spans)
+                ys, st = self._run_shards(kind, x, st, steps)
             return (ys[0] if len(ys) == 1 else
                     torch.cat([y.to(self.device) for y in ys])), st
         return run
@@ -602,33 +631,38 @@ class Engine:
         On a CUDA engine each program is a captured CUDA graph (replayed
         per frame in exact mode, per bucket in throughput mode), built on
         the first call that needs it.  Threads may share an engine: a lock
-        runs one call's graph span at a time.
+        runs one call's graph work at a time.
 
         On a mesh ``B`` must be a multiple of the mesh size (else
         ``ValueError``); with several devices ``st`` is the
         :class:`~parallel.mesh.Sharded` state (a whole-batch tree is
         sharded first), each shard runs on its replica, and the output is
         gathered in order.
+
+        Spans: ``engine.process_frames`` over an ``engine.upload`` per
+        replica, on a card each replica's ``engine.state_in``,
+        ``engine.replay`` and ``engine.state_out``, then ``engine.fetch``.
         """
-        frames = np.asarray(frames, dtype=np.float32)
-        B, T, _ = frames.shape
-        self._check_stream_batch(B)
-        if mode not in ("exact", "throughput"):
-            raise ValueError(f"unknown streaming mode {mode!r}")
-        if T == 0:
-            return np.zeros((B, 0, self.cfg.win_len), np.float32), st
-        if mode == "exact":
-            kind, spans = "exact", [(t, 1) for t in range(T)]
-        else:
-            kind, spans, pos = "vec", [], 0
-            while pos < T:
-                step = max(b for b in _STREAM_T_BUCKETS if b <= T - pos)
-                spans.append((pos, step))
-                pos += step
-        with _math_mode(self.precision), torch.no_grad():
-            ys, st = self._run_shards(kind, torch.from_numpy(np.ascontiguousarray(frames)),
-                                      st, spans)
-        return _host(ys), st
+        with telemetry.span("engine.process_frames"):
+            frames = np.asarray(frames, dtype=np.float32)
+            B, T, _ = frames.shape
+            self._check_stream_batch(B)
+            if mode not in ("exact", "throughput"):
+                raise ValueError(f"unknown streaming mode {mode!r}")
+            if T == 0:
+                return np.zeros((B, 0, self.cfg.win_len), np.float32), st
+            if mode == "exact":
+                kind, steps = "exact", [(t, 1) for t in range(T)]
+            else:
+                kind, steps, pos = "vec", [], 0
+                while pos < T:
+                    step = max(b for b in _STREAM_T_BUCKETS if b <= T - pos)
+                    steps.append((pos, step))
+                    pos += step
+            with _math_mode(self.precision), torch.no_grad():
+                ys, st = self._run_shards(kind, torch.from_numpy(np.ascontiguousarray(frames)),
+                                          st, steps)
+            return _host(ys), st
 
     def enhance_waveforms(self, wavs: np.ndarray, attn_limit_db: Optional[float] = None,
                           lengths: Optional[np.ndarray] = None,
@@ -646,29 +680,35 @@ class Engine:
 
         Returns:
             Enhanced float32 audio (numpy) with the same shape as ``wavs``.
+
+        Spans: ``engine.enhance_waveforms`` over ``engine.pad`` (bucket,
+        zero-pad, an ``engine.upload`` per replica), ``engine.launch``
+        (every replica's work enqueued), ``engine.fetch``, ``engine.unpad``.
         """
-        squeeze = np.ndim(wavs) == 1
-        x = np.atleast_2d(np.asarray(wavs, dtype=np.float32))
-        B, S = x.shape
-        value = audio_lib.validate_attn_limit_db(attn_limit_db)
-        alpha = 0.0 if value is None else float(np.float32(10.0 ** (-value / 20.0)))
+        with telemetry.span("engine.enhance_waveforms"):
+            value = audio_lib.validate_attn_limit_db(attn_limit_db)
+            alpha = 0.0 if value is None else float(np.float32(10.0 ** (-value / 20.0)))
+            with telemetry.span("engine.pad"):
+                squeeze = np.ndim(wavs) == 1
+                x = np.atleast_2d(np.asarray(wavs, dtype=np.float32))
+                B, S = x.shape
+                S_pad = self.bucket_len(S)
+                n = len(self.replicas)
+                # on a mesh the batch is padded with zero rows to a multiple of its size
+                xp = np.zeros((-(-B // n) * n, S_pad), np.float32)
+                xp[:B, :S] = x
+                b = xp.shape[0] // n
+                wavs = [_upload(torch.from_numpy(xp[j * b:(j + 1) * b]), rep.device)
+                        for j, rep in enumerate(self.replicas)]
+            with telemetry.span("engine.launch"), _math_mode(self.precision):
+                ys = self._offline_shards(wavs, alpha, progress_callback)
+            y = _host(ys)
 
-        S_pad = self.bucket_len(S)
-        n = len(self.replicas)
-        # on a mesh the batch is padded with zero rows to a multiple of its size
-        xp = np.zeros((-(-B // n) * n, S_pad), np.float32)
-        xp[:B, :S] = x
-        b = xp.shape[0] // n
-        wavs = [torch.from_numpy(xp[j * b:(j + 1) * b]).to(rep.device)
-                for j, rep in enumerate(self.replicas)]
-        with _math_mode(self.precision):
-            ys = self._offline_shards(wavs, alpha, progress_callback)
-        y = _host(ys)
-
-        out = np.zeros_like(x)
-        n = min(S, y.shape[1])
-        out[:, :n] = y[:B, :n]
-        if lengths is not None:
-            for i, ln in enumerate(np.asarray(lengths).reshape(-1)):
-                out[i, int(ln):] = 0.0
-        return out[0] if squeeze else out
+            with telemetry.span("engine.unpad"):
+                out = np.zeros_like(x)
+                n = min(S, y.shape[1])
+                out[:, :n] = y[:B, :n]
+                if lengths is not None:
+                    for i, ln in enumerate(np.asarray(lengths).reshape(-1)):
+                        out[i, int(ln):] = 0.0
+            return out[0] if squeeze else out

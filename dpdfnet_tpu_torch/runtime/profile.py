@@ -17,16 +17,23 @@ DPRNN chain at batches of 32 and more) and ``--relayout``
 ``DPDFNET_TPU_ENTRY_RELAYOUT=1`` (its entry permute as the ``relayout_fm``
 kernel).
 
-Prints one JSON object: the wall ms of the profiled span (and ms per hop
+Prints one JSON object: the wall ms of the profiled run (and ms per hop
 when streaming), the summed device ms per kernel family (the port's CUDA
 kernels, convolutions, GEMMs, FFTs, everything else), the device's busy
-share of the wall time, the kernel launches counted by the wrappers
-(launches they made themselves), the engine's graph replays, the port's
-kernels the device ran by kernel symbol (``kernel_launches``: the trace
-counts what a replayed graph launches), the number of device operations
-(kernels and copies) the span ran, and the top kernels by device time.  Needs a CUDA device; random contracted
-weights (``init_params`` + ``contract_params``, seed 0); the tier sets its
-own cuBLAS / cuDNN math mode for each engine call.
+time (the union of its operations' intervals, so that operations that
+overlap count once) and its share of the wall time, the kernel launches
+counted by the wrappers (launches they made themselves), the engine's
+graph replays, the port's kernels the device ran by kernel symbol
+(``kernel_launches``: the trace counts what a replayed graph launches),
+the number of device operations (kernels and copies) the run made, and
+the top kernels by device time.  From the program's own spans
+(``runtime.telemetry``, which record while the profiler does): the host's
+self ms per span (``host_ms``), the device's idle ms by the innermost
+span the host was in at each idle gap's middle (``idle_ms``; ``outside
+spans`` where none), the graphs captured (``captures``) and the bytes
+copied to and from the card (``counters``).  Needs a CUDA device; random
+contracted weights (``init_params`` + ``contract_params``, seed 0); the
+tier sets its own cuBLAS / cuDNN math mode for each engine call.
 """
 
 from __future__ import annotations
@@ -84,6 +91,78 @@ def kernel_launches(names) -> dict:
     return dict(counts)
 
 
+# the profiled run's own range, the window that busy and idle time cover
+RUN = "profile.run"
+OUTSIDE = "outside spans"
+
+
+def _union(intervals):
+    """The covered runs of ``intervals``, merged, in order."""
+    runs = []
+    for a, b in sorted(intervals):
+        if runs and a <= runs[-1][1]:
+            runs[-1][1] = max(runs[-1][1], b)
+        else:
+            runs.append([a, b])
+    return runs
+
+
+def _is_op(ev, ranges) -> bool:
+    """Whether ``ev`` is a device operation: on a card, and not the
+    device's mirror of a host range."""
+    return (ev.device_type == torch.autograd.DeviceType.CUDA and ev.name not in ranges
+            and not getattr(ev, "is_user_annotation", False))
+
+
+def device_view(events, span_names) -> dict:
+    """From ``profile.events()``: each card's busy us (the union of its
+    operations' intervals inside the host range ``RUN``) and the idle us,
+    summed over the cards, by the innermost program span (``span_names``)
+    open on the host at each idle gap's middle.  The device's mirrors of
+    host ranges are not operations.  ``{"busy_us": {card: us}, "idle_us":
+    {span: us}}``; empty without the ``RUN`` range."""
+    ranges = set(span_names) | {RUN}
+    window, host, ops = None, [], defaultdict(list)
+    for ev in events:
+        a, b = ev.time_range.start, ev.time_range.end
+        if _is_op(ev, ranges):
+            ops[int(ev.device_index)].append((a, b))
+        elif ev.device_type == torch.autograd.DeviceType.CUDA:
+            continue
+        elif ev.name == RUN:
+            window = (a, b)
+        elif ev.name in span_names:
+            host.append((a, b, ev.name))
+    if window is None:
+        return {"busy_us": {}, "idle_us": {}}
+    w0, w1 = window
+    busy, gaps = {}, []
+    for card, ivs in sorted(ops.items()):
+        runs = _union([(max(a, w0), min(b, w1)) for a, b in ivs if b > w0 and a < w1])
+        busy[card] = sum(b - a for a, b in runs)
+        edges = [w0] + [x for r in runs for x in r] + [w1]
+        gaps += [(0.5 * (a + b), b - a) for a, b in zip(edges[0::2], edges[1::2]) if b > a]
+    gaps.sort()
+    idle = defaultdict(float)
+    for (_, us), name in zip(gaps, _innermost(sorted(host), [t for t, _ in gaps])):
+        idle[name] += us
+    return {"busy_us": busy, "idle_us": dict(idle)}
+
+
+def _innermost(host, times) -> list:
+    """For each of the ascending host ``times``, the program span around it
+    that began last (spans nest, so the innermost), or ``OUTSIDE``;
+    ``host`` holds ``(start, end, name)`` in order of start."""
+    out, around, i = [], [], 0
+    for t in times:
+        while i < len(host) and host[i][0] <= t:
+            around.append(host[i])
+            i += 1
+        around = [h for h in around if h[1] >= t]
+        out.append(around[-1][2] if around else OUTSIDE)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="dpdfnet8_48khz_hr")
@@ -114,11 +193,12 @@ def main(argv=None) -> int:
         os.environ["DPDFNET_TPU_INTRA_TM"] = "1" if args.fm == "on" else "0"
     if args.relayout:
         os.environ["DPDFNET_TPU_ENTRY_RELAYOUT"] = "1"
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from ..config import get_config
     from ..models.params import contract_params, init_params
     from ..ops import gru_kernels
+    from . import telemetry
     from .engine import engine_from_quality
 
     cfg = get_config(args.model)
@@ -146,26 +226,33 @@ def main(argv=None) -> int:
         run()
     torch.cuda.synchronize()
     gru_kernels.reset_launch_counts()
+    telemetry.reset()
     replays = eng.graph_replays
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
+        with record_function(RUN):
+            run()
+            torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = gru_kernels.launch_counts()
     replays = eng.graph_replays - replays
+    snap = telemetry.snapshot()
+    telemetry.reset()
+    events = prof.events()
+    view = device_view(events, snap["spans"])
 
     per_kernel = defaultdict(float)
     device_names = []
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+    ranges = set(snap["spans"]) | {RUN}
+    for ev in events:
+        if _is_op(ev, ranges):
             per_kernel[ev.name] += ev.device_time_total / 1e3
             device_names.append(ev.name)
     n_device_ops = len(device_names)
     fams = defaultdict(float)
     for name, ms in per_kernel.items():
         fams[family(name)] += ms
-    busy = sum(per_kernel.values())
+    busy = sum(view["busy_us"].values()) / 1e3 / max(1, len(view["busy_us"]))
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -183,6 +270,11 @@ def main(argv=None) -> int:
         "device_ops": n_device_ops,
         "family_ms": dict(sorted(fams.items(), key=lambda kv: -kv[1])),
         "top_kernels_ms": [[n[:90], ms] for n, ms in top],
+        "host_ms": {n: row["self_ns"] / 1e6 for n, row in snap["spans"].items()},
+        "idle_ms": {n: us / 1e3 for n, us in
+                    sorted(view["idle_us"].items(), key=lambda kv: -kv[1])},
+        "captures": snap["spans"].get("engine.capture", {}).get("count", 0),
+        "counters": snap["counters"],
     }, indent=1))
     return 0
 

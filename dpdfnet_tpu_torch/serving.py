@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .audio import to_mono
+from .runtime import telemetry
 from .utils.device import DeviceLike
 from .utils.tree import tree_map, tree_map2
 from .zoo import DEFAULT_MODEL
@@ -109,56 +110,69 @@ class MultiStreamEnhancer:
         return empty arrays.  Every bucket runs at the pool's full capacity
         (one batch shape for the pool's lifetime), so a slot's result does
         not depend on which other slots are active.
+
+        Spans: ``pool.process_many`` over ``pool.stage`` (validate, downmix,
+        append, group), then per hop bucket ``pool.frame``, ``pool.state``
+        around the state's gather and its scatter (buckets of part of the
+        pool), the engine's ``engine.process_frames`` and
+        ``pool.overlap_add``.
         """
-        # Validate and downmix every chunk before touching any buffer: a bad
-        # sid late in the dict must not leave earlier streams' audio appended.
-        staged: Dict[int, np.ndarray] = {}
-        for sid, chunk in chunks.items():
-            self._check(sid)
-            staged[sid] = to_mono(np.asarray(chunk, np.float32))
-        for sid, c in staged.items():
-            self._in_buf[sid] = np.concatenate([self._in_buf[sid], c])
+        with telemetry.span("pool.process_many"):
+            with telemetry.span("pool.stage"):
+                # Validate and downmix every chunk before touching any buffer: a
+                # bad sid late in the dict must not leave earlier streams' audio
+                # appended.
+                staged: Dict[int, np.ndarray] = {}
+                for sid, chunk in chunks.items():
+                    self._check(sid)
+                    staged[sid] = to_mono(np.asarray(chunk, np.float32))
+                for sid, c in staged.items():
+                    self._in_buf[sid] = np.concatenate([self._in_buf[sid], c])
 
-        counts = {sid: max(0, (len(self._in_buf[sid]) - self._win) // self._hop + 1)
-                  for sid in chunks}
-        out: Dict[int, np.ndarray] = {sid: np.zeros(0, np.float32) for sid in chunks}
-        groups: Dict[int, List[int]] = {}
-        for sid, n in counts.items():
-            if n > 0:
-                groups.setdefault(n, []).append(sid)
+                counts = {sid: max(0, (len(self._in_buf[sid]) - self._win) // self._hop + 1)
+                          for sid in chunks}
+                out: Dict[int, np.ndarray] = {sid: np.zeros(0, np.float32) for sid in chunks}
+                groups: Dict[int, List[int]] = {}
+                for sid, n in counts.items():
+                    if n > 0:
+                        groups.setdefault(n, []).append(sid)
 
-        dev = self._engine.device
-        for n, sids in sorted(groups.items()):
-            # slot order does not change results (the scatter maps rows back
-            # by sid); sorting lets the identity path ignore dict order
-            sids = sorted(sids)
-            g, gp = len(sids), self.capacity
-            frames = np.zeros((gp, n, self._win), np.float32)
-            fidx = np.arange(n)[:, None] * self._hop + np.arange(self._win)[None, :]
-            for row, sid in enumerate(sids):
-                frames[row] = self._in_buf[sid][fidx]
+            dev = self._engine.device
+            for n, sids in sorted(groups.items()):
+                # slot order does not change results (the scatter maps rows
+                # back by sid); sorting lets the identity path ignore dict order
+                sids = sorted(sids)
+                g, gp = len(sids), self.capacity
+                with telemetry.span("pool.frame"):
+                    frames = np.zeros((gp, n, self._win), np.float32)
+                    fidx = np.arange(n)[:, None] * self._hop + np.arange(self._win)[None, :]
+                    for row, sid in enumerate(sids):
+                        frames[row] = self._in_buf[sid][fidx]
 
-            if g == gp and sids == list(range(gp)):
-                # steady serving: every slot advances, in slot order; no
-                # state gather or scatter at all
-                y, self._state = self._engine.process_frames(frames, self._state,
-                                                             mode=self.mode)
-            else:
-                idx = torch.tensor(sids + [sids[0]] * (gp - g), device=dev)
-                rows = torch.tensor(sids, device=dev)
-                sub = tree_map(lambda _, a: a.index_select(0, idx), self._state)
-                y, sub = self._engine.process_frames(frames, sub, mode=self.mode)
-                self._state = tree_map2(lambda cur, new: cur.index_copy(0, rows, new[:g]),
-                                        self._state, sub)
+                if g == gp and sids == list(range(gp)):
+                    # steady serving: every slot advances, in slot order; no
+                    # state gather or scatter at all
+                    y, self._state = self._engine.process_frames(frames, self._state,
+                                                                 mode=self.mode)
+                else:
+                    with telemetry.span("pool.state"):
+                        idx = torch.tensor(sids + [sids[0]] * (gp - g), device=dev)
+                        rows = torch.tensor(sids, device=dev)
+                        sub = tree_map(lambda _, a: a.index_select(0, idx), self._state)
+                    y, sub = self._engine.process_frames(frames, sub, mode=self.mode)
+                    with telemetry.span("pool.state"):
+                        self._state = tree_map2(
+                            lambda cur, new: cur.index_copy(0, rows, new[:g]), self._state, sub)
 
-            for row, sid in enumerate(sids):
-                yf = y[row]                                       # [n, win]
-                tails = np.concatenate([self._ola_tail[sid][None], yf[:-1, self._hop:]],
-                                       axis=0)
-                out[sid] = (yf[:, : self._hop] + tails).reshape(-1)
-                self._ola_tail[sid] = yf[-1, self._hop:]
-                self._in_buf[sid] = self._in_buf[sid][n * self._hop:]
-        return out
+                with telemetry.span("pool.overlap_add"):
+                    for row, sid in enumerate(sids):
+                        yf = y[row]                                       # [n, win]
+                        tails = np.concatenate([self._ola_tail[sid][None], yf[:-1, self._hop:]],
+                                               axis=0)
+                        out[sid] = (yf[:, : self._hop] + tails).reshape(-1)
+                        self._ola_tail[sid] = yf[-1, self._hop:]
+                        self._in_buf[sid] = self._in_buf[sid][n * self._hop:]
+            return out
 
     def flush(self, sid: int) -> np.ndarray:
         """Drain the final partial window of one stream (at most one hop)."""

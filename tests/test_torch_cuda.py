@@ -1048,7 +1048,7 @@ def test_cuda_stream_graph_equals_eager_and_counts_replays(dev):
 def test_cuda_stream_graph_threads_sharing_an_engine(dev):
     """Two threads that each drive a StreamEnhancer on one engine, hop by
     hop at once, each get their single-threaded output bit for bit (the
-    engine's lock serialises the graph spans; a capture in one thread may
+    engine's lock serialises the graph calls; a capture in one thread may
     overlap the other's frame upload, which thread-local capture allows)."""
     import threading
 
@@ -1191,3 +1191,72 @@ def test_cuda_folded_plane_matches_unfolded(dev, quality):
             assert np.abs(got - ref).max() <= 1e-5
         else:
             assert np.sqrt(np.mean((got - ref) ** 2)) <= 1e-3 * np.sqrt(np.mean(ref ** 2))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_records_its_graph_spans(dev):
+    """On a card the pool's live call records the graph spans: the first
+    call an ``engine.capture`` inside ``engine.replay``, the next a replay
+    alone, each between ``engine.state_in`` and ``engine.state_out``; the
+    byte counters count the frames up and the output back.  Under a
+    profiler the program's spans reach the device's timeline only as
+    annotations, never as operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpdfnet_tpu_torch import MultiStreamEnhancer
+    from dpdfnet_tpu_torch.runtime import telemetry
+
+    eng = _graph_engine(dev)
+    cfg = eng.cfg
+    pool = MultiStreamEnhancer(capacity=2, engine=eng)
+    for _ in range(2):
+        pool.open()
+    rng = np.random.default_rng(25)
+
+    def hop():
+        return {s: (0.1 * rng.normal(size=cfg.hop)).astype(np.float32) for s in range(2)}
+
+    pool.process_many({s: np.zeros(cfg.win_len - cfg.hop, np.float32) for s in range(2)})
+    telemetry.reset()
+    with telemetry.recording():
+        pool.process_many(hop())                # captures the B=2, T=1 graph
+        pool.process_many(hop())                # replays it
+    recs = telemetry.spans()
+    by_id = {s.id: s for s in recs}
+    calls = sorted({s.call for s in recs})
+    assert len(calls) == 2
+    live = {"pool.process_many", "pool.stage", "pool.frame", "engine.process_frames",
+            "engine.upload", "engine.state_in", "engine.replay", "engine.state_out",
+            "engine.fetch", "pool.overlap_add"}
+    first = [s for s in recs if s.call == calls[0]]
+    second = [s for s in recs if s.call == calls[1]]
+    assert {s.name for s in first} == live | {"engine.capture"}
+    assert {s.name for s in second} == live
+    for s in recs:
+        if s.name in ("engine.state_in", "engine.replay", "engine.state_out"):
+            assert by_id[s.parent].name == "engine.process_frames"
+            assert s.card == eng.device.index
+        if s.name == "engine.capture":
+            assert by_id[s.parent].name == "engine.replay"
+    frame_bytes = 2 * cfg.win_len * 4
+    assert telemetry.counters() == {"engine.h2d_bytes": 2 * frame_bytes,
+                                    "engine.d2h_bytes": 2 * frame_bytes}
+
+    telemetry.reset()
+    wav = (0.1 * rng.normal(size=(2, cfg.sample_rate))).astype(np.float32)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pool.process_many(hop())
+        eng.enhance_waveforms(wav)
+        torch.cuda.synchronize()
+    names = set(telemetry.snapshot()["spans"])
+    assert {"engine.enhance_waveforms", "engine.launch", "engine.replay"} <= names
+    cuda = torch.autograd.DeviceType.CUDA
+    mirrors = [ev for ev in prof.events() if ev.device_type == cuda and ev.name in names]
+    assert all(getattr(ev, "is_user_annotation", False) for ev in mirrors), \
+        sorted({ev.name for ev in mirrors})
+    counts = telemetry.counters()
+    S_pad = eng.bucket_len(wav.shape[1])
+    assert counts["engine.h2d_bytes"] == frame_bytes + 2 * S_pad * 4
+    out_bytes = counts["engine.d2h_bytes"] - frame_bytes      # two rows past the input's end
+    assert out_bytes % 8 == 0 and out_bytes >= 2 * wav.shape[1] * 4
+    telemetry.reset()
