@@ -1240,7 +1240,8 @@ def test_cuda_engine_records_its_graph_spans(dev):
             assert by_id[s.parent].name == "engine.replay"
     frame_bytes = 2 * cfg.win_len * 4
     assert telemetry.counters() == {"engine.h2d_bytes": 2 * frame_bytes,
-                                    "engine.d2h_bytes": 2 * frame_bytes}
+                                    "engine.d2h_bytes": 2 * frame_bytes,
+                                    "pool.stage_lengths": 2}
 
     telemetry.reset()
     wav = (0.1 * rng.normal(size=(2, cfg.sample_rate))).astype(np.float32)

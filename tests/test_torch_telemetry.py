@@ -127,7 +127,8 @@ def test_profiler_records_every_cpu_span(pool):
     snap = telemetry.snapshot()
     assert snap["spans"]["engine.upload"]["count"] == 2
     assert all(s.card is None for s in recs if s.name == "engine.upload")
-    assert snap["counters"] == {}               # nothing crosses to a card here
+    # nothing crosses to a card here; the live call staged one chunk length
+    assert snap["counters"] == {"pool.stage_lengths": 1}
 
 
 def test_recording_records_the_same_spans_without_a_profiler(pool, monkeypatch):
@@ -140,6 +141,25 @@ def test_recording_records_the_same_spans_without_a_profiler(pool, monkeypatch):
         _calls(pool)
     assert not telemetry.enabled()
     _check_tree(telemetry.spans())
+
+
+@pytest.mark.parametrize("lengths", [(1, 1, 1), (1, 2, 3), (1, 3, 3)])
+def test_stage_counts_distinct_chunk_lengths(pool, lengths):
+    """``pool.stage_lengths`` counts the distinct chunk lengths a call
+    staged (one write when 1); ``pool.stage`` records once a call,
+    ``pool.frame`` and ``pool.overlap_add`` once per hop bucket."""
+    hop = pool._engine.cfg.hop
+    rng = np.random.default_rng(1)
+    with telemetry.recording():
+        pool.process_many({s: (0.1 * rng.normal(size=k * hop)).astype(np.float32)
+                           for s, k in enumerate(lengths)})
+    snap = telemetry.snapshot()
+    assert snap["counters"] == {"pool.stage_lengths": len(set(lengths))}
+    buckets = len(set(lengths))                 # every slot buffered win - hop before
+    assert {k: snap["spans"][k]["count"] for k in ("pool.process_many", "pool.stage",
+                                                   "pool.frame", "pool.overlap_add")} == \
+        {"pool.process_many": 1, "pool.stage": 1, "pool.frame": buckets,
+         "pool.overlap_add": buckets}
 
 
 def test_snapshot_sums_by_name_and_reads_since(monkeypatch):
