@@ -29,7 +29,8 @@ from dpdfnet_tpu_torch.ops import gru_kernels
 from dpdfnet_tpu_torch.tools import inter_step_ablation as tinter
 from dpdfnet_tpu_torch.tools import intra_step_ablation as tintra
 
-torch.set_num_threads(1)
+import torch_testing  # noqa: F401  (the thread budget)
+
 ATOL = 1e-5
 BF16 = torch.bfloat16
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

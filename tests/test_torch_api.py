@@ -17,6 +17,7 @@ compared with itself (stepped against unstepped, streams by name against
 operations.
 """
 
+import copy
 import os
 from pathlib import Path
 from urllib.error import HTTPError, URLError
@@ -34,22 +35,11 @@ from dpdfnet_tpu_torch import MultiStreamEnhancer, StreamEnhancer, api, audio, z
 from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.utils.serialization import load_params
 
-torch.set_num_threads(1)
+from torch_testing import port_params_np
+
 ATOL = 1e-4
 MODEL = "dpdfnet2"
 SR = 16000
-
-
-def contracted_params_np(name, seed=3):
-    """Random contracted weights as a tree of numpy arrays (the port's
-    ``init_params``, whose tree and shapes are the JAX package's:
-    ``test_torch_package.py``)."""
-    from dpdfnet_tpu_torch.config import get_config
-    from dpdfnet_tpu_torch.models.params import contract_params, init_params
-    from dpdfnet_tpu_torch.utils.tree import tree_map
-
-    p = contract_params(init_params(get_config(name), seed=seed, device="cpu"))
-    return tree_map(lambda _, x: x.numpy(), p)
 
 
 def _clear_caches():
@@ -63,7 +53,7 @@ def model_dir(tmp_path_factory):
     """A model directory holding dpdfnet2's npz, written by the JAX
     package's ``save_params``."""
     d = tmp_path_factory.mktemp("models")
-    save_params(d / f"{MODEL}.params.npz", contracted_params_np(MODEL))
+    save_params(d / f"{MODEL}.params.npz", port_params_np(MODEL))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DPDFNET_TPU_MODEL_DIR", str(d))
         mp.setenv("DPDFNET_TPU_CACHE_DIR", str(d / "cache"))
@@ -314,7 +304,7 @@ def test_pth_checkpoint_is_converted_and_cached(tmp_path, monkeypatch):
     from dpdfnet_tpu_torch.tools.synth_checkpoint import save_checkpoint
     from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-    src = contracted_params_np(MODEL)
+    src = port_params_np(MODEL)
     ckpt = tmp_path / "custom.pth"
     save_checkpoint(ckpt, src, get_config(MODEL))
     resolved = zoo.resolve_model(model="dpdfnet2", checkpoint_path=ckpt)
@@ -358,7 +348,7 @@ def test_save_params_writes_the_jax_format(tmp_path):
     from dpdfnet_tpu_torch.utils.serialization import save_params as port_save
     from dpdfnet_tpu_torch.utils.tree import tree_map
 
-    tree = contracted_params_np(MODEL)
+    tree = copy.deepcopy(port_params_np(MODEL))
     tree["enc"]["emb_gru"]["grus"].append(None)
     save_params(tmp_path / "jax.npz", tree)
     port_save(tmp_path / "port.npz", tree_map(lambda _, x: torch.from_numpy(x), tree))

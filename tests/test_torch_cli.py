@@ -43,9 +43,10 @@ from dpdfnet_tpu_torch.runtime import bench
 from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.stream import StreamEnhancer
 from dpdfnet_tpu_torch.utils.serialization import load_params
-from dpdfnet_tpu_torch.utils.tree import tree_leaves, tree_map
+from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-torch.set_num_threads(1)
+from torch_testing import port_params_np
+
 MODEL = "dpdfnet2"
 SR = 16000
 STEP = 1.0 / 32768.0          # one 16-bit step as read_wav scales it
@@ -63,8 +64,7 @@ def model_dir(tmp_path_factory):
     the port's ``init_params``), written by the JAX package's
     ``save_params``."""
     d = tmp_path_factory.mktemp("models")
-    p = contract_params(init_params(get_config(MODEL), seed=3, device="cpu"))
-    save_params(d / f"{MODEL}.params.npz", tree_map(lambda _, x: x.numpy(), p))
+    save_params(d / f"{MODEL}.params.npz", port_params_np(MODEL))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("DPDFNET_TPU_MODEL_DIR", str(d))
         mp.setenv("DPDFNET_TPU_CACHE_DIR", str(d / "cache"))

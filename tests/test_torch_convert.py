@@ -36,7 +36,7 @@ from dpdfnet_tpu_torch.models.params import contract_params, init_params
 from dpdfnet_tpu_torch.tools import synth_checkpoint
 from dpdfnet_tpu_torch.utils.tree import tree_leaves, tree_map
 
-torch.set_num_threads(1)
+import torch_testing  # noqa: F401  (the thread budget)
 
 TOL = 1e-7
 VARIANT = "dpdfnet2+transpose+group_gru+skip"

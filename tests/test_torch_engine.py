@@ -16,31 +16,24 @@ float32 rounding; the network's own deviation is pinned at 3e-5 by
 
 import numpy as np
 import pytest
-import jax
 import torch
 
 from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 from dpdfnet_tpu.runtime.engine import Engine as JaxEngine
 
 from dpdfnet_tpu_torch.config import get_config
 from dpdfnet_tpu_torch.runtime.engine import Engine, engine_from_quality
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 CONFIGS = ["dpdfnet2", "dpdfnet8_48khz_hr"]
-
-
-def _jax_params_np(name, seed=3):
-    cfg = jax_get_config(name)
-    p = jax_params.contract_params(jax_params.init_params(cfg, seed=seed))
-    return jax.tree_util.tree_map(np.asarray, p)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_engine_enhance_waveforms_matches_jax(name):
     cfg_j, cfg = jax_get_config(name), get_config(name)
-    p_np = _jax_params_np(name)
+    p_np = jax_params_np(name)
     rng = np.random.default_rng(11)
     S = cfg.sample_rate // 2                                     # 0.5 s
     t = np.arange(S) / cfg.sample_rate
@@ -60,7 +53,7 @@ def test_engine_enhance_waveforms_matches_jax(name):
 def test_engine_segments_match_single_span():
     """The segment loop with carried state equals one long forward."""
     cfg = get_config("dpdfnet2")
-    params = params_from_jax(_jax_params_np("dpdfnet2"), device="cpu")
+    params = params_from_jax(jax_params_np("dpdfnet2"), device="cpu")
     rng = np.random.default_rng(12)
     wav = (0.1 * rng.normal(size=(1, 8000))).astype(np.float32)
     one = Engine(cfg, params, device="cpu").enhance_waveforms(wav)
@@ -73,7 +66,7 @@ def test_engine_rejects_unported_tiers():
     an unknown tier or precision raises; the progress path (once unported)
     runs and reports the JAX package's sequence."""
     cfg = get_config("dpdfnet2")
-    params = params_from_jax(_jax_params_np("dpdfnet2"), device="cpu")
+    params = params_from_jax(jax_params_np("dpdfnet2"), device="cpu")
     with pytest.raises(ValueError, match="Unknown quality"):
         engine_from_quality(cfg, params, "ultra", device="cpu")
     with pytest.raises(ValueError, match="precision"):
@@ -95,7 +88,7 @@ def test_engine_unfused_matches_jax_unfused():
     in both packages.  dpdfnet2, two 0.4 s utterances, atol 1e-4 as above."""
     name = "dpdfnet2"
     cfg_j, cfg = jax_get_config(name), get_config(name)
-    p_np = _jax_params_np(name)
+    p_np = jax_params_np(name)
     rng = np.random.default_rng(13)
     wavs = (0.1 * rng.normal(size=(2, 6400))).astype(np.float32)
     ref = JaxEngine(cfg_j, p_np, precision="highest", fuse=False).enhance_waveforms(wavs)

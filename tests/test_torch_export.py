@@ -33,7 +33,6 @@ from torch.library import opcheck
 
 from dpdfnet_tpu import export as jax_export
 from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 from dpdfnet_tpu.models import state as jax_state
 from dpdfnet_tpu.runtime.engine import Engine as JaxEngine
 
@@ -46,21 +45,15 @@ from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.stream import StreamEnhancer
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 ROOT = Path(__file__).resolve().parent.parent
 MODEL = "dpdfnet2"
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_params(name):
-    return jax.tree_util.tree_map(
-        np.asarray, jax_params.contract_params(jax_params.init_params(jax_get_config(name),
-                                                                      seed=3)))
-
-
 @pytest.fixture(scope="module")
 def weights():
-    pj = _jax_params(MODEL)
+    pj = jax_params_np(MODEL)
     return pj, params_from_jax(pj, device="cpu")
 
 

@@ -28,7 +28,8 @@ from dpdfnet_tpu_torch.ops import multiframe as tmf
 from dpdfnet_tpu_torch.ops import stft as tstft
 from dpdfnet_tpu_torch.ops.windows import vorbis_window
 
-torch.set_num_threads(1)
+import torch_testing  # noqa: F401  (the thread budget)
+
 REL = 1e-5
 
 

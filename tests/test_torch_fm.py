@@ -27,7 +27,8 @@ from dpdfnet_tpu_torch.models.fuse import _pack_bidir
 from dpdfnet_tpu_torch.ops import gru_kernels
 from dpdfnet_tpu_torch.ops import nn as tnn
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 ATOL = 1e-5
 BF16 = torch.bfloat16
 FM_ENV = ("DPDFNET_TPU_INTRA_TM", "DPDFNET_TPU_ENTRY_RELAYOUT", "DPDFNET_TPU_H_INGEST",
@@ -275,8 +276,6 @@ def test_fm_forward_spec_matches_jax(monkeypatch):
     from dpdfnet_tpu.config import get_config as jax_get_config
     from dpdfnet_tpu.models.dpdfnet import forward_spec as jax_forward_spec
     from dpdfnet_tpu.models.fuse import fuse_separable, pack_dprnn_bidir
-    from dpdfnet_tpu.models.params import contract_params as jax_contract
-    from dpdfnet_tpu.models.params import init_params as jax_init_params
     from dpdfnet_tpu.models.state import init_state as jax_init_state
     from dpdfnet_tpu_torch.config import get_config
     from dpdfnet_tpu_torch.models import dpdfnet as tmd
@@ -290,12 +289,13 @@ def test_fm_forward_spec_matches_jax(monkeypatch):
     monkeypatch.setenv("DPDFNET_TPU_INTRA_TM", "1")     # the JAX default; off in the port
     name, B, T = "dpdfnet2_48khz_hr", 32, 2
     cfg_j, cfg = jax_get_config(name), get_config(name)
-    p_np = jax.tree_util.tree_map(np.asarray, jax_contract(jax_init_params(cfg_j, seed=3)))
+    p_np = jax_params_np(name)
     spec = (0.3 * np.random.default_rng(6).normal(size=(B, T, cfg.freq_bins, 2))
             ).astype(np.float32)
+    fwd = jax.jit(jax_forward_spec, static_argnums=1)     # one compile, not per op
     with jax.default_matmul_precision("highest"):
-        out_j, st_j, _ = jax_forward_spec(pack_dprnn_bidir(fuse_separable(p_np, cfg_j), cfg_j),
-                                          cfg_j, jnp.asarray(spec), jax_init_state(cfg_j, batch=B))
+        out_j, st_j, _ = fwd(pack_dprnn_bidir(fuse_separable(p_np, cfg_j), cfg_j),
+                             cfg_j, jnp.asarray(spec), jax_init_state(cfg_j, batch=B))
 
     params = prepare_inference_params(params_from_jax(p_np, device="cpu"), cfg)
     layouts = []

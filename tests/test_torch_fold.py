@@ -46,9 +46,9 @@ from dpdfnet_tpu_torch.ops import nn as onn
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-from test_torch_model import _jax_params_np, _jax_reference, _leaves, _state_to_torch
+from test_torch_model import _jax_reference, _leaves, _state_to_torch
+from torch_testing import jax_params_np
 
-torch.set_num_threads(1)
 HR = ["dpdfnet2_48khz_hr", "dpdfnet8_48khz_hr"]
 FLAGSHIP = "dpdfnet8_48khz_hr"
 FOLDED = {"enc": ("erb_conv0_folded", "erb_conv1_folded"),
@@ -67,7 +67,7 @@ def _structure(tree, path=""):
 @pytest.mark.parametrize("name", HR)
 def test_fold_hr_tail_equals_jax_array_for_array(name):
     cfg_j, cfg = jax_get_config(name), get_config(name)
-    fused_j = jax_fuse.fuse_separable(_jax_params_np(name), cfg_j)
+    fused_j = jax_fuse.fuse_separable(jax_params_np(name), cfg_j)
     folded_j = jax_fuse.fold_hr_tail(fused_j, cfg_j)
     folded_t = fuse.fold_hr_tail(params_from_jax(fused_j, device="cpu"), cfg)
     assert _structure(folded_t) == _structure(folded_j)
@@ -91,7 +91,7 @@ def test_fold_hr_tail_is_the_identity_where_jax_folds_nothing(variant):
         src = "dpdfnet2_48khz_hr"
         cfg_j = dataclasses.replace(jax_get_config(src), upsample="transpose")
         cfg = dataclasses.replace(get_config(src), upsample="transpose")
-    p_np = _jax_params_np(src)
+    p_np = jax_params_np(src)
     params = params_from_jax(p_np, device="cpu")
     assert fuse.fold_hr_tail(params, cfg) is params
     assert jax_fuse.fold_hr_tail(p_np, cfg_j) is p_np
@@ -99,17 +99,17 @@ def test_fold_hr_tail_is_the_identity_where_jax_folds_nothing(variant):
 
 def test_fold_hr_tail_raises_on_a_raw_tree():
     name = "dpdfnet2_48khz_hr"
-    params = params_from_jax(_jax_params_np(name), device="cpu")
+    params = params_from_jax(jax_params_np(name), device="cpu")
     with pytest.raises(ValueError, match="fuse_separable"):
         fuse.fold_hr_tail(params, get_config(name))
     with pytest.raises(ValueError, match="fuse_separable"):
-        jax_fuse.fold_hr_tail(_jax_params_np(name), jax_get_config(name))
+        jax_fuse.fold_hr_tail(jax_params_np(name), jax_get_config(name))
 
 
 def test_subpixel_block_fold_matches_jax():
     name = FLAGSHIP
     cfg_j, cfg = jax_get_config(name), get_config(name)
-    folded = jax_fuse.fold_hr_tail(jax_fuse.fuse_separable(_jax_params_np(name), cfg_j), cfg_j)
+    folded = jax_fuse.fold_hr_tail(jax_fuse.fuse_separable(jax_params_np(name), cfg_j), cfg_j)
     p_j = folded["erb_dec"]["convt1_folded"]
     x = np.random.default_rng(11).normal(size=(2, 3, 160, cfg.conv_ch)).astype(np.float32)
     _, kfc = cfg.conv_kernel
@@ -211,7 +211,7 @@ def test_folded_exact_streaming_is_bit_invariant_to_chunking():
 
     name = "dpdfnet2_48khz_hr"
     cfg = get_config(name)
-    eng = Engine(cfg, _folded(params_from_jax(_jax_params_np(name), device="cpu"), cfg),
+    eng = Engine(cfg, _folded(params_from_jax(jax_params_np(name), device="cpu"), cfg),
                  precision="highest", fuse=False, device="cpu")
     assert "erb_conv0_folded" in eng.params["enc"]
     f = (0.1 * np.random.default_rng(5).normal(size=(2, 6, eng.cfg.win_len))).astype(np.float32)

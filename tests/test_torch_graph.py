@@ -18,7 +18,7 @@ from dpdfnet_tpu_torch.runtime.engine import Engine, _StateSlot, stream_graph_ke
 from dpdfnet_tpu_torch.runtime.profile import kernel_launches
 from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-torch.set_num_threads(1)
+import torch_testing  # noqa: F401  (the thread budget)
 
 # (variable, value, kind, T, precision) of each switch read per call
 SWITCHES = {

@@ -27,7 +27,8 @@ from dpdfnet_tpu_torch.models.fuse import _pack_bidir
 from dpdfnet_tpu_torch.ops import gru_kernels
 from dpdfnet_tpu_torch.ops import nn as tnn
 
-torch.set_num_threads(1)
+import torch_testing  # noqa: F401  (the thread budget)
+
 ATOL = 1e-5
 
 
@@ -253,9 +254,9 @@ def test_stacked_forward_spec_matches_jax(monkeypatch):
 
     fused_j = pack_dprnn_bidir(fuse_separable(p_np, cfg_j), cfg_j)
     assert "dprnn_df_stacked" in fused_j["enc"]
+    fwd = jax.jit(jax_forward_spec, static_argnums=1)     # one compile, not per op
     with jax.default_matmul_precision("highest"):
-        out_j, st_j, _ = jax_forward_spec(fused_j, cfg_j, jnp.asarray(spec),
-                                          jax_init_state(cfg_j, batch=2))
+        out_j, st_j, _ = fwd(fused_j, cfg_j, jnp.asarray(spec), jax_init_state(cfg_j, batch=2))
 
     params = prepare_inference_params(params_from_jax(p_np, device="cpu"), cfg)
     assert "dprnn_erb_stacked" in params["enc"] and "dprnn_df_stacked" in params["enc"]

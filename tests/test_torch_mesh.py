@@ -33,7 +33,6 @@ import torch
 
 from dpdfnet_tpu import train as jax_train
 from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 from dpdfnet_tpu.models.state import init_state as jax_init_state
 from dpdfnet_tpu.parallel import mesh as jax_pmesh
 from dpdfnet_tpu.runtime import engine as jax_engine
@@ -49,7 +48,7 @@ from dpdfnet_tpu_torch.runtime.engine import Engine, engine_from_quality
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
 
 MODEL = "dpdfnet2"
 N_DEV = 8
@@ -64,12 +63,6 @@ T_STREAM = 4             # streaming cases: frames per stream
 
 
 @functools.lru_cache(maxsize=None)
-def _params_np():
-    p = jax_params.contract_params(jax_params.init_params(jax_get_config(MODEL), seed=3))
-    return jax.tree_util.tree_map(np.asarray, p)
-
-
-@functools.lru_cache(maxsize=None)
 def _meshes():
     return jax_pmesh.make_mesh(jax.devices()[:N_DEV]), pmesh.make_mesh(["cpu"] * N_DEV)
 
@@ -80,7 +73,7 @@ def _engines(quality):
     set per tier shared by the offline and streaming cases; the offline
     bucket is the cases' ``S_OFF`` samples."""
     jm, tm = _meshes()
-    cfg, p = get_config(MODEL), _params_np()
+    cfg, p = get_config(MODEL), jax_params_np(MODEL)
     bucket_s = S_OFF_HOPS * cfg.hop / cfg.sample_rate
     return (jax_engine.engine_from_quality(jax_get_config(MODEL), p, quality, mesh=jm,
                                            bucket_s=bucket_s),
@@ -154,7 +147,7 @@ def test_mesh_offline_pads_and_matches_jax_and_single_device():
 
 def test_mesh_of_one_device_is_the_engine_without_a_mesh():
     cfg = get_config(MODEL)
-    p = params_from_jax(_params_np(), device="cpu")
+    p = params_from_jax(jax_params_np(MODEL), device="cpu")
     e1 = Engine(cfg, p, device="cpu")
     em = Engine(cfg, p, mesh=pmesh.make_mesh(["cpu"]))
     wav = speechlike_test_signal(0.1, cfg.sample_rate, seed=2, batch=3)
@@ -174,7 +167,7 @@ def test_engine_is_freed_when_dropped_without_the_cyclic_collector():
     another engine's capture and so invalidate that capture, is off
     inside a capture."""
     cfg = get_config(MODEL)
-    p = params_from_jax(_params_np(), device="cpu")
+    p = params_from_jax(jax_params_np(MODEL), device="cpu")
     was = gc.isenabled()
     gc.disable()
     try:
@@ -249,7 +242,7 @@ def test_sharded_enhance_and_stream_step_match_jax():
     by the params object."""
     cfg = get_config(MODEL)
     jm, tm = _meshes()
-    p_np = _params_np()
+    p_np = jax_params_np(MODEL)
     p = params_from_jax(p_np, device="cpu")
     S = cfg.hop * 8
     wav = speechlike_test_signal(S / cfg.sample_rate, cfg.sample_rate, seed=8, batch=N_DEV)
@@ -297,7 +290,7 @@ def test_mesh_train_step_matches_the_step_without_a_mesh_and_jax():
     clean = (0.2 * np.sin(2 * np.pi * 300 * np.arange(n) / cfg.sample_rate)
              * (1 + np.arange(B))[:, None] / B).astype(np.float32)
     noisy = (clean + 0.1 * rng.normal(size=clean.shape)).astype(np.float32)
-    p_np = _params_np()
+    p_np = jax_params_np(MODEL)
 
     jm = jax_pmesh.make_mesh(jax.devices()[:B])
     opt = optax.sgd(lr)

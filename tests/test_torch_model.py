@@ -28,7 +28,6 @@ import jax.numpy as jnp
 import torch
 
 from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 from dpdfnet_tpu.models import dpdfnet as jax_dpdfnet
 from dpdfnet_tpu.models.dpdfnet import forward_spec as jax_forward_spec
 from dpdfnet_tpu.models.state import init_state as jax_init_state
@@ -41,14 +40,9 @@ from dpdfnet_tpu_torch.models.state import init_state
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 CONFIGS = ["dpdfnet2", "dpdfnet8_48khz_hr"]
-
-
-def _jax_params_np(name, seed=3):
-    cfg = jax_get_config(name)
-    p = jax_params.contract_params(jax_params.init_params(cfg, seed=seed))
-    return jax.tree_util.tree_map(np.asarray, p)
 
 
 def _leaves(tree):
@@ -65,7 +59,7 @@ def _jax_reference(name):
     """One JAX run per config: a T=1 frame from the fresh state, then T=6
     frames from the state it leaves (a carried state that is not fresh)."""
     cfg = jax_get_config(name)
-    p_np = _jax_params_np(name)
+    p_np = jax_params_np(name)
     rng = np.random.default_rng(7)
     B = 2
     spec1 = (rng.normal(size=(B, 1, cfg.freq_bins, 2)) * 0.05).astype(np.float32)

@@ -24,12 +24,10 @@ import torch
 from dpdfnet_tpu.parallel import multihost as jax_multihost
 
 from dpdfnet_tpu_torch import api, audio_io, cli
-from dpdfnet_tpu_torch.config import get_config
-from dpdfnet_tpu_torch.models.params import contract_params, init_params
 from dpdfnet_tpu_torch.parallel import multihost
 from dpdfnet_tpu_torch.utils.serialization import save_params
 
-torch.set_num_threads(1)
+from torch_testing import port_params_np
 
 REPO = Path(__file__).resolve().parent.parent
 MODEL = "dpdfnet2"
@@ -145,8 +143,7 @@ def test_initialize_in_two_gloo_processes(tmp_path):
 def model_dir(tmp_path, monkeypatch):
     d = tmp_path / "models"
     d.mkdir()
-    p = contract_params(init_params(get_config(MODEL), seed=3, device="cpu"))
-    save_params(d / f"{MODEL}.params.npz", p)
+    save_params(d / f"{MODEL}.params.npz", port_params_np(MODEL))
     monkeypatch.setenv("DPDFNET_TPU_MODEL_DIR", str(d))
     monkeypatch.setenv("DPDFNET_TPU_CACHE_DIR", str(d / "cache"))
     monkeypatch.setenv("NO_BANNER", "1")

@@ -26,7 +26,6 @@ import shutil
 import numpy as np
 import pytest
 import jax
-import torch
 
 from dpdfnet_tpu import native as jax_native
 from dpdfnet_tpu.config import get_config as jax_get_config
@@ -41,7 +40,7 @@ from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.utils import compile_cache
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
 
 PAIRS = [(3, 1), (1, 3), (160, 441), (441, 160)]
 
@@ -135,9 +134,7 @@ def test_wav_io_matches_jax_and_numpy(libs, tmp_path, monkeypatch, channels):
 
 def test_stream_enhancer_native_ola_is_bit_identical(libs, monkeypatch):
     cfg = get_config("dpdfnet2")
-    p = jax_params.contract_params(jax_params.init_params(jax_get_config("dpdfnet2"), seed=3))
-    eng = Engine(cfg, params_from_jax(jax.tree_util.tree_map(np.asarray, p), device="cpu"),
-                 device="cpu")
+    eng = Engine(cfg, params_from_jax(jax_params_np("dpdfnet2"), device="cpu"), device="cpu")
     x = speechlike_test_signal(0.2, cfg.sample_rate, seed=4)[0]
     chunks = np.split(x, [333, 1500, 1501])
     outs = []

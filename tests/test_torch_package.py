@@ -31,7 +31,8 @@ from dpdfnet_tpu_torch.ops.windows import vorbis_window
 from dpdfnet_tpu_torch.utils.serialization import load_params, params_from_jax
 from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROPS = ("win_len", "freq_bins", "frame_ms", "wnorm", "erb_in_bins", "erb_fstrides",
           "erb_widths", "dprnn_erb_feat", "dprnn_df_feat", "emb_out_dim",
@@ -138,8 +139,7 @@ def test_forward_spec_variants_match_jax(variant):
     kw = _VARIANTS[variant]
     cj = dataclasses.replace(jax_config.get_config("dpdfnet2"), **kw)
     ct = dataclasses.replace(config.get_config("dpdfnet2"), **kw)
-    pj = jax.tree_util.tree_map(
-        np.asarray, jax_params.contract_params(jax_params.init_params(cj, seed=5)))
+    pj = jax_params_np("dpdfnet2", seed=5, **kw)
     rng = np.random.default_rng(9)
     spec = (rng.normal(size=(2, 5, ct.freq_bins, 2)) * 0.05).astype(np.float32)
     atten = np.array([6.0, 20.0], np.float32) if ct.post_filter else None

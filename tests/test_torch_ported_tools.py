@@ -26,7 +26,8 @@ from dpdfnet_tpu_torch.runtime import bench
 from dpdfnet_tpu_torch.examples import batch_enhance, finetune, serving_pool
 from dpdfnet_tpu_torch.tools import bench_sweep, resampler_delta, stream_sweep, tier_accuracy
 
-torch.set_num_threads(1)
+import torch_testing  # noqa: F401  (the thread budget)
+
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["dpdfnet_tpu_torch.tools.tier_accuracy", "dpdfnet_tpu_torch.tools.bench_sweep",
            "dpdfnet_tpu_torch.tools.stream_sweep", "dpdfnet_tpu_torch.tools.resampler_delta",

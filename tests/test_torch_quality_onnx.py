@@ -38,7 +38,6 @@ import sys
 import tomllib
 from pathlib import Path
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -47,8 +46,6 @@ from dpdfnet_tpu import api as jax_api
 from dpdfnet_tpu import cli as jax_cli
 from dpdfnet_tpu import metrics as jax_metrics
 from dpdfnet_tpu import quality as jax_quality
-from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 
 from dpdfnet_tpu_torch import api, cli, metrics, native, quality
 from dpdfnet_tpu_torch.audio_io import write_wav
@@ -60,7 +57,8 @@ from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.tools import validate_quality
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "dpdfnet_tpu_torch"
 
@@ -165,10 +163,7 @@ def test_reference_pipeline_matches_jax_on_a_passthrough_session(monkeypatch, mo
 
 @functools.lru_cache(maxsize=None)
 def _dpdfnet2():
-    cfg = jax_get_config("dpdfnet2")
-    pj = jax.tree_util.tree_map(
-        np.asarray, jax_params.contract_params(jax_params.init_params(cfg, seed=3)))
-    return params_from_jax(pj, device="cpu")
+    return params_from_jax(jax_params_np("dpdfnet2"), device="cpu")
 
 
 def test_reference_pipeline_on_the_exported_step_reproduces_the_engine(monkeypatch):

@@ -14,11 +14,9 @@ import functools
 
 import numpy as np
 import pytest
-import jax
 import torch
 
 from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 from dpdfnet_tpu.runtime.engine import Engine as JaxEngine
 from dpdfnet_tpu.serving import MultiStreamEnhancer as JaxMultiStreamEnhancer
 
@@ -30,15 +28,13 @@ from dpdfnet_tpu_torch.stream import StreamEnhancer
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 from dpdfnet_tpu_torch.utils.tree import tree_map, tree_map2
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
 
 
 @functools.lru_cache(maxsize=None)
 def _engines():
-    cfg_j = jax_get_config("dpdfnet2")
-    p = jax.tree_util.tree_map(
-        np.asarray, jax_params.contract_params(jax_params.init_params(cfg_j, seed=3)))
-    return (JaxEngine(cfg_j, p, precision="highest"),
+    p = jax_params_np("dpdfnet2")
+    return (JaxEngine(jax_get_config("dpdfnet2"), p, precision="highest"),
             Engine(get_config("dpdfnet2"), params_from_jax(p, device="cpu"),
                    precision="highest", device="cpu"))
 

@@ -17,11 +17,9 @@ import functools
 
 import numpy as np
 import pytest
-import jax
 import torch
 
 from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 from dpdfnet_tpu.models import state as jax_state
 from dpdfnet_tpu.runtime.engine import Engine as JaxEngine
 from dpdfnet_tpu.stream import StreamEnhancer as JaxStreamEnhancer
@@ -32,17 +30,16 @@ from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.stream import StreamEnhancer
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 ATOL = 1e-4
 
 
 @functools.lru_cache(maxsize=None)
 def _engines(name):
     """(JAX engine, port engine) for one config, the same weights."""
-    cfg_j = jax_get_config(name)
-    p = jax.tree_util.tree_map(
-        np.asarray, jax_params.contract_params(jax_params.init_params(cfg_j, seed=3)))
-    return (JaxEngine(cfg_j, p, precision="highest"),
+    p = jax_params_np(name)
+    return (JaxEngine(jax_get_config(name), p, precision="highest"),
             Engine(get_config(name), params_from_jax(p, device="cpu"),
                    precision="highest", device="cpu"))
 

@@ -29,7 +29,7 @@ from dpdfnet_tpu_torch.runtime import telemetry
 from dpdfnet_tpu_torch.runtime.engine import Engine
 from dpdfnet_tpu_torch.serving import MultiStreamEnhancer
 
-torch.set_num_threads(1)
+import torch_testing  # noqa: F401  (the thread budget)
 
 ROOT = Path(__file__).resolve().parents[1]
 # each reader of the benchmark, with the calls whose spans it reads

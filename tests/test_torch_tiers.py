@@ -1,4 +1,6 @@
-"""The port's ``fast`` and ``turbo`` quality tiers against the JAX package's.
+"""The port's ``fast`` and ``turbo`` quality tiers against the JAX package's:
+offline waveforms, ``forward_spec`` and the tiers' helpers here, the
+streaming cases in ``test_torch_tiers_stream.py``.
 
 Weights: the JAX package's ``init_params`` + ``contract_params``, carried
 across with ``params_from_jax``; inputs from numpy seeds (the speech-shaped
@@ -49,7 +51,6 @@ import jax.numpy as jnp
 import torch
 
 from dpdfnet_tpu.config import get_config as jax_get_config
-from dpdfnet_tpu.models import params as jax_params
 from dpdfnet_tpu.runtime import engine as jax_engine
 
 from dpdfnet_tpu_torch.config import get_config
@@ -59,10 +60,10 @@ from dpdfnet_tpu_torch.runtime.engine import Engine, engine_from_quality
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-torch.set_num_threads(1)
+from torch_testing import jax_params_np
+
 ATOL = 2e-6
 REL_RMS = 3e-3
-STATE_REL_RMS = 0.1
 CASES = [("dpdfnet2", "fast"), ("dpdfnet2", "turbo"),
          ("dpdfnet8_48khz_hr", "fast"), ("dpdfnet8_48khz_hr", "turbo")]
 
@@ -82,16 +83,9 @@ def _assert_matches_jax(got, ref):
 
 
 @functools.lru_cache(maxsize=None)
-def _params_np(name):
-    cfg = jax_get_config(name)
-    p = jax_params.contract_params(jax_params.init_params(cfg, seed=3))
-    return jax.tree_util.tree_map(np.asarray, p)
-
-
-@functools.lru_cache(maxsize=None)
 def _engines(name, quality):
     """(JAX engine, port engine) of one tier, the same weights."""
-    p = _params_np(name)
+    p = jax_params_np(name)
     return (jax_engine.engine_from_quality(jax_get_config(name), p, quality),
             engine_from_quality(get_config(name), params_from_jax(p, device="cpu"),
                                 quality, device="cpu"))
@@ -111,35 +105,6 @@ def test_enhance_waveforms_matches_jax_tier(name, quality):
     got = t.enhance_waveforms(wavs, lengths=lengths)
     assert got.dtype == np.float32 and np.isfinite(got).all()
     _assert_matches_jax(got, ref)
-
-
-@pytest.mark.parametrize("name,quality,mode", [
-    ("dpdfnet2", "fast", "exact"), ("dpdfnet2", "turbo", "exact"),
-    ("dpdfnet2", "turbo", "throughput"), ("dpdfnet8_48khz_hr", "turbo", "exact")])
-def test_process_frames_matches_jax_tier(name, quality, mode):
-    """Two calls (5 frames, then 3 from the carried state) on each side,
-    over frames cut from a speech-shaped signal; the outputs and the state
-    carried out of the second call (see the module notes)."""
-    j, t = _engines(name, quality)
-    cfg = get_config(name)
-    wav = speechlike_test_signal(9 * cfg.hop / cfg.sample_rate, cfg.sample_rate, seed=2, batch=2)
-    frames = wav[:, np.arange(8)[:, None] * cfg.hop + np.arange(cfg.win_len)[None, :]]
-    outs, states = [], []
-    for eng in (j, t):
-        st = eng.init_stream_state(batch=2)
-        y1, st = eng.process_frames(frames[:, :5], st, mode=mode)
-        y2, st = eng.process_frames(frames[:, 5:], st, mode=mode)
-        outs.append(np.concatenate([y1, y2], axis=1))
-        states.append(st)
-    assert np.isfinite(outs[1]).all()
-    _assert_matches_jax(outs[1], outs[0])
-    ref = dict(tree_leaves(states[0]))
-    got = dict(tree_leaves(states[1]))
-    assert sorted(got) == sorted(ref)
-    for k, v in got.items():
-        assert str(v.dtype).replace("torch.", "") == str(jnp.dtype(ref[k].dtype)), k
-        rel = _rel_rms(v.float().numpy(), np.asarray(ref[k]).astype(np.float32))
-        assert rel <= STATE_REL_RMS, f"{k}: rel_rms {rel:.3e} > {STATE_REL_RMS}"
 
 
 @pytest.mark.parametrize("f32h", ["1", "0"])
@@ -163,7 +128,8 @@ def test_turbo_state_leaf_dtypes_match_jax(monkeypatch, f32h):
     assert dtypes(st_t, lambda d: str(d).replace("torch.", "")) == want
     assert want["dprnn_df/0"] == ("float32" if f32h == "1" else "bfloat16")
     assert want["df_spec_tail"] == "bfloat16"
-    _, st_j, _ = jax_forward_spec(j.params, cfg, jnp.asarray(spec, jnp.bfloat16), st_j)
+    fwd = jax.jit(jax_forward_spec, static_argnums=1)     # one compile, not per op
+    _, st_j, _ = fwd(j.params, cfg, jnp.asarray(spec, jnp.bfloat16), st_j)
     with torch.no_grad():
         _, st_t, _ = forward_spec(t.params, cfg, torch.from_numpy(spec).to(torch.bfloat16),
                                   st_t, precision="default")
@@ -189,13 +155,13 @@ def test_v2_forward_spec_fast_matches_jax(monkeypatch):
         monkeypatch.setenv(k, v)
     name = "dpdfnet2"
     cfg_j, cfg = jax_get_config(name), get_config(name)
-    p_np = _params_np(name)
+    p_np = jax_params_np(name)
     spec = (0.3 * np.random.default_rng(4).normal(size=(2, 6, cfg.freq_bins, 2))).astype(np.float32)
     fused_j = pack_dprnn_bidir(fuse_separable(p_np, cfg_j), cfg_j)
     assert "whfc" in fused_j["enc"]["dprnn_df"][0]["inter"]
+    fwd = jax.jit(jax_forward_spec, static_argnums=1)     # one compile, not per op
     with jax.default_matmul_precision("default"):
-        out_j, st_j, _ = jax_forward_spec(fused_j, cfg_j, jnp.asarray(spec),
-                                          jax_init_state(cfg_j, batch=2))
+        out_j, st_j, _ = fwd(fused_j, cfg_j, jnp.asarray(spec), jax_init_state(cfg_j, batch=2))
 
     params = prepare_inference_params(params_from_jax(p_np, device="cpu"), cfg)
     blk = params["enc"]["dprnn_df"][0]
@@ -217,74 +183,6 @@ def test_v2_forward_spec_fast_matches_jax(monkeypatch):
         np.testing.assert_allclose(v.numpy(), lj[k], atol=2e-3, err_msg=k)
 
 
-def test_turbo_exact_streaming_is_bit_invariant_to_chunking():
-    _, t = _engines("dpdfnet2", "turbo")
-    frames = (0.05 * np.random.default_rng(5).normal(size=(2, 7, t.cfg.win_len))).astype(np.float32)
-    outs = []
-    for cuts in ([7], [1] * 7, [3, 4]):
-        st, ys, pos = t.init_stream_state(batch=2), [], 0
-        for n in cuts:
-            y, st = t.process_frames(frames[:, pos:pos + n], st)
-            ys.append(y)
-            pos += n
-        outs.append(np.concatenate(ys, axis=1))
-    for y in outs[1:]:
-        np.testing.assert_array_equal(y, outs[0])
-
-
-def test_turbo_stream_enhancer_save_load_is_bit_exact():
-    """A ``turbo`` stream resumed from ``save_state`` continues bit-exactly,
-    with every state leaf back at its live dtype."""
-    from dpdfnet_tpu_torch.stream import StreamEnhancer
-
-    _, t = _engines("dpdfnet2", "turbo")
-    x = speechlike_test_signal(0.25, t.cfg.sample_rate, seed=6)[0]
-    se = StreamEnhancer(engine=t)
-    se.process(x[:1500])
-    snap = se.save_state()
-    live = {k: v.dtype for k, v in tree_leaves(se._state)}
-    a = se.process(x[1500:])
-    se2 = StreamEnhancer(engine=t)
-    se2.load_state(snap)
-    assert {k: v.dtype for k, v in tree_leaves(se2._state)} == live
-    assert live["dprnn_df/0"] == torch.float32 and live["enc_gru/0"] == torch.bfloat16
-    np.testing.assert_array_equal(se2.process(x[1500:]), a)
-
-
-def test_turbo_pool_slots_match_lone_streams():
-    """An 8-slot ``MultiStreamEnhancer`` on a ``turbo`` engine, mixed
-    cadences and a slot reset mid-way (fresh slots come from the engine at
-    its dtypes): each slot's output matches a lone ``StreamEnhancer``'s
-    within 1e-7 (see the module notes)."""
-    from dpdfnet_tpu_torch.serving import MultiStreamEnhancer
-    from dpdfnet_tpu_torch.stream import StreamEnhancer
-
-    _, t = _engines("dpdfnet2", "turbo")
-    hop = t.cfg.hop
-    xs = speechlike_test_signal(0.12, t.cfg.sample_rate, seed=7, batch=8)
-    pool = MultiStreamEnhancer(capacity=8, engine=t)
-    sids = [pool.open() for _ in range(8)]
-    cad = [hop, 2 * hop, 3 * hop + 7, 300, 5 * hop, hop // 2, 999, 4 * hop]
-    outs = {s: [] for s in sids}
-    pos = {s: 0 for s in sids}
-    pool.process(3, xs[3][:500])
-    pool.reset(3)
-    while any(pos[s] < xs.shape[1] for s in sids):
-        feed = {s: xs[s][pos[s]:pos[s] + cad[s]] for s in sids if pos[s] < xs.shape[1]}
-        for s in feed:
-            pos[s] += cad[s]
-        for s, y in pool.process_many(feed).items():
-            outs[s].append(y)
-    assert {str(v.dtype) for _, v in tree_leaves(pool._state)} == {"torch.bfloat16",
-                                                                    "torch.float32"}
-    for s in sids:
-        lone = StreamEnhancer(engine=t)
-        ref = np.concatenate([lone.process(xs[s]), lone.flush()])
-        got = np.concatenate(outs[s] + [pool.flush(s)])
-        assert got.shape == ref.shape
-        np.testing.assert_allclose(got, ref, atol=1e-7)
-
-
 def test_highest_engine_after_fast_keeps_tf32_off(monkeypatch):
     """The ``fast`` tier turns TF32 on only inside its own calls: a
     ``highest`` engine built and run after it sees TF32 off, and the
@@ -302,7 +200,7 @@ def test_highest_engine_after_fast_keeps_tf32_off(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     cfg = get_config("dpdfnet2")
-    params = params_from_jax(_params_np("dpdfnet2"), device="cpu")
+    params = params_from_jax(jax_params_np("dpdfnet2"), device="cpu")
     wav = speechlike_test_signal(0.05, cfg.sample_rate)
     engine_from_quality(cfg, params, "fast", device="cpu").enhance_waveforms(wav)
     assert seen and all(s == (True, True) for s in seen)
@@ -326,7 +224,7 @@ def test_quality_helpers():
 
     np.testing.assert_array_equal(speechlike_test_signal(0.05, 16000, seed=4, batch=2),
                                   jax_signal(0.05, 16000, seed=4, batch=2))
-    params = params_from_jax(_params_np("dpdfnet2"), device="cpu")
+    params = params_from_jax(jax_params_np("dpdfnet2"), device="cpu")
     # 0.4 s: STOI, one of the columns, needs 384 ms of speech
     dev = tier_deviation("dpdfnet2", seconds=0.4, batch=1, params=params, contract=None,
                          device="cpu")

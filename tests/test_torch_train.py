@@ -44,13 +44,14 @@ from dpdfnet_tpu.ops.windows import vorbis_window
 
 from dpdfnet_tpu_torch import train
 from dpdfnet_tpu_torch.config import get_config
-from dpdfnet_tpu_torch.models.params import contract_params, count_params, init_params
+from dpdfnet_tpu_torch.models.params import count_params
 from dpdfnet_tpu_torch.ops import gru_kernels
 from dpdfnet_tpu_torch.ops import stft as tstft
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
-from dpdfnet_tpu_torch.utils.tree import tree_leaves, tree_map
+from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-torch.set_num_threads(1)
+from torch_testing import port_params_np
+
 LOSS_REL = 1e-5
 GRAD_REL = 1e-4
 ADAM_REL = 1e-4
@@ -65,13 +66,6 @@ def _wavs(name, seed=0):
              ).astype(np.float32)[None]
     noisy = clean + 0.1 * rng.normal(size=clean.shape).astype(np.float32)
     return noisy, clean
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_params(name):
-    """Contracted random weights as a tree of numpy arrays."""
-    p = contract_params(init_params(get_config(name), seed=0, device="cpu"))
-    return tree_map(lambda _, x: x.numpy(), p)
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,7 +135,7 @@ def test_losses_match_jax():
 
 @pytest.mark.parametrize("name", ["dpdfnet2", "dpdfnet8_48khz_hr"])
 def test_enhancement_loss_and_every_gradient_match_jax(name):
-    pj = _jax_params(name)
+    pj = port_params_np(name, seed=0)
     jloss, jaux, jgrads = _jax_loss_and_grads(name, pj)
     p = params_from_jax(pj, device="cpu")
     leaves = [(k, x.requires_grad_(True)) for k, x in tree_leaves(p)]
@@ -177,7 +171,7 @@ def test_adam_steps_match_optax_and_lower_the_loss():
         updates, state = opt.update(jax_train._freeze_buffers(grads), state, params)
         return optax.apply_updates(params, jax_train._freeze_buffers(updates)), state
 
-    pj = jax.tree_util.tree_map(jnp.asarray, _jax_params(name))
+    pj = jax.tree_util.tree_map(jnp.asarray, port_params_np(name, seed=0))
     state = opt.init(pj)
     jax_losses = []
     for _ in range(3):
@@ -185,7 +179,7 @@ def test_adam_steps_match_optax_and_lower_the_loss():
         pj, state = update(grads, state, pj)
         jax_losses.append(loss)
     # the port
-    p = params_from_jax(_jax_params(name), device="cpu")
+    p = params_from_jax(port_params_np(name, seed=0), device="cpu")
     fb = p["erb_fb"].clone()
     step = train.make_train_step(cfg, torch.optim.Adam(train.trainable_parameters(p), lr=1e-3))
     losses = [float(step(p, torch.from_numpy(noisy), torch.from_numpy(clean))[0])
@@ -200,7 +194,7 @@ def test_adamw_leaves_the_filterbanks_bit_unchanged():
     name = "dpdfnet2"
     cfg = get_config(name)
     noisy, clean = _wavs(name)
-    p = params_from_jax(_jax_params(name), device="cpu")
+    p = params_from_jax(port_params_np(name, seed=0), device="cpu")
     before = {k: x.clone() for k, x in tree_leaves(p)}
     trainable = train.trainable_parameters(p)
     assert sum(x.numel() for x in trainable) == count_params(p)
@@ -216,7 +210,7 @@ def test_adamw_leaves_the_filterbanks_bit_unchanged():
 
 def test_train_step_rejects_a_trained_filterbank_and_a_mesh():
     cfg = get_config("dpdfnet2")
-    p = params_from_jax(_jax_params("dpdfnet2"), device="cpu")
+    p = params_from_jax(port_params_np("dpdfnet2", seed=0), device="cpu")
     opt = torch.optim.SGD([x.requires_grad_(True) for _, x in tree_leaves(p)], lr=1e-3)
     noisy, clean = _wavs("dpdfnet2")
     with pytest.raises(ValueError, match="erb_fb"):
@@ -224,7 +218,7 @@ def test_train_step_rejects_a_trained_filterbank_and_a_mesh():
     # a batch the mesh cannot split raises, as the JAX step's in_shardings do
     from dpdfnet_tpu_torch.parallel.mesh import make_mesh
 
-    p = params_from_jax(_jax_params("dpdfnet2"), device="cpu")
+    p = params_from_jax(port_params_np("dpdfnet2", seed=0), device="cpu")
     opt = torch.optim.SGD(train.trainable_parameters(p), lr=1e-3)
     wav3 = torch.from_numpy(np.tile(noisy, (3, 1)))
     with pytest.raises(ValueError, match="multiple of the mesh size"):
