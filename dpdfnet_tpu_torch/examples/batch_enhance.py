@@ -6,8 +6,8 @@ repository's ``examples/batch_enhance.py``).
         [--attn-limit-db DB] [--random-weights] [--device cuda|cpu]
 
 Reads every supported audio file, resamples it to the model rate, sorts
-the utterances by length so each batch shares a length bucket, and runs
-them through ``Engine.enhance_waveforms`` with their ``lengths``; writes
+the utterances by length so each batch pads little, and runs them
+through ``Engine.enhance_waveforms`` with their ``lengths``; writes
 one 16-bit wav per input.  The weights come from the zoo by model name,
 or are random (``init_params``, seed 0) with ``--random-weights``.
 """

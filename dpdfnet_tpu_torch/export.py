@@ -182,13 +182,13 @@ def export_stream(params, cfg: ModelConfig, out_path, *, batch: int = 1,
 
 def export_offline(params, cfg: ModelConfig, out_path, *, batch: int, seconds: float,
                    precision: str = "high", device: DeviceLike = None) -> Path:
-    """Export the whole-utterance pipeline at ``batch`` x ``int(seconds *
+    """Export the whole-utterance pipeline at ``batch`` x ``round(seconds *
     sample_rate)`` samples: ``(wav, alpha) -> enhanced``, the engine's
     ``_offline`` (pad, STFT, the segments, blend, iSTFT, alignment; no
     bucketing, so the input is as long as ``Engine.bucket_len`` pads it)."""
     out_path = Path(out_path)
     engine = Engine(cfg, params, precision=precision, device=device)
-    S = int(seconds * cfg.sample_rate)
+    S = int(round(seconds * cfg.sample_rate))
     wav = torch.zeros((batch, S), device=engine.device)
     # the iSTFT divisor is held on the device before the trace reads it
     engine._window_sumsquare(engine._front(wav[:1]).shape[1])

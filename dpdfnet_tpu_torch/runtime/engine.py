@@ -10,8 +10,13 @@ The offline pipeline runs on the engine's device:
 5. iSTFT GEMM, then the ``2*win_len`` alignment (2-frame lookahead +
    2-frame DF delay).
 
-Utterance lengths are bucketed on a geometric ladder so a corpus of varied
-lengths sees a handful of shapes.
+A batch is padded to the least length that clears its longest row by
+``win_len`` and whose frames fill whole segments (``Engine.bucket_len``).
+A row-segment runs only when a valid output sample of that row depends on
+it: given ``lengths``, each row runs through the segments its own length
+needs (rows ordered longest first, segment ``i`` over the rows that reach
+it), and the frames it skips feed only samples past its length, which the
+output zeroes.
 
 Quality tiers (``QUALITY_TIERS``, the JAX package's ``{name: (precision,
 compute dtype)}``) on the card:
@@ -299,14 +304,24 @@ class Engine:
         return (self,) + self._others
 
     def bucket_len(self, S: int) -> int:
-        """Padded length for ``S`` samples: x1.5 geometric ladder of
-        ``bucket_s`` multiples, clearing ``S`` by at least ``win_len`` (the
-        front end pads win_len, the back end drops 2*win_len)."""
-        need = max(S + self.cfg.win_len, 1)
-        S_pad = self.bucket_samples
-        while S_pad < need:
-            S_pad = -(-(S_pad * 3 // 2) // self.bucket_samples) * self.bucket_samples
-        return S_pad
+        """Padded length for ``S`` samples: the least length, and no less
+        than ``bucket_s``, that clears ``S`` by at least ``win_len`` (the
+        front end pads win_len, the back end drops 2*win_len) and whose
+        frames fill whole segments of ``seg_frames``: ``k * seg_frames *
+        hop - hop - win_len`` samples make ``k * seg_frames`` frames.  The
+        samples before ``S`` depend on those frames alone (the model is
+        causal over time), so it is also the length a row of ``S`` valid
+        samples needs in a longer batch."""
+        cfg = self.cfg
+        return (int(self._bucket_segments(S)) * self.seg_frames * cfg.hop
+                - cfg.hop - cfg.win_len)
+
+    def _bucket_segments(self, S):
+        """The segments :meth:`bucket_len` pads ``S`` samples to (an int, or
+        an int array of lengths)."""
+        cfg = self.cfg
+        need = np.maximum(np.asarray(S) + cfg.win_len, self.bucket_samples)
+        return -(-(need + cfg.hop + cfg.win_len) // (self.seg_frames * cfg.hop))
 
     def _front(self, wav: torch.Tensor) -> torch.Tensor:
         """Pad ``win_len`` zeros, STFT as one DFT GEMM, wnorm scale:
@@ -348,8 +363,9 @@ class Engine:
                  progress_callback: Optional[Callable[[int, int], None]] = None
                  ) -> torch.Tensor:
         """Front, the segments with the state carried from one to the next,
-        back, on this engine's device.  Up to ``seg_frames`` frames run as
-        one segment; longer inputs are zero-padded to whole segments.
+        back, on this engine's device, every row through every segment.
+        The frames run ``seg_frames`` at a time; a last segment may be
+        shorter.
 
         With ``progress_callback`` this is the segment-stepped path of the
         JAX package (``_run_offline_stepped``): the same calls, with
@@ -361,37 +377,62 @@ class Engine:
 
     @torch.inference_mode()
     def _offline_shards(self, wavs, alpha: float,
-                        progress_callback: Optional[Callable[[int, int], None]] = None):
+                        progress_callback: Optional[Callable[[int, int], None]] = None,
+                        plans=None):
         """:meth:`_offline` over one shard ``[b, S]`` per replica, each on its
         replica's device: every shard's front, then segment by segment
         every shard's segment (a progress report after each segment of all
         shards), then every shard's back.  Nothing here waits for a device
         unless progress is reported, so the replicas' devices can run side
-        by side.  Returns one output per shard, on its device."""
-        runs = list(zip(self.replicas, wavs))
-        specs = [rep._front(w) for rep, w in runs]
-        states = [state_lib.init_state(self.cfg, batch=w.shape[0], dtype=spec.dtype,
-                                       device=rep.device)
-                  for (rep, w), spec in zip(runs, specs)]
+        by side.  Returns one output per shard, on its device.
+
+        ``plans`` (from :meth:`enhance_waveforms`), one ``(order, rows)``
+        per shard, schedules the row-segments: the shard's rows are taken
+        in ``order`` (a device index, longest need first; ``None`` keeps
+        them as they are) by one gather before the front, segment ``i``
+        runs over the first ``rows[i]`` of them (the state sliced on dim 0,
+        a view; a shard with no rows left launches nothing), each
+        segment's output goes into the shard's output buffer, zero where no
+        segment ran, and one gather after the back restores the rows'
+        order.  Without ``plans`` every row runs every segment."""
+        plans = plans or [(None, None)] * len(wavs)
+        wavs = [w if order is None else w.index_select(0, order)
+                for w, (order, _) in zip(wavs, plans)]
+        specs = [rep._front(w) for rep, w in zip(self.replicas, wavs)]
         T = specs[0].shape[1]
         seg = self.seg_frames
         n_seg = -(-T // seg)
-        specs_p = specs if n_seg == 1 else [
-            torch.nn.functional.pad(spec, (0, 0, 0, 0, 0, n_seg * seg - T)) for spec in specs]
+        rows = [[spec.shape[0]] * n_seg if r is None else r
+                for spec, (_, r) in zip(specs, plans)]
+        states = [state_lib.init_state(self.cfg, batch=r[0], dtype=spec.dtype,
+                                       device=rep.device)
+                  for rep, spec, r in zip(self.replicas, specs, rows)]
+        outs = [torch.empty_like(spec) if min(r) == spec.shape[0]
+                else torch.zeros_like(spec) for spec, r in zip(specs, rows)]
         if progress_callback is not None:
             progress_callback(0, T)
-        outs = [[] for _ in runs]
         for i in range(n_seg):
-            for j, (rep, _) in enumerate(runs):
-                o, states[j] = rep._segment(specs_p[j][:, i * seg:(i + 1) * seg].contiguous(),
+            ran = []
+            for j, rep in enumerate(self.replicas):
+                n = rows[j][i]
+                if n == 0:
+                    continue
+                if i and n < rows[j][i - 1]:
+                    states[j] = tree_map(lambda _, leaf: leaf[:n], states[j])
+                o, states[j] = rep._segment(specs[j][:n, i * seg:(i + 1) * seg].contiguous(),
                                             states[j])
-                outs[j].append(o)
+                if n_seg == 1 and n == outs[j].shape[0]:
+                    outs[j] = o
+                else:
+                    outs[j][:n, i * seg:(i + 1) * seg] = o
+                ran.append(o)
             if progress_callback is not None:
-                for o in outs:
-                    o[-1][:1, -1, :1].sum().item()
+                for o in ran:
+                    o[:1, -1, :1].sum().item()
                 progress_callback(min((i + 1) * seg, T), T)
-        return [rep._back(spec, o[0] if n_seg == 1 else torch.cat(o, dim=1)[:, :T], alpha)
-                for (rep, _), spec, o in zip(runs, specs, outs)]
+        ys = [rep._back(spec, o, alpha) for rep, spec, o in zip(self.replicas, specs, outs)]
+        return [y if order is None else y.index_select(0, torch.argsort(order))
+                for y, (order, _) in zip(ys, plans)]
 
     def _scale_spec(self, spec: torch.Tensor) -> torch.Tensor:
         """The float32 spectrum at the compute dtype, times wnorm rounded to
@@ -673,7 +714,8 @@ class Engine:
             wavs: ``[S]`` or ``[B, S]`` float32 at ``cfg.sample_rate``.
             attn_limit_db: optional attenuation limit (dB).
             lengths: optional per-utterance valid lengths (defaults to S);
-                output past each length is zeroed.
+                output past each length is zeroed, and each row runs only
+                the segments its own length needs.
             progress_callback: optional ``fn(done, total)`` in frames,
                 called with ints before the first segment and after each
                 one (the segment-stepped path; the same output).
@@ -681,9 +723,18 @@ class Engine:
         Returns:
             Enhanced float32 audio (numpy) with the same shape as ``wavs``.
 
+        The batch is zero-padded to ``bucket_len(S)`` samples, whole
+        segments of frames.  A row's need is the segments of
+        ``bucket_len(length)``, none for an empty row or a mesh's padding
+        row; each shard's rows run longest need first, and segment ``i``
+        runs over the rows whose need reaches it (:meth:`_offline_shards`).
+
         Spans: ``engine.enhance_waveforms`` over ``engine.pad`` (bucket,
-        zero-pad, an ``engine.upload`` per replica), ``engine.launch``
-        (every replica's work enqueued), ``engine.fetch``, ``engine.unpad``.
+        zero-pad, the schedule, an ``engine.upload`` per replica and per
+        row order), ``engine.launch`` (every replica's work enqueued),
+        ``engine.fetch``, ``engine.unpad``.  Counters:
+        ``engine.row_segments`` (row-segments run) and
+        ``engine.row_segments_full`` (rows times segments of the call).
         """
         with telemetry.span("engine.enhance_waveforms"):
             value = audio_lib.validate_attn_limit_db(attn_limit_db)
@@ -693,15 +744,30 @@ class Engine:
                 x = np.atleast_2d(np.asarray(wavs, dtype=np.float32))
                 B, S = x.shape
                 S_pad = self.bucket_len(S)
+                n_seg = int(self._bucket_segments(S))
                 n = len(self.replicas)
                 # on a mesh the batch is padded with zero rows to a multiple of its size
                 xp = np.zeros((-(-B // n) * n, S_pad), np.float32)
                 xp[:B, :S] = x
                 b = xp.shape[0] // n
-                wavs = [_upload(torch.from_numpy(xp[j * b:(j + 1) * b]), rep.device)
-                        for j, rep in enumerate(self.replicas)]
+                need = np.zeros(xp.shape[0], np.int64)
+                if lengths is None:
+                    need[:B] = n_seg
+                else:
+                    ln = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, S)
+                    need[:B] = np.where(ln > 0, self._bucket_segments(ln), 0)
+                telemetry.count("engine.row_segments", int(need.sum()))
+                telemetry.count("engine.row_segments_full", B * n_seg)
+                wavs, plans = [], []
+                for j, rep in enumerate(self.replicas):
+                    nj = need[j * b:(j + 1) * b]
+                    order = np.argsort(-nj, kind="stable")
+                    wavs.append(_upload(torch.from_numpy(xp[j * b:(j + 1) * b]), rep.device))
+                    plans.append((None if (order == np.arange(b)).all() else
+                                  _upload(torch.from_numpy(order), rep.device),
+                                  [int(np.count_nonzero(nj > i)) for i in range(n_seg)]))
             with telemetry.span("engine.launch"), _math_mode(self.precision):
-                ys = self._offline_shards(wavs, alpha, progress_callback)
+                ys = self._offline_shards(wavs, alpha, progress_callback, plans)
             y = _host(ys)
 
             with telemetry.span("engine.unpad"):

@@ -30,8 +30,10 @@ the top kernels by device time.  From the program's own spans
 (``runtime.telemetry``, which record while the profiler does): the host's
 self ms per span (``host_ms``), the device's idle ms by the innermost
 span the host was in at each idle gap's middle (``idle_ms``; ``outside
-spans`` where none), the graphs captured (``captures``) and the bytes
-copied to and from the card (``counters``).  Needs a CUDA device; random
+spans`` where none), the graphs captured (``captures``), the bytes
+copied to and from the card and the offline row-segments run and in the
+full rectangle (``counters``), and the share of those that ran
+(``row_segment_share``; 1.0 here, where no call passes ``lengths``).  Needs a CUDA device; random
 contracted weights (``init_params`` + ``contract_params``, seed 0); the
 tier sets its own cuBLAS / cuDNN math mode for each engine call.
 """
@@ -275,6 +277,9 @@ def main(argv=None) -> int:
                     sorted(view["idle_us"].items(), key=lambda kv: -kv[1])},
         "captures": snap["spans"].get("engine.capture", {}).get("count", 0),
         "counters": snap["counters"],
+        "row_segment_share": (snap["counters"].get("engine.row_segments", 0)
+                              / snap["counters"]["engine.row_segments_full"]
+                              if snap["counters"].get("engine.row_segments_full") else None),
     }, indent=1))
     return 0
 

@@ -1258,6 +1258,48 @@ def test_cuda_engine_records_its_graph_spans(dev):
     counts = telemetry.counters()
     S_pad = eng.bucket_len(wav.shape[1])
     assert counts["engine.h2d_bytes"] == frame_bytes + 2 * S_pad * 4
-    out_bytes = counts["engine.d2h_bytes"] - frame_bytes      # two rows past the input's end
-    assert out_bytes % 8 == 0 and out_bytes >= 2 * wav.shape[1] * 4
+    # two rows of S_pad - win_len samples (the frames' span less the alignment)
+    assert counts["engine.d2h_bytes"] == frame_bytes + 2 * (S_pad - cfg.win_len) * 4
+    n_seg = ((S_pad + cfg.win_len) // cfg.hop + 1) // eng.seg_frames
+    assert counts["engine.row_segments"] == counts["engine.row_segments_full"] == 2 * n_seg
     telemetry.reset()
+
+
+@pytest.mark.cuda
+def test_cuda_offline_rows_drop_out_as_their_lengths_end(dev):
+    """An unsorted batch of mixed lengths on dpdfnet8_48khz_hr at
+    ``seg_frames=16`` (an empty row, one ending on a segment's last valid
+    sample, the longest, two in between): each row within 1e-4 of that
+    row enhanced alone at its own length and zero past it, the
+    counters exact, and the row order uploaded once."""
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.runtime import telemetry
+    from dpdfnet_tpu_torch.runtime.engine import Engine
+
+    cfg = get_config("dpdfnet8_48khz_hr")
+    eng = Engine(cfg, contract_params(init_params(cfg, seed=0, device=dev)), seg_frames=16,
+                 bucket_s=0.0, device=dev)
+    seg = 16 * cfg.hop
+    lengths = np.array([seg, 0, seg - cfg.hop - 2 * cfg.win_len, 4 * seg, 2 * seg + 7])
+    need = [int(eng._bucket_segments(n)) if n else 0 for n in lengths]
+    assert need[2] == 1 and max(need) == need[3]
+    rng = np.random.default_rng(21)
+    wav = np.zeros((len(lengths), int(lengths.max())), np.float32)
+    for i, n in enumerate(lengths):
+        wav[i, :n] = 0.1 * rng.normal(size=n)
+    telemetry.reset()
+    with telemetry.recording():
+        got = eng.enhance_waveforms(wav, lengths=lengths)
+    counts = telemetry.counters()
+    telemetry.reset()
+    assert counts["engine.row_segments"] == sum(need)
+    assert counts["engine.row_segments_full"] == len(lengths) * max(need)
+    S_pad = eng.bucket_len(wav.shape[1])
+    assert counts["engine.h2d_bytes"] == len(lengths) * (S_pad * 4 + 8)
+    for i, n in enumerate(lengths):
+        assert np.all(got[i, n:] == 0.0)
+        if n:
+            alone = eng.enhance_waveforms(wav[i, :n])
+            assert float(np.abs(alone).max()) > 0
+            assert float(np.abs(got[i, :n] - alone).max()) < TOL

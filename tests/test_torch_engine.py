@@ -22,6 +22,7 @@ from dpdfnet_tpu.config import get_config as jax_get_config
 from dpdfnet_tpu.runtime.engine import Engine as JaxEngine
 
 from dpdfnet_tpu_torch.config import get_config
+from dpdfnet_tpu_torch.runtime import telemetry
 from dpdfnet_tpu_torch.runtime.engine import Engine, engine_from_quality
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 
@@ -97,3 +98,116 @@ def test_engine_unfused_matches_jax_unfused():
     assert "packed" not in eng.params["enc"]["dprnn_df"][0]["intra"]
     got = eng.enhance_waveforms(wavs)
     np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+# Mixed lengths at ``seg_frames=16`` on dpdfnet2 (hop 160, win 320): a
+# segment is 2560 samples and ``bucket_len`` pads to ``k * 2560 - 480``.
+# Rows: 2 segments, empty, exactly one segment (1760 + win_len = 2080),
+# one sample past it (2), the batch's longest (4), three segments.
+MIXED = np.array([2500, 0, 1760, 7000, 1761, 5000])
+MIXED_NEED = [2, 0, 1, 4, 2, 3]
+
+
+def _mixed_engine(**kwargs):
+    cfg = get_config("dpdfnet2")
+    params = params_from_jax(jax_params_np("dpdfnet2"), device="cpu")
+    return Engine(cfg, params, seg_frames=16, bucket_s=0.0, device="cpu", **kwargs)
+
+
+def _mixed_batch(lengths, seed):
+    """Rows of noise, each zero past its length."""
+    rng = np.random.default_rng(seed)
+    wavs = np.zeros((len(lengths), int(max(lengths))), np.float32)
+    for i, n in enumerate(lengths):
+        wavs[i, :n] = 0.1 * rng.normal(size=n)
+    return wavs
+
+
+def _rows_run(monkeypatch):
+    """The rows of every segment the engines run, in call order."""
+    rows = []
+    orig = Engine._segment
+
+    def seg(self, spec_seg, st):
+        rows.append((id(self), spec_seg.shape[0]))
+        return orig(self, spec_seg, st)
+    monkeypatch.setattr(Engine, "_segment", seg)
+    return rows
+
+
+def test_bucket_len_fills_whole_segments_and_clears_win_len():
+    eng = _mixed_engine()
+    cfg, seg = eng.cfg, 16 * eng.cfg.hop
+    assert [eng.bucket_len(S) for S in (0, 1760, 1761, 4320, 7000)] == [
+        seg - 480, seg - 480, 2 * seg - 480, 2 * seg - 480, 4 * seg - 480]
+    for S in (0, 1, 1760, 1761, 7000, 48000):
+        S_pad = eng.bucket_len(S)
+        frames = (S_pad + cfg.win_len) // cfg.hop + 1
+        assert S_pad >= S + cfg.win_len and frames % 16 == 0
+        assert S_pad - seg < S + cfg.win_len                       # the least such length
+        assert frames // 16 == eng._bucket_segments(S)
+    np.testing.assert_array_equal(eng._bucket_segments(MIXED[MIXED > 0]),
+                                  [n for n in MIXED_NEED if n])
+    floor = Engine(eng.cfg, eng.params, seg_frames=16, bucket_s=1.0, fuse=False,
+                   device="cpu")
+    assert floor.bucket_len(0) == 7 * seg - 480 >= 16000           # bucket_s is the floor
+
+
+def test_engine_rows_run_only_the_segments_their_lengths_need(monkeypatch):
+    """An unsorted batch of mixed lengths: each row equals that row
+    enhanced alone at its own length (1e-6: another batch takes another
+    GEMM order) and is zero past its length; the rows drop out longest
+    need last, and the counters count the row-segments run and the full
+    rectangle."""
+    eng = _mixed_engine()
+    wavs = _mixed_batch(MIXED, seed=21)
+    rows = _rows_run(monkeypatch)
+    with telemetry.recording():
+        telemetry.reset()
+        got = eng.enhance_waveforms(wavs, lengths=MIXED)
+        counts = telemetry.counters()
+        telemetry.reset()
+    assert [n for _, n in rows] == [5, 4, 2, 1]
+    assert counts == {"engine.row_segments": sum(MIXED_NEED),
+                      "engine.row_segments_full": len(MIXED) * max(MIXED_NEED)}
+    assert got.shape == wavs.shape and np.isfinite(got).all()
+    for i, n in enumerate(MIXED):
+        assert np.all(got[i, n:] == 0.0)
+        if n:
+            alone = eng.enhance_waveforms(wavs[i, :n])
+            assert float(np.abs(alone).max()) > 0
+            np.testing.assert_allclose(got[i, :n], alone, atol=1e-6)
+
+
+def test_engine_without_lengths_runs_every_row_segment(monkeypatch):
+    """Without ``lengths`` every row is the batch's length: the whole
+    rectangle runs (share 1.0), and the output matches the same batch
+    given full lengths bit for bit."""
+    eng = _mixed_engine()
+    wavs = _mixed_batch([5000, 5000, 5000], seed=22)
+    rows = _rows_run(monkeypatch)
+    with telemetry.recording():
+        telemetry.reset()
+        got = eng.enhance_waveforms(wavs)
+        counts = telemetry.counters()
+        telemetry.reset()
+    assert [n for _, n in rows] == [3, 3, 3]
+    assert counts["engine.row_segments"] == counts["engine.row_segments_full"] == 9
+    np.testing.assert_array_equal(got, eng.enhance_waveforms(wavs, lengths=np.full(3, 5000)))
+
+
+def test_engine_progress_reports_one_per_segment_with_rows_dropping_out():
+    """The stepped path reports ``(0, T)`` then ``(16 * (i + 1), T)`` after
+    each of the call's segments, also those no row reaches, with the
+    unstepped output."""
+    eng = _mixed_engine()
+    lengths = np.array([2500, 1200, 900])
+    wavs = np.zeros((3, 9000), np.float32)
+    wavs[:, :2500] = _mixed_batch(lengths, seed=23)
+    calls = []
+    stepped = eng.enhance_waveforms(wavs, lengths=lengths,
+                                    progress_callback=lambda d, n: calls.append((d, n)))
+    T = 16 * eng._bucket_segments(9000)
+    assert calls == [(0, T)] + [(16 * (i + 1), T) for i in range(T // 16)]
+    assert all(type(v) is int for c in calls for v in c)
+    np.testing.assert_array_equal(stepped, eng.enhance_waveforms(wavs, lengths=lengths))

@@ -60,15 +60,16 @@ def weights():
 @pytest.fixture(scope="module")
 def artifacts(weights, tmp_path_factory):
     """The JAX and the port's streaming artifacts and the port's offline
-    artifact (B=2 x 1 s, the bucket a 0.5 s utterance is padded to)."""
+    artifact (B=2 x the bucket a 0.5 s utterance is padded to)."""
     pj, pt = weights
     d = tmp_path_factory.mktemp("export")
     cfg = get_config(MODEL)
+    S = Engine(cfg, pt, device="cpu").bucket_len(cfg.sample_rate // 2)
     return {
         "jax": jax_export.export_stream(pj, jax_get_config(MODEL), d / "j.stablehlo"),
         "stream": ex.export_stream(pt, cfg, d / f"{MODEL}.stream.pt2", device="cpu"),
         "offline": ex.export_offline(pt, cfg, d / f"{MODEL}.offline.pt2", batch=2,
-                                     seconds=1.0, device="cpu"),
+                                     seconds=S / cfg.sample_rate, device="cpu"),
     }
 
 

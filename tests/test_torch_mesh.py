@@ -145,6 +145,37 @@ def test_mesh_offline_pads_and_matches_jax_and_single_device():
     assert len(t.replicas) == N_DEV and t.replicas[0] is t and one.replicas == (one,)
 
 
+def test_mesh_replica_whose_rows_all_end_early_launches_nothing_after(monkeypatch):
+    """A two-replica mesh at ``seg_frames=16``, B=3 padded to 4: the first
+    shard's rows run 4 and 3 segments, the second shard's only row ends in
+    the first segment and its padding row runs none, so the second replica
+    runs one segment of one row and nothing after.  Within 1e-6 of the
+    engine without a mesh; the stepped path reports every segment."""
+    cfg = get_config(MODEL)
+    p = params_from_jax(jax_params_np(MODEL), device="cpu")
+    kw = dict(seg_frames=16, bucket_s=0.0)
+    two = Engine(cfg, p, mesh=pmesh.make_mesh(["cpu"] * 2), **kw)
+    one = Engine(cfg, p, device="cpu", **kw)
+    lengths = np.array([7000, 6000, 900])
+    wav = speechlike_test_signal(7000 / cfg.sample_rate, cfg.sample_rate, seed=9, batch=3)
+    wav[np.arange(7000)[None, :] >= lengths[:, None]] = 0.0
+    ref = one.enhance_waveforms(wav, lengths=lengths)
+    rows = []
+    orig = Engine._segment
+
+    def seg(self, spec_seg, st):
+        rows.append((self is two, spec_seg.shape[0]))
+        return orig(self, spec_seg, st)
+    monkeypatch.setattr(Engine, "_segment", seg)
+    calls = []
+    got = two.enhance_waveforms(wav, lengths=lengths,
+                                progress_callback=lambda d, n: calls.append((d, n)))
+    assert rows == [(True, 2), (False, 1), (True, 2), (True, 2), (True, 1)]
+    assert calls == [(0, 64), (16, 64), (32, 64), (48, 64), (64, 64)]
+    assert float(np.abs(got[2, :900]).max()) > 0 and np.all(got[2, 900:] == 0.0)
+    np.testing.assert_allclose(got, ref, atol=SELF_ATOL)
+
+
 def test_mesh_of_one_device_is_the_engine_without_a_mesh():
     cfg = get_config(MODEL)
     p = params_from_jax(jax_params_np(MODEL), device="cpu")

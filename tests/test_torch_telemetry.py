@@ -127,8 +127,10 @@ def test_profiler_records_every_cpu_span(pool):
     snap = telemetry.snapshot()
     assert snap["spans"]["engine.upload"]["count"] == 2
     assert all(s.card is None for s in recs if s.name == "engine.upload")
-    # nothing crosses to a card here; the live call staged one chunk length
-    assert snap["counters"] == {"pool.stage_lengths": 1}
+    # nothing crosses to a card here; the live call staged one chunk length;
+    # the offline call's two rows each need its one segment
+    assert snap["counters"] == {"pool.stage_lengths": 1, "engine.row_segments": 2,
+                                "engine.row_segments_full": 2}
 
 
 def test_recording_records_the_same_spans_without_a_profiler(pool, monkeypatch):
