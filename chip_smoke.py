@@ -62,23 +62,17 @@ Phases (any fault exits non-zero; nothing is caught and passed over):
    its state), ``StreamEnhancer`` /
    ``MultiStreamEnhancer`` on a ``turbo`` engine, offline xRT per tier and
    exact / throughput ms per hop for ``highest`` against ``turbo``;
-11. ``relayout_fm`` (the freq-major chain's entry permute) against its
-   plain version, bit-exact, at [64, 112, 40 and 48, 64] float32 to float32
-   and to bfloat16 and at two odd shapes, with kernel, bound, plain and
-   ``permute().contiguous()`` times;
+11. ``relayout_fm`` (the freq-major layout's entry permute, an op no
+   route of the model takes) against its plain version, bit-exact, at
+   [64, 112, 40 and 48, 64] float32 to float32 and to bfloat16 and at two
+   odd shapes, with kernel, bound, plain and ``permute().contiguous()``
+   times;
 12. every kernel on the shared walk with its layout modes off, bit-identical
    to the committed digests (``tools/mode_off_digests.json``, whose note
    names the commit each case was taken on); the fm layout modes of the intra and
    inter kernels (``fm_batch``, ``h_bm``, ``defer``) against their plain
    versions at B=64 x 112 frames, each fused mode bit-identical to the
-   row-major mode on the same rows, and both DPRNN stacks through the fm
-   chain bit-identical to the row-major chain;
-13. the fm chain on the main path: launches per 112-frame segment with
-   ``DPDFNET_TPU_ENTRY_RELAYOUT=1`` (``relayout_fm`` 2 per segment), card
-   against CPU at B=32 x 1 s, exact streaming at 64 streams bit-identical
-   across chunkings and within KERNEL_TOL of the row-major chain, and the A/B: offline xRT at B=64 x 4 s and exact ms
-   per hop at 64 streams with the chain off, on, and on with the entry
-   relayout, in ``highest`` and ``turbo``, interleaved call by call;
+   row-major mode on the same rows;
 14. both step-ablation tools (``dpdfnet_tpu_torch.tools``): every
    specialization against its plain version at a small size and at the JAX
    tools' default shapes, ``full`` bit for bit against the production
@@ -307,8 +301,6 @@ def log(msg: str) -> None:
 
 STACK = "DPDFNET_TPU_STACK"      # read where weights are packed and at each call
 V2 = "DPDFNET_TPU_PALLAS_V2"     # the same, under the fast / turbo tiers
-TM = "DPDFNET_TPU_INTRA_TM"      # the freq-major DPRNN chain (default off here), read per call
-ENTRY = "DPDFNET_TPU_ENTRY_RELAYOUT"   # its entry permute through relayout_fm (default off)
 
 
 @contextlib.contextmanager
@@ -1174,10 +1166,7 @@ def mode_off_phase(gk):
 def fm_modes_phase(params, cfg, gk):
     """The intra / inter kernels' fm layout modes at B=64 x 112 frames, Fq
     48: against the plain versions, fused modes bit-identical to the
-    row-major mode on the same rows, and both DPRNN stacks bit-identical
-    through the fm chain and the row-major chain.  Returns kernel-line rows."""
-    from dpdfnet_tpu_torch.models import dpdfnet as tmd
-
+    row-major mode on the same rows.  Returns kernel-line rows."""
     B, T, C, Fq = 64, 112, cfg.conv_ch, cfg.dprnn_df_feat
     g = torch.Generator(device="cuda").manual_seed(4)
     blk = params["enc"]["dprnn_df"][0]
@@ -1258,135 +1247,8 @@ def fm_modes_phase(params, cfg, gk):
                 f"{ms:.4f} (row-major {ms_rm:.4f}{'; the deferred tail in PyTorch included' if defer else ''})")
             rows[("inter_fm", h_bm, defer)] = dict(err=err, ms=ms)
 
-    # ---- both DPRNN stacks: the fm chain against the row-major chain ----
-    for branch, Fb in (("dprnn_erb", cfg.dprnn_erb_feat), ("dprnn_df", Fq)):
-        x = torch.randn((B, T, Fb, C), generator=g, device="cuda")
-        hs = [torch.randn((B, Fb, C), generator=g, device="cuda") * 0.5
-              for _ in params["enc"][branch]]
-        with set_env(TM, False):
-            ref, hs_ref = tmd._dprnn(params["enc"][branch], x, hs)
-        for entry in (False, True):
-            with set_env(TM, True), set_env(ENTRY, entry):
-                gk.reset_launch_counts()
-                got, hs_got = tmd._dprnn(params["enc"][branch], x, hs)
-                counts = gk.launch_counts()
-            if counts["relayout_fm"] != int(entry) or not torch.equal(got, ref) or not all(
-                    torch.equal(a, b) for a, b in zip(hs_got, hs_ref)):
-                raise AssertionError(f"{branch}: the fm chain (entry relayout {entry}) is not "
-                                     f"bit-identical to the row-major chain ({counts})")
-        log(f"DPRNN stack {branch} x[{B},{T},{Fb},{C}]: the fm chain, with and without the "
-            f"entry relayout, bit-identical to the row-major chain (max_abs 0, every hidden)")
     torch.cuda.synchronize()
     return rows
-
-
-def fm_chain_phase(cfg, params, cpu_params, gk, smi, rng):
-    """The fm chain: card vs CPU, exact streaming chunk invariance and
-    launches per hop at 64 streams (the launches per segment on the main
-    path are read in ``main``)."""
-    from dpdfnet_tpu_torch import Engine
-    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
-
-    K, sr = cfg.dprnn_blocks, cfg.sample_rate
-    with set_env(STACK, False):
-        eng = Engine(cfg, params, device="cuda")
-    # ---- card against CPU, B = 32 x 1 s, with and without the entry relayout ----
-    w32 = (0.1 * rng.standard_normal((32, sr))).astype(np.float32)
-    t0 = time.perf_counter()
-    with set_env(STACK, False), set_env(TM, True):
-        ref = Engine(cfg, cpu_params, device="cpu").enhance_waveforms(w32)
-    t_cpu = time.perf_counter() - t0
-    for entry in (False, True):
-        with set_env(STACK, False), set_env(TM, True), set_env(ENTRY, entry):
-            y = eng.enhance_waveforms(w32)
-        err = float(np.abs(y - ref).max())
-        log(f"fm chain B=32 x 1 s (entry relayout {entry}): card vs CPU max_abs {err:.3e} "
-            f"(tol {ENGINE_TOL:.0e}; CPU run {t_cpu:.1f} s)")
-        if not (np.isfinite(y).all() and err <= ENGINE_TOL):
-            raise AssertionError(f"fm chain on the card deviates from the CPU by {err:.3e}")
-
-    # ---- exact streaming at 64 streams through the fm chain (T == 1) ----
-    frames = stream_frames(rng, 64, 12, cfg.win_len)
-    with set_env(STACK, False), set_env(TM, True):
-        counted = graph_counted(eng, gk, lambda: run_chunked(eng, frames, [12]))
-        y, counts, captured, replays = counted
-        expect_graph_counts("fm chain exact streaming", counted,
-                            {"dprnn_intra_block": 2 * K, "dprnn_inter_block": 2 * K,
-                             "gru_scan": 5}, 12)
-        for cuts in ([1] * 12, [3, 5, 4]):
-            other = run_chunked(eng, frames, cuts)
-            if not np.array_equal(other, y):
-                raise AssertionError(f"fm chain exact streaming: chunking {cuts[:4]} differs "
-                                     f"by {float(np.abs(other - y).max()):.3e}")
-        with set_env(TM, False):
-            y_rm = run_chunked(eng, frames, [12])
-    # the DPRNN stacks are bit-identical (phase 12); the exit contraction
-    # (grouped_linear_fm against grouped_linear) sums in another order
-    rm_err = float(np.abs(y - y_rm).max())
-    log(f"fm chain exact streaming 64 streams x 12 hops: bit-identical for chunkings "
-        f"all-at-once, 1+1+..., 3+5+4; {captured} graph captured after an eager hop that "
-        f"launched {json.dumps({k: v for k, v in counts.items() if v})}, {replays} replays; "
-        f"vs the row-major chain "
-        f"max_abs {rm_err:.3e} (tol {KERNEL_TOL:.0e})")
-    if not rm_err <= KERNEL_TOL:
-        raise AssertionError(f"fm chain exact streaming deviates from the row-major chain by "
-                             f"{rm_err:.3e}")
-
-
-def fm_ab_phase(cfg, params, smi, rng):
-    """The A/B of the fm chain, in highest and turbo: the chain off
-    (row-major), on, and on with the entry relayout, interleaved call by
-    call (the switches are read per call), so that drift of the shared host
-    cancels: offline B=64 x 4 s, 5 rounds, median xRT; exact streaming at
-    64 streams, one hop per call, 200 rounds of one hop per configuration
-    (each with its own stream state), median ms per hop.  Returns the
-    medians."""
-    from dpdfnet_tpu_torch.runtime.engine import engine_from_quality
-
-    Bb, secs, hops = 64, 4.0, 200
-    big = (0.1 * rng.standard_normal((Bb, int(secs * cfg.sample_rate)))).astype(np.float32)
-    sframes = stream_frames(rng, Bb, hops + 16, cfg.win_len)
-    cfgs = {"row-major": (False, False), "fm": (True, False), "fm+relayout": (True, True)}
-    res = {}
-
-    def timed(name, fn):
-        tm, entry = cfgs[name]
-        with set_env(STACK, False), set_env(TM, tm), set_env(ENTRY, entry):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
-    for q in ("highest", "turbo"):
-        e = engine_from_quality(cfg, params, q, device="cuda")
-        walls = {n: [] for n in cfgs}
-        for rnd in range(6):                                    # round 0 warms up
-            for name in cfgs:
-                t, out = timed(name, lambda: e.enhance_waveforms(big))
-                if not np.isfinite(out).all():
-                    raise AssertionError(f"A/B {q} {name}: offline output not finite")
-                if rnd:
-                    walls[name].append(t)
-        states = {n: e.init_stream_state(batch=Bb) for n in cfgs}
-        hop_ms = {n: [] for n in cfgs}
-        for i in range(hops + 16):                              # 16 warm-up hops
-            for name in cfgs:
-                t, (ys, states[name]) = timed(
-                    name, lambda: e.process_frames(sframes[:, i:i + 1], states[name]))
-                if i >= 16:
-                    hop_ms[name].append(t * 1e3)
-        if not np.isfinite(ys).all():
-            raise AssertionError(f"A/B {q}: streaming output not finite")
-        for name in cfgs:
-            xrt = Bb * secs / statistics.median(walls[name])
-            med, mean = statistics.median(hop_ms[name]), statistics.fmean(hop_ms[name])
-            res[(q, name)] = (xrt, med)
-            log(f"A/B {q} {name}: offline B={Bb} x {secs} s xRT {xrt:.1f} (median of 5 "
-                f"interleaved calls, runs {[round(t * 1e3, 1) for t in walls[name]]} ms); exact "
-                f"64 streams, {hops} interleaved hops: median {med:.3f} ms per hop, mean "
-                f"{mean:.3f} | {smi}")
-    return res
 
 
 def ablation_phase(smi):
@@ -2977,28 +2839,6 @@ def main() -> int:
     mode_off_phase(gk)
     kernel_rows.update(fm_modes_phase(prepare_inference_params(params, cfg), cfg, gk))
 
-    # ---- phase 13: the fm chain on the main path, and the A/B ----
-    fm_chain_phase(cfg, params, cpu_params, gk, smi, rng)
-    fm_ab_phase(cfg, params, smi, rng)
-    with set_env(STACK, False), set_env(TM, True), set_env(ENTRY, True):
-        e = Engine(cfg, params, device="cuda")
-        e.enhance_waveforms(wavs[:, : sr // 2])
-        torch.cuda.synchronize()
-        gk.reset_launch_counts()
-        y_fm = e.enhance_waveforms(np.tile(wavs, (22, 1))[:64], lengths=np.tile(lengths, 22)[:64])
-        torch.cuda.synchronize()
-        fm_counts = gk.launch_counts()
-    n_seg = segments(e, S)
-    per_seg = {"dprnn_intra_block": 2 * cfg.dprnn_blocks,
-               "dprnn_inter_block": 2 * cfg.dprnn_blocks, "gru_scan": 5, "relayout_fm": 2}
-    log(f"fm chain main path, B=64 (the 3 utterances tiled), entry relayout on: launches "
-        f"({n_seg} segments) {json.dumps(fm_counts)}, expected per segment "
-        f"{json.dumps(per_seg)}; vs the B=3 run max_abs "
-        f"{float(np.abs(y_fm[:3] - y_gpu).max()):.3e}")
-    expect_counts("fm chain main path", fm_counts, {k: n_seg * v for k, v in per_seg.items()})
-    if not float(np.abs(y_fm[:3] - y_gpu).max()) <= ENGINE_TOL:
-        raise AssertionError("the fm chain at B=64 deviates from the row-major chain at B=3")
-
     # ---- phase 14: the step-ablation tools ----
     abl_rows = ablation_phase(smi)
 
@@ -3058,9 +2898,9 @@ def main() -> int:
               f"{csrc}/dprnn_inter_v2.cu", f"{PALLAS}:2128",
               tier_counts["dprnn_inter_block_v2"]),
         entry("dprnn_intra_block_tm", "dprnn_intra_block_tm", f"{csrc}/dprnn_intra.cu",
-              f"{PALLAS}:903", fm_counts["dprnn_intra_block"]),
+              f"{PALLAS}:903", "op only"),
         entry("relayout_fm", "relayout_fm", f"{csrc}/relayout_fm.cu", f"{PALLAS}:2290",
-              fm_counts["relayout_fm"]),
+              "op only"),
         entry("intra_step_ablation", "intra", f"{csrc}/intra_step_ablation.cu",
               "tools/intra_step_ablation.py:101", abl_rows["intra"]["launches"], abl_rows),
         entry("inter_step_ablation", "inter", f"{csrc}/inter_step_ablation.cu",

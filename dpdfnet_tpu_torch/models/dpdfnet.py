@@ -9,11 +9,9 @@ lookahead realised as delay lines, which are time shifts here).
 The DPRNN stages (or, with ``DPDFNET_TPU_STACK``, each whole DPRNN
 stack) and every GRU layer go through the kernel wrappers of
 ``ops.gru_kernels``: CUDA kernels for CUDA tensors, their plain versions
-for CPU tensors.  With ``DPDFNET_TPU_INTRA_TM=1`` (the JAX package's
-default; off here, see ``ops.gru_kernels``), batches of 32 and more
-(multiples of 8, Fq a multiple of 8) run each DPRNN stack as the
-freq-major chain (``_dprnn_fm``).
-Convs, GEMMs and elementwise work are plain PyTorch.
+for CPU tensors.  The DPRNN planes travel ``[B, T, Fq, C]`` at the compute
+dtype between the kernels.  Convs, GEMMs and elementwise work are plain
+PyTorch.
 
 The activations run at ``spec``'s dtype (bfloat16 on the ``turbo`` tier),
 with the JAX package's casts: weights are cast at use, state leaves join
@@ -21,8 +19,7 @@ the planes at the planes' dtype, the carried hiddens enter the kernels in
 float32 and return at the state leaf's dtype.  ``precision`` is the
 tier's matmul precision (``"highest"``, ``"high"`` or ``"default"``), an
 explicit argument where the JAX package reads an ambient context; under
-``"default"`` it enables ``DPDFNET_TPU_PALLAS_V2`` (inter v2 kernel) and
-``DPDFNET_TPU_PLANE_IO=bf16`` (bfloat16 DPRNN planes).
+``"default"`` it enables ``DPDFNET_TPU_PALLAS_V2`` (inter v2 kernel).
 """
 
 from __future__ import annotations
@@ -116,22 +113,15 @@ def _dprnn_block(p: Params, x: Tensor, h_inter: Tensor, precision: str = "highes
 
 
 def _dprnn(p_blocks: List[Params], x: Tensor, hs: List[Tensor],
-           stacked: Optional[Params] = None, precision: str = "highest",
-           out_fm: bool = False):
-    """The DPRNN stack.  Returns ``(out, new_hs)``; with ``out_fm=True``,
-    ``(out, new_hs, layout)``: layout ``"fm"`` means out is the fm chain's
-    native freq-leading ``[Fq, T, B, C]`` plane (the caller contracts its
-    ``(f, c)`` axis with ``ops.nn.grouped_linear_fm``), ``"bt"`` the usual
-    ``[B, T, Fq, C]`` (``dpdfnet_tpu.models.dpdfnet._dprnn``).
+           stacked: Optional[Params] = None, precision: str = "highest"
+           ) -> Tuple[Tensor, List[Tensor]]:
+    """The DPRNN stack on ``x [B, T, Fq, C]``.  Returns ``(out, new_hs)``,
+    out ``[B, T, Fq, C]`` at x's dtype.
 
     With the branch's ``pack_stack`` bundle and
     ``gru_kernels.stack_enabled()``, one ``dprnn_stack`` call runs every
-    block.  Otherwise packed params take the JAX package's
-    ``_dprnn_fused`` routes: the fm chain where it engages (see
-    :func:`_dprnn_fm`), else block by block, with planes carried in
-    bfloat16 between the kernels under ``gru_kernels.plane_io_bf16``
-    (float32 planes whose Fq is a multiple of 8, and not on the v2 path).
-    The new hiddens keep each carried hidden's dtype."""
+    block; otherwise block by block (:func:`_dprnn_block`).  The new
+    hiddens keep each carried hidden's dtype."""
     if len(p_blocks) != len(hs):
         raise ValueError(
             f"state carries {len(hs)} DPRNN block hiddens but the model has "
@@ -140,67 +130,12 @@ def _dprnn(p_blocks: List[Params], x: Tensor, hs: List[Tensor],
     if p_blocks and stacked is not None and gru_kernels.stack_enabled():
         out, h_last = gru_kernels.dprnn_stack(
             x, torch.stack([h.float() for h in hs]), stacked)
-        new_hs = [hl.to(h.dtype) for hl, h in zip(h_last, hs)]
-        return (out, new_hs, "bt") if out_fm else (out, new_hs)
-    packed = bool(p_blocks) and all(p["intra"].get("packed") is not None for p in p_blocks)
-    B, T, Fq, C = x.shape
-    use_v2 = gru_kernels.v2_enabled(precision)
-    io_bf16 = (packed and x.dtype == torch.float32 and Fq % 8 == 0 and not use_v2
-               and gru_kernels.plane_io_bf16(precision))
-    pdt = torch.bfloat16 if io_bf16 else x.dtype
-    if (packed and not use_v2 and Fq % 8 == 0 and B % 8 == 0 and B >= 32
-            and gru_kernels.intra_tm_enabled()):
-        plane, new_hs = _dprnn_fm(p_blocks, x, hs, pdt)
-        if out_fm:
-            return plane.to(x.dtype), new_hs, "fm"
-        return plane.permute(2, 1, 0, 3).to(x.dtype).contiguous(), new_hs
-    y = x.to(pdt)
+        return out, [hl.to(h.dtype) for hl, h in zip(h_last, hs)]
     new_hs = []
     for p, h in zip(p_blocks, hs):
-        y, h_new = _dprnn_block(p, y, h, precision)
+        x, h_new = _dprnn_block(p, x, h, precision)
         new_hs.append(h_new.to(h.dtype))
-    y = y.to(x.dtype)
-    return (y, new_hs, "bt") if out_fm else (y, new_hs)
-
-
-def _dprnn_fm(p_blocks: List[Params], x: Tensor, hs: List[Tensor], pdt: torch.dtype
-              ) -> Tuple[Tensor, List[Tensor]]:
-    """The freq-major DPRNN chain (``_dprnn_fused``'s tm branch) on packed
-    blocks, for ``x [B, T, Fq, C]`` with Fq and B multiples of 8 and
-    B >= 32.  One permute into the freq-leading ``[Fq, T*B, C]`` plane at
-    the plane dtype ``pdt`` (``gru_kernels.relayout_fm`` under
-    ``DPDFNET_TPU_ENTRY_RELAYOUT``, else a PyTorch copy); then per block the
-    intra kernel writes ``[T, Fq, B, C]``, whose ``[T, Fq*B, C]`` view the
-    inter kernel reads, writing ``[Fq, T, B, C]``, the next intra's input.
-    The hidden enters the inter kernel in the state's ``[B, Fq, C]`` with
-    ``DPDFNET_TPU_H_INGEST``, else transposed to the rows' f-major order.
-    Returns the chain's ``[Fq, T, B, C]`` plane at ``pdt`` and the new
-    hiddens at each carried hidden's dtype."""
-    B, T, Fq, C = x.shape
-    if gru_kernels.entry_relayout_enabled():
-        plane = gru_kernels.relayout_fm(x, out_dtype=pdt)
-    else:
-        plane = x.to(pdt).permute(2, 1, 0, 3).contiguous()
-    plane = plane.reshape(Fq, T * B, C)
-    use_hbm = gru_kernels.h_ingest_enabled()
-    new_hs: List[Tensor] = []
-    for p, h in zip(p_blocks, hs):
-        intra, inter = p["intra"], p["inter"]
-        pk, g = intra["packed"], inter["gru"]
-        xi4 = gru_kernels.dprnn_intra_block(
-            plane, pk["wi2"], pk["wh2"], pk["b2"], intra["fc"]["w"], intra["fc"]["b"],
-            intra["ln"]["g"], intra["ln"]["b"], fm_batch=B)              # [T, Fq, B, C]
-        h0 = h.float().contiguous() if use_hbm else \
-            h.float().transpose(0, 1).reshape(Fq * B, C)
-        out4, h_new = gru_kernels.dprnn_inter_block(
-            xi4.reshape(T, Fq * B, C), h0, g["wi"], g["bi"], g["wh"], g["bh"],
-            inter["fc"]["w"], inter["fc"]["b"], inter["ln"]["g"], inter["ln"]["b"],
-            fm_batch=B, h_bm=use_hbm)                                    # [Fq, T, B, C]
-        plane = out4.reshape(Fq, T * B, C)
-        if not use_hbm:
-            h_new = h_new.reshape(Fq, B, C).transpose(0, 1)
-        new_hs.append(h_new.to(h.dtype).contiguous())
-    return plane.reshape(Fq, T, B, C), new_hs
+    return x, new_hs
 
 
 # --------------------------------------------------------------------------- #
@@ -288,35 +223,20 @@ def _encoder(params: Params, cfg: ModelConfig, feat_erb: Tensor, feat_spec: Tens
         e1, _ = onn.conv_block(p["erb_conv1"], e0, kt=1, kf=kfc, fstride=s1, act="relu")
     e2, _ = onn.conv_block(p["erb_conv2"], e1, kt=1, kf=kfc, fstride=s2, act="relu")
     e3, _ = onn.conv_block(p["erb_conv3"], e2, kt=1, kf=kfc, fstride=s3, act="relu")
-    # the df branch, and the erb branch of hr configs, feed only the
-    # flattened-(f c) grouped linears: ask for the fm chain's native plane
-    # and contract it there (grouped_linear_fm), as the JAX encoder does
+
     B, T = feat_erb.shape[:2]
-    if cfg.hr:
-        e3d, new_dprnn_erb, e3d_layout = _dprnn(
-            p["dprnn_erb"], e3, state["dprnn_erb"], stacked=p.get("dprnn_erb_stacked"),
-            precision=precision, out_fm=True)
-    else:
-        e3d, new_dprnn_erb = _dprnn(p["dprnn_erb"], e3, state["dprnn_erb"],
-                                    stacked=p.get("dprnn_erb_stacked"), precision=precision)
-        e3d_layout = "bt"
+    e3d, new_dprnn_erb = _dprnn(p["dprnn_erb"], e3, state["dprnn_erb"],
+                                stacked=p.get("dprnn_erb_stacked"), precision=precision)
 
     c0, new_df_tail = onn.conv_block(p["df_conv0"], feat_spec, kt=kt, kf=kf,
                                      act="relu", time_tail=state["df_conv0_tail"])
     c1, _ = onn.conv_block(p["df_conv1"], c0, kt=1, kf=kfc, fstride=2, act="relu")
-    c1d, new_dprnn_df, c1d_layout = _dprnn(p["dprnn_df"], c1, state["dprnn_df"],
-                                           stacked=p.get("dprnn_df_stacked"),
-                                           precision=precision, out_fm=True)
+    c1d, new_dprnn_df = _dprnn(p["dprnn_df"], c1, state["dprnn_df"],
+                               stacked=p.get("dprnn_df_stacked"), precision=precision)
 
-    if c1d_layout == "fm":
-        cemb = onn.grouped_linear_fm(p["df_fc_emb"], c1d, act="relu")
-    else:
-        cemb = onn.grouped_linear(p["df_fc_emb"], c1d.reshape(B, T, -1), act="relu")
+    cemb = onn.grouped_linear(p["df_fc_emb"], c1d.reshape(B, T, -1), act="relu")
     if cfg.hr:
-        if e3d_layout == "fm":
-            emb = onn.grouped_linear_fm(p["erb_fc_emb"], e3d, act="relu")
-        else:
-            emb = onn.grouped_linear(p["erb_fc_emb"], e3d.reshape(B, T, -1), act="relu")
+        emb = onn.grouped_linear(p["erb_fc_emb"], e3d.reshape(B, T, -1), act="relu")
     else:
         emb = e3d.reshape(B, T, -1)
     emb = torch.cat([emb, cemb], dim=-1)

@@ -1,7 +1,6 @@
 """The port's sequential kernels: DPRNN intra, DPRNN inter, GRU scan,
 bidirectional GRU, the whole DPRNN stack, the v2 DPRNN intra / inter
-stages with hoisted input projections, and the entry relayout of the
-freq-major DPRNN chain.
+stages with hoisted input projections, and the freq-major relayout.
 
 Counterpart of ``dpdfnet_tpu.ops.pallas_gru``.  Each wrapper sits beside
 its plain PyTorch version:
@@ -46,35 +45,22 @@ round each plane store once, and the plain versions compute on the
 upcast plane and round their result once, to the plane's dtype.  A
 wrapper casts nothing around its kernel: other dtypes raise.
 
-The freq-major ("fm") DPRNN chain (``models.dpdfnet._dprnn``, the JAX
-package's ``_dprnn_fused`` tm branch) runs the intra and inter kernels in
-layout modes: ``dprnn_intra_block(..., fm_batch=B)`` reads the
-freq-leading ``[Fq, T*B, C]`` plane and writes ``[T, Fq, B, C]``;
+The JAX package's freq-major ("fm") DPRNN chain (its ``_dprnn_fused``
+tm branch) is kept as layout modes of the intra and
+inter kernels, each an op with its plain version:
+``dprnn_intra_block(..., fm_batch=B)`` reads the freq-leading
+``[Fq, T*B, C]`` plane and writes ``[T, Fq, B, C]``;
 ``dprnn_inter_block(..., fm_batch=B)`` reads that as ``[T, Fq*B, C]`` and
 writes ``[Fq, T, B, C]``, with ``h_bm`` (hidden in the state's
 ``[B, Fq, C]``) and ``defer`` (the raw hidden out of the kernel, the fc +
-LayerNorm + residual tail in PyTorch).  The modes are stride sets and a
-template flag of the same CUDA kernels.  ``relayout_fm`` is the chain's
-entry permute.  The switches are read per call under the JAX package's
-names: ``intra_tm_enabled`` (``DPDFNET_TPU_INTRA_TM``), and with the JAX
-defaults ``entry_relayout_enabled`` (``DPDFNET_TPU_ENTRY_RELAYOUT``, off),
-``h_ingest_enabled`` (``DPDFNET_TPU_H_INGEST``, off) and ``inter_defer``
-(``DPDFNET_TPU_INTER_DEFER``, off; only where the JAX kernel's TS > 1).
-``DPDFNET_TPU_RELAYOUT_FULLF`` only picks a TPU block shape and is not
-read: the Hopper relayout kernel picks its own tiling.
-
-The fm chain is OFF by default here (the JAX package's default is on).
-On the H100 the chain runs bit-identical work (the row-major kernels
-already read ``[B, T, Fq, C]`` through strides, so it removes no
-transpose) and adds device operations: the entry permute, the exit
-contraction's copies and two hidden transposes per block, 46 more per
-exact hop (16,300 against 14,000 over 50 hops at 64 streams).  Measured
-on one NVIDIA H100 80GB HBM3, 700.00 W, interleaved call by call
-(``chip_smoke.fm_ab_phase``): exact streaming at 64 streams 13-18% slower
-per hop (``highest`` 9.269 / 10.850 against 10.789 / 12.843 ms,
-``turbo`` 13.939 / 12.131 against 15.897 / 13.723 ms, median of 200
-hops), offline B=64 x 4 s within 1.5% (xRT 366.2 / 352.8 against 360.7 /
-351.8 in ``highest``, 404.2 / 400.2 against 405.6 / 396.7 in ``turbo``).
+LayerNorm + residual tail in PyTorch); ``relayout_fm`` is the chain's
+entry permute.  The modes are stride sets and a template flag of the same
+CUDA kernels.  No route of the model takes them: on one NVIDIA H100 80GB
+HBM3 the fm chain ran bit-identical work 13-18% slower per exact hop at
+64 streams and within 1.5% offline, and the deferred tail took 1.5536
+against 0.7828 ms at B=64, so the model's DPRNN planes always travel
+``[B, T, Fq, C]`` at the compute dtype (:func:`route_key` lists the
+switches the model and the wrappers still read).
 """
 
 from __future__ import annotations
@@ -411,51 +397,12 @@ def v2_enabled(precision: str) -> bool:
     return precision == "default" and v2_requested()
 
 
-def _env_on(name: str, default: str) -> bool:
-    return os.environ.get(name, default) not in ("0", "false", "False")
-
-
-def intra_tm_enabled() -> bool:
-    """Run the freq-major DPRNN chain where it engages
-    (``DPDFNET_TPU_INTRA_TM``, the variable of
-    ``pallas_gru.intra_tm_enabled``; default off here, on there: see the
-    module notes for the card's A/B).  Read at each call."""
-    return _env_on("DPDFNET_TPU_INTRA_TM", "0")
-
-
-def entry_relayout_enabled() -> bool:
-    """Enter the fm chain through the ``relayout_fm`` kernel instead of a
-    PyTorch permute copy (``DPDFNET_TPU_ENTRY_RELAYOUT``, default off:
-    ``pallas_gru.entry_relayout_enabled``).  Read at each call."""
-    return _env_on("DPDFNET_TPU_ENTRY_RELAYOUT", "0")
-
-
-def h_ingest_enabled() -> bool:
-    """Hand the fm chain's inter kernel the hidden in the state's
-    ``[B, Fq, C]`` (``h_bm``) instead of transposing it around the call
-    (``DPDFNET_TPU_H_INGEST``, default off: ``pallas_gru.h_ingest_enabled``).
-    Read at each call."""
-    return _env_on("DPDFNET_TPU_H_INGEST", "0")
-
-
-def inter_defer(T: int) -> bool:
-    """Defer the inter fc + LayerNorm + residual tail out of the kernel
-    (``DPDFNET_TPU_INTER_DEFER``, default off: ``pallas_gru._inter_defer``),
-    which the JAX package engages only where its kernel runs more than one
-    step per grid cell: the largest power of two up to
-    ``DPDFNET_TPU_INTER_TS`` (default 8) dividing T must exceed 1, so never
-    at T == 1 and under the default only at even T.  Read at each call."""
-    ts = max(1, int(os.environ.get("DPDFNET_TPU_INTER_TS", "8")))
-    return _env_on("DPDFNET_TPU_INTER_DEFER", "0") and ts >= 2 and T % 2 == 0
-
-
-def plane_io_bf16(precision: str) -> bool:
-    """Carry the DPRNN planes between the stack's kernels in bfloat16
-    under the ``"default"`` precision (``DPDFNET_TPU_PLANE_IO=bf16``, the
-    same variable and gate as ``pallas_gru.plane_io_bf16``); the kernels'
-    math stays float32.  Read at each call."""
-    return precision == "default" and os.environ.get(
-        "DPDFNET_TPU_PLANE_IO", "0") not in ("0", "false", "False", "f32", "")
+def route_key(precision: str) -> tuple:
+    """The switches the model (``models.dpdfnet``) and these wrappers read
+    per call at ``precision``: the stack kernel, the inter v2 kernel and an
+    open :func:`force_disabled` block.  A program captured under one key
+    must not replay under another (``runtime.engine.stream_graph_key``)."""
+    return stack_enabled(), v2_enabled(precision), kernels_disabled()
 
 
 # --------------------------------------------------------------------------- #
@@ -1080,21 +1027,19 @@ _register("dprnn_inter_block", _inter_cpu, _inter_fake, _inter_cuda)
 def dprnn_inter_block(x: Tensor, h0: Tensor, wi: Tensor, bi: Tensor, wh: Tensor,
                       bh: Tensor, wfc: Tensor, bfc: Tensor, g: Tensor, bln: Tensor, *,
                       fm_batch: Optional[int] = None, h_bm: bool = False,
-                      defer: Optional[bool] = None) -> Tuple[Tensor, Tensor]:
+                      defer: bool = False) -> Tuple[Tensor, Tensor]:
     """Fused DPRNN inter stage on the plane ``x [B, T, Fq, C]`` from the
     carried ``h0 [B, Fq, C]``: ``out[t] = x[t] + LN(fc(GRUstep(h, x[t])))``.
     Returns ``(out, h_last [B, Fq, C])``.
 
     ``fm_batch=B``: the fm chain's layout, ``x [T, Fq*B, C]`` (f-major
     rows) in, ``out [Fq, T, B, C]``; ``h0`` / ``h_last`` ``[Fq*B, C]`` in
-    the rows' order, or ``[B, Fq, C]`` with ``h_bm``.  ``defer`` (default
-    :func:`inter_defer` of T): the kernel writes the raw hidden and
-    :func:`inter_tail` runs the fc + LayerNorm + residual over the whole
-    plane in PyTorch, x re-read in out's layout.  Replaces
+    the rows' order, or ``[B, Fq, C]`` with ``h_bm``.  ``defer``: the
+    kernel writes the raw hidden and :func:`inter_tail` runs the fc +
+    LayerNorm + residual over the whole plane in PyTorch, x re-read in
+    out's layout.  Replaces
     ``pallas_gru.dprnn_inter_block``."""
     T = x.shape[0] if fm_batch else x.shape[1]
-    if defer is None:
-        defer = inter_defer(T)
     if _direct(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln):
         out, h_last = dprnn_inter_block_plain(x, h0, wi, bi, wh, bh, wfc, bfc, g, bln,
                                               fm_batch=fm_batch, h_bm=h_bm, defer=defer)

@@ -13,7 +13,6 @@ channels-last memory format, so the convs run on the plane without a copy.
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -171,42 +170,6 @@ def grouped_linear(p: dict, x: Tensor, act: Optional[str] = None) -> Tensor:
     xg = x.reshape(-1, g, ig).transpose(0, 1)                    # [G, M, ig]
     y = torch.bmm(xg, p["w"].to(x.dtype)).transpose(0, 1)        # [M, G, og]
     y = y.reshape(lead + (g * og,)) + p["b"].to(x.dtype)
-    return apply_act(y, act)
-
-
-def grouped_linear_fm(p: dict, x_fm: Tensor, act: Optional[str] = None) -> Tensor:
-    """:func:`grouped_linear` of the freq-leading plane ``x_fm [F, T, B, C]``
-    (the fm DPRNN chain's output) over its flattened f-major ``(f, c)``
-    feature, without relaying the plane out to ``[B, T, F*C]``: returns
-    ``[B, T, G*og]``.  Groups that split whole f-slices (``ig % C == 0``)
-    contract directly; otherwise (``df_fc_emb``: ig 96, C 64) P = lcm/C
-    f-slices hold Q = lcm/ig whole groups, and each supergroup contracts
-    against the groups' weights scattered into a zero-padded
-    ``[P*C, Q*og]`` block (``dpdfnet_tpu.ops.nn.grouped_linear_fm``)."""
-    g, ig, og = p["w"].shape
-    F_, T, B, C = x_fm.shape
-    w = p["w"].to(x_fm.dtype)
-    if ig % C == 0:
-        fg = ig // C
-        if fg * g != F_:
-            raise ValueError(f"grouped_linear_fm: w {tuple(p['w'].shape)} does not cover the "
-                             f"[{F_},{T},{B},{C}] plane")
-        y = torch.einsum("gftbc,gfco->btgo", x_fm.reshape(g, fg, T, B, C),
-                         w.reshape(g, fg, C, og))
-    else:
-        lcm = ig * C // math.gcd(ig, C)
-        P, Q = lcm // C, lcm // ig
-        gs = g // Q
-        if gs * Q != g or gs * P != F_:
-            raise ValueError(f"grouped_linear_fm: w {tuple(p['w'].shape)} does not tile the "
-                             f"[{F_},{T},{B},{C}] plane into supergroups")
-        wq = w.reshape(gs, Q, ig, og)
-        wpad = w.new_zeros((gs, P * C, Q * og))
-        for q in range(Q):
-            wpad[:, q * ig:(q + 1) * ig, q * og:(q + 1) * og] = wq[:, q]
-        y = torch.einsum("gptbc,gpco->btgo", x_fm.reshape(gs, P, T, B, C),
-                         wpad.reshape(gs, P, C, Q * og))
-    y = y.reshape(B, T, g * og) + p["b"].to(x_fm.dtype)
     return apply_act(y, act)
 
 

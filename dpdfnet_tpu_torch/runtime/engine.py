@@ -123,17 +123,13 @@ def _state_f32_hiddens() -> bool:
 def stream_graph_key(kind: str, B: int, T: int, precision: str, st) -> tuple:
     """The cache key of a captured streaming program: the JAX package's key
     (``(B, T)`` for exact mode, ``("vec", B, T)``, ``("spec", B, T)``), then
-    every switch that ``forward_spec`` and the stream ends read per call and
-    the state's leaf dtypes, so a graph captured under one setting never
-    replays under another."""
+    the switches that ``forward_spec`` and its kernel wrappers read per call
+    (``gru_kernels.route_key``), the stream ends' DFT switch and the state's
+    leaf dtypes, so a graph captured under one setting never replays under
+    another."""
     base = (B, T) if kind == "exact" else (kind, B, T)
-    return base + (
-        gru_kernels.stack_enabled(), gru_kernels.v2_enabled(precision),
-        gru_kernels.intra_tm_enabled(), gru_kernels.entry_relayout_enabled(),
-        gru_kernels.h_ingest_enabled(), gru_kernels.inter_defer(T),
-        gru_kernels.plane_io_bf16(precision), _stream_dft_gemm(),
-        gru_kernels.kernels_disabled(),
-        tuple(leaf.dtype for _, leaf in tree_leaves(st)))
+    return base + gru_kernels.route_key(precision) + (
+        _stream_dft_gemm(), tuple(leaf.dtype for _, leaf in tree_leaves(st)))
 
 
 # one capture at a time in the process: ``torch.cuda.graph`` synchronizes

@@ -2,7 +2,7 @@
 
     python3 -m dpdfnet_tpu_torch.runtime.profile [--model M] [--batch B] [--seconds S]
     python3 -m dpdfnet_tpu_torch.runtime.profile --stream [--batch B] [--hops N] [--stack]
-    ... [--quality highest|high|fast|turbo] [--v2] [--fm on|off] [--relayout]
+    ... [--quality highest|high|fast|turbo] [--v2]
 
 Offline (default): runs ``Engine.enhance_waveforms`` once as a warm-up,
 then once under ``torch.profiler``.  ``--stream``: exact streaming of
@@ -12,10 +12,7 @@ hops, then ``--hops`` hops under the profiler.  ``--stack`` sets
 ``DPDFNET_TPU_STACK=1`` (the DPRNN stack kernel) before the engine is built; ``--quality`` picks the tier
 (``engine_from_quality``, default ``high``) and ``--v2`` sets
 ``DPDFNET_TPU_PALLAS_V2=1`` (the inter v2 kernel under ``fast`` /
-``turbo``).  ``--fm on|off`` sets ``DPDFNET_TPU_INTRA_TM`` (the freq-major
-DPRNN chain at batches of 32 and more) and ``--relayout``
-``DPDFNET_TPU_ENTRY_RELAYOUT=1`` (its entry permute as the ``relayout_fm``
-kernel).
+``turbo``).
 
 Prints one JSON object: the wall ms of the profiled run (and ms per hop
 when streaming), the summed device ms per kernel family (the port's CUDA
@@ -179,10 +176,6 @@ def main(argv=None) -> int:
                     help="quality tier (engine_from_quality)")
     ap.add_argument("--v2", action="store_true",
                     help="build the engine with DPDFNET_TPU_PALLAS_V2=1")
-    ap.add_argument("--fm", choices=("on", "off"), default=None,
-                    help="set DPDFNET_TPU_INTRA_TM (the freq-major DPRNN chain)")
-    ap.add_argument("--relayout", action="store_true",
-                    help="set DPDFNET_TPU_ENTRY_RELAYOUT=1 (the chain's entry relayout kernel)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -191,10 +184,6 @@ def main(argv=None) -> int:
         os.environ["DPDFNET_TPU_STACK"] = "1"
     if args.v2:
         os.environ["DPDFNET_TPU_PALLAS_V2"] = "1"
-    if args.fm is not None:
-        os.environ["DPDFNET_TPU_INTRA_TM"] = "1" if args.fm == "on" else "0"
-    if args.relayout:
-        os.environ["DPDFNET_TPU_ENTRY_RELAYOUT"] = "1"
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from ..config import get_config
@@ -264,8 +253,6 @@ def main(argv=None) -> int:
     print(json.dumps({
         "model": args.model, "batch": args.batch, **span, "stack": args.stack,
         "quality": args.quality, "v2": args.v2,
-        "fm": gru_kernels.intra_tm_enabled(),
-        "relayout": args.relayout,
         "card": smi, "wall_ms_profiled": wall_ms, "device_busy_ms": busy,
         "device_busy_share": busy / wall_ms, "launches": launches,
         "graph_replays": replays, "kernel_launches": kernel_launches(device_names),

@@ -2,30 +2,25 @@
 (counterpart of the repository's ``tools/stream_sweep.py``).
 
     python -m dpdfnet_tpu_torch.tools.stream_sweep [--model dpdfnet8_48khz_hr]
-        --points exact:s64:high exact:s128:turbo thr:s256:h4:turbo exact:s64:high:tm1
+        --points exact:s64:high exact:s128:turbo thr:s256:h4:turbo
         [--seconds 2] [--device cuda|cpu]
 
-Point grammar: ``<mode>:s<streams>[:h<hops per call>]:<tier>[:tm0|:tm1]``,
-mode ``exact`` or ``thr`` (throughput); ``tm0`` / ``tm1`` sets
-``DPDFNET_TPU_INTRA_TM`` off / on for that point (read per call; the
-caller's value is restored after it), without it the environment is left
-as it is.  Each point is one ``runtime.bench.run_stream_bench`` call;
-prints its JSON line per point with the point added.
+Point grammar: ``<mode>:s<streams>[:h<hops per call>]:<tier>``, mode
+``exact`` or ``thr`` (throughput).  Each point is one
+``runtime.bench.run_stream_bench`` call; prints its JSON line per point
+with the point added.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 from typing import List, Optional
-
-TM = "DPDFNET_TPU_INTRA_TM"
 
 
 def parse_point(point: str) -> dict:
-    """The point grammar above -> ``run_stream_bench`` arguments and ``tm``."""
-    out = {"mode": "exact", "streams": 64, "hops_per_call": 0, "precision": "high", "tm": None}
+    """The point grammar above -> ``run_stream_bench`` arguments."""
+    out = {"mode": "exact", "streams": 64, "hops_per_call": 0, "precision": "high"}
     for tok in point.split(":"):
         if tok in ("exact", "thr", "throughput"):
             out["mode"] = "exact" if tok == "exact" else "throughput"
@@ -33,8 +28,6 @@ def parse_point(point: str) -> dict:
             out["streams"] = int(tok[1:])
         elif tok[:1] == "h" and tok[1:].isdigit():
             out["hops_per_call"] = int(tok[1:])
-        elif tok in ("tm0", "tm1"):
-            out["tm"] = tok[-1]
         else:
             out["precision"] = tok
     return out
@@ -51,20 +44,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..runtime.bench import run_stream_bench
 
     for point in args.points:
-        kw = parse_point(point)
-        tm = kw.pop("tm")
-        saved = os.environ.get(TM)
-        if tm is not None:
-            os.environ[TM] = tm
-        try:
-            result = json.loads(run_stream_bench(model=args.model, seconds=args.seconds,
-                                                 device=args.device, **kw))
-        finally:
-            if tm is not None:
-                if saved is None:
-                    os.environ.pop(TM, None)
-                else:
-                    os.environ[TM] = saved
+        result = json.loads(run_stream_bench(model=args.model, seconds=args.seconds,
+                                             device=args.device, **parse_point(point)))
         result["point"] = point
         print(json.dumps(result), flush=True)
     return 0

@@ -434,7 +434,7 @@ def test_cuda_exact_streaming_bf16_tiers_bit_invariant(dev, monkeypatch, quality
 
 
 # --------------------------------------------------------------------------- #
-# The freq-major chain: relayout_fm and the intra / inter layout modes
+# The freq-major layout: relayout_fm and the intra / inter layout modes
 # --------------------------------------------------------------------------- #
 
 @pytest.mark.cuda
@@ -515,37 +515,6 @@ def test_cuda_inter_fm_modes(dev, plane, h_bm, defer):
         rows, hl_rows = gru_kernels.dprnn_inter_block(x4, h4, *args, defer=False)
         assert torch.equal(out, rows.permute(2, 1, 0, 3))
         assert torch.equal(hl if h_bm else hl.reshape(Fq, B, 64).transpose(0, 1), hl_rows)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("relayout", ["0", "1"])
-def test_cuda_dprnn_fm_chain_bit_identical_to_rowmajor(dev, monkeypatch, relayout):
-    """The fm chain (DPDFNET_TPU_INTRA_TM=1, B = 32) runs the same per-row
-    arithmetic as the row-major chain: outputs and hiddens bit-identical."""
-    from dpdfnet_tpu_torch.models import dpdfnet as tmd
-
-    rng = np.random.default_rng(33)
-    B, T, Fq, K = 32, 3, 16, 2
-    blocks = []
-    for _ in range(K):
-        wi2, wh2, b2, wfc, bfc, g, bln = _intra_args(rng, dev)
-        wi, bi, wh, bh, wfc2, bfc2, g2, bln2 = _inter_args(rng, dev)
-        blocks.append({"intra": {"packed": {"wi2": wi2, "wh2": wh2, "b2": b2},
-                                 "fc": {"w": wfc, "b": bfc}, "ln": {"g": g, "b": bln}},
-                       "inter": {"gru": {"wi": wi, "bi": bi, "wh": wh, "bh": bh},
-                                 "fc": {"w": wfc2, "b": bfc2}, "ln": {"g": g2, "b": bln2}}})
-    x = _rand(rng, (B, T, Fq, 64), dev)
-    hs = [_rand(rng, (B, Fq, 64), dev, 0.2) for _ in range(K)]
-    monkeypatch.setenv("DPDFNET_TPU_ENTRY_RELAYOUT", relayout)
-    monkeypatch.setenv("DPDFNET_TPU_INTRA_TM", "0")
-    ref, hs_ref = tmd._dprnn(blocks, x, hs)
-    monkeypatch.setenv("DPDFNET_TPU_INTRA_TM", "1")
-    gru_kernels.reset_launch_counts()
-    got, hs_got = tmd._dprnn(blocks, x, hs)
-    assert gru_kernels.launch_counts()["relayout_fm"] == int(relayout)
-    assert torch.equal(got, ref)
-    for a, b in zip(hs_got, hs_ref):
-        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

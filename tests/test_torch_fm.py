@@ -1,12 +1,16 @@
-"""The port's freq-major ("fm") DPRNN chain against the JAX package.
+"""The kernels' freq-major ("fm") layout modes against the JAX package,
+and the port's one DPRNN route against every route of the JAX package's.
 
 Each kernel mode's plain version (what a CPU tensor runs) against the
 Pallas kernel in interpret mode at ``precision="highest"``, as
 ``tests/test_pallas_gru.py`` runs them, on the same numpy inputs: the
-entry relayout (bit-exact), the intra stage's ``fm_batch`` mode, the inter
-stage's ``fm_batch`` / ``h_bm`` / deferred-tail modes, and
-``grouped_linear_fm``; then the chain as a whole (``_dprnn`` against
-``_dprnn_fused``) and one forward at B = 32, where the chain engages.
+entry relayout (bit-exact), the intra stage's ``fm_batch`` mode and the
+inter stage's ``fm_batch`` / ``h_bm`` / deferred-tail modes.  Then the
+JAX package's fm exit contraction ``grouped_linear_fm`` against the
+port's ``grouped_linear`` of the permuted plane, the port's ``_dprnn``
+against the JAX ``_dprnn_fused`` under each of its switch settings, one
+forward at B = 32, where the JAX fm chain engages, and a check that the
+six JAX switches the port retired move nothing in it.
 
 Tolerances: 1e-5 max-abs in float32 (the two sides differ in summation
 order and in the gate sigmoid's form, ~6e-8); a bfloat16 plane adds one
@@ -31,14 +35,16 @@ from torch_testing import jax_params_np
 
 ATOL = 1e-5
 BF16 = torch.bfloat16
+# the JAX package's switches of its fm chain and bf16 planes, which the
+# port does not read
 FM_ENV = ("DPDFNET_TPU_INTRA_TM", "DPDFNET_TPU_ENTRY_RELAYOUT", "DPDFNET_TPU_H_INGEST",
-          "DPDFNET_TPU_INTER_DEFER", "DPDFNET_TPU_INTER_TS")
+          "DPDFNET_TPU_INTER_DEFER", "DPDFNET_TPU_INTER_TS", "DPDFNET_TPU_PLANE_IO")
 
 
 @pytest.fixture(autouse=True)
 def _fm_env(monkeypatch):
-    """Each test starts from the switches' defaults (DPDFNET_TPU_INTRA_TM:
-    on in the JAX package, off in the port)."""
+    """Each test starts from the JAX switches' defaults (DPDFNET_TPU_INTRA_TM
+    on, the others off)."""
     for name in FM_ENV:
         monkeypatch.delenv(name, raising=False)
 
@@ -120,18 +126,18 @@ def _inter_case(rng, Fq, B, T, C, h_bm, bf16=False):
 def test_inter_fm_plain_matches_pallas(monkeypatch, h_bm, defer):
     """``fm_batch=B`` with the hidden in the rows' order or the state's
     ``[B, Fq, C]`` (``h_bm``), with the fused tail or the deferred one
-    (``DPDFNET_TPU_INTER_DEFER`` read by both sides; T = 6 gives the JAX
-    kernel two steps per cell, so its defer engages)."""
+    (``defer=`` to the port, ``DPDFNET_TPU_INTER_DEFER`` to the JAX side;
+    T = 6 gives the JAX kernel two steps per cell, so its defer engages)."""
     Fq, B, T, C = 12, 4, 6, 8
     monkeypatch.setenv("DPDFNET_TPU_INTER_DEFER", "1" if defer else "0")
-    assert gru_kernels.inter_defer(T) == defer
+    assert pallas_gru._inter_defer() == defer
     p, epi, x, h0 = _inter_case(np.random.default_rng(11), Fq, B, T, C, h_bm)
     ref, hl_ref = pallas_gru.dprnn_inter_block(
         jnp.asarray(x), jnp.asarray(h0), *(jnp.asarray(p[k]) for k in ("wi", "bi", "wh", "bh")),
         *map(jnp.asarray, epi), precision="highest", interpret=True, fm_batch=B, h_bm=h_bm)
     out, hl = gru_kernels.dprnn_inter_block(_t(x), _t(h0), *(_t(p[k]) for k in
                                                              ("wi", "bi", "wh", "bh")),
-                                            *map(_t, epi), fm_batch=B, h_bm=h_bm)
+                                            *map(_t, epi), fm_batch=B, h_bm=h_bm, defer=defer)
     assert out.shape == (Fq, T, B, C) and hl.shape == h0.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
     np.testing.assert_allclose(hl.numpy(), np.asarray(hl_ref), atol=ATOL)
@@ -166,7 +172,7 @@ def test_inter_fm_bf16_plane_matches_pallas(monkeypatch, defer, atol):
         precision="highest", interpret=True, fm_batch=B, h_bm=True)
     out, hl = gru_kernels.dprnn_inter_block(_t(x).to(BF16), _t(h0),
                                             *(_t(p[k]) for k in ("wi", "bi", "wh", "bh")),
-                                            *map(_t, epi), fm_batch=B, h_bm=True)
+                                            *map(_t, epi), fm_batch=B, h_bm=True, defer=defer)
     assert out.dtype == BF16 and hl.dtype == torch.float32
     ref_t = torch.from_numpy(np.array(ref.astype(jnp.float32))).to(BF16)
     assert gru_kernels.err_beyond_bf16_ulp(out, ref_t) < atol
@@ -189,18 +195,18 @@ def test_inter_fm_bf16_plane_matches_pallas(monkeypatch, defer, atol):
     (8, 2, 5, 64, 16, 16),   # df_fc_emb's shape class: ig = 32 < C (P = 1, Q = 2)
 ])
 def test_grouped_linear_fm_matches_jax(F, T, B, C, G, OG):
+    """The JAX package's fm exit contraction of the ``[F, T, B, C]`` plane
+    equals the port's ``grouped_linear`` of the same plane permuted to
+    ``[B, T, F*C]``, the port's one route."""
     rng = np.random.default_rng(5)
     plane = rng.normal(size=(F, T, B, C)).astype(np.float32)
     p = {"w": rng.normal(size=(G, F * C // G, OG)).astype(np.float32) * 0.2,
          "b": rng.normal(size=(G * OG,)).astype(np.float32)}
     ref = jax_nn.grouped_linear_fm(_j(p), jnp.asarray(plane), act="relu")
-    got = tnn.grouped_linear_fm({k: _t(v) for k, v in p.items()}, _t(plane), act="relu")
+    flat = _t(plane).permute(2, 1, 0, 3).reshape(B, T, F * C)
+    got = tnn.grouped_linear({k: _t(v) for k, v in p.items()}, flat, act="relu")
     assert got.shape == (B, T, G * OG)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
-    flat = _t(plane).permute(2, 1, 0, 3).reshape(B, T, F * C)
-    np.testing.assert_allclose(
-        got.numpy(), tnn.grouped_linear({k: _t(v) for k, v in p.items()}, flat,
-                                        act="relu").numpy(), atol=ATOL)
 
 
 def _blocks_np(rng, K, C):
@@ -228,9 +234,11 @@ def _blocks_np(rng, K, C):
     {"DPDFNET_TPU_INTRA_TM": "1", "DPDFNET_TPU_H_INGEST": "1", "DPDFNET_TPU_INTER_DEFER": "1"},
 ], ids=["tm", "tm-relayout", "rowmajor", "rowmajor-relayout", "tm-hingest-defer"])
 def test_dprnn_chain_matches_jax_fused(monkeypatch, env):
-    """``_dprnn(..., out_fm=True)`` against the JAX ``_dprnn_fused`` (Pallas
-    in interpret mode) at B = 32, where the fm chain engages with the
-    switch on: the output (its layout too) and every new hidden, 1e-5."""
+    """The port's one ``_dprnn`` route against the JAX ``_dprnn_fused``
+    (Pallas in interpret mode) under each id's switches, at B = 32, where
+    the JAX fm chain engages with ``DPDFNET_TPU_INTRA_TM=1``: the output
+    (the JAX fm plane permuted to ``[B, T, Fq, C]``) and every new hidden,
+    1e-5."""
     from dpdfnet_tpu.models import dpdfnet as jmd
     from dpdfnet_tpu_torch.models import dpdfnet as tmd
     from dpdfnet_tpu_torch.utils.serialization import params_from_jax
@@ -256,23 +264,24 @@ def test_dprnn_chain_matches_jax_fused(monkeypatch, env):
     for b in blocks_t:
         b["intra"]["packed"] = dict(zip(("wi2", "wh2", "b2"), _pack_bidir(
             b["intra"]["fw"], b["intra"]["bw"])))
-    got, hs_got, layout = tmd._dprnn(blocks_t, _t(x), [_t(h) for h in hs], out_fm=True)
-    assert layout == layout_ref == ("fm" if env["DPDFNET_TPU_INTRA_TM"] == "1" else "bt")
-    assert got.shape == tuple(ref.shape)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    got, hs_got = tmd._dprnn(blocks_t, _t(x), [_t(h) for h in hs])
+    assert layout_ref == ("fm" if env["DPDFNET_TPU_INTRA_TM"] == "1" else "bt")
+    ref = np.asarray(ref)
+    if layout_ref == "fm":
+        ref = ref.transpose(2, 1, 0, 3)
+    assert got.shape == ref.shape == (B, T, Fq, C)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
     for a, b in zip(hs_got, hs_ref):
         assert a.dtype == torch.float32 and a.shape == (B, Fq, C)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL)
-    if layout == "fm":
-        bt, _ = tmd._dprnn(blocks_t, _t(x), [_t(h) for h in hs])
-        np.testing.assert_array_equal(bt.numpy(), got.permute(2, 1, 0, 3).numpy())
 
 
 def test_fm_forward_spec_matches_jax(monkeypatch):
-    """``forward_spec`` at B = 32 on ``dpdfnet2_48khz_hr`` (Fq 40 and 48, so
-    both DPRNN branches take the fm chain and the encoder contracts both fm
-    planes with ``grouped_linear_fm``) against the JAX forward with its
-    Pallas kernels in interpret mode: output and every state leaf, 1e-4."""
+    """The port's ``forward_spec`` at B = 32 on ``dpdfnet2_48khz_hr``
+    against the JAX forward on its default route there (Fq 40 and 48, so
+    both JAX DPRNN branches take the fm chain and its encoder contracts
+    both fm planes with ``grouped_linear_fm``), its Pallas kernels in
+    interpret mode: output and every state leaf, 1e-4."""
     from dpdfnet_tpu.config import get_config as jax_get_config
     from dpdfnet_tpu.models.dpdfnet import forward_spec as jax_forward_spec
     from dpdfnet_tpu.models.fuse import fuse_separable, pack_dprnn_bidir
@@ -286,7 +295,7 @@ def test_fm_forward_spec_matches_jax(monkeypatch):
 
     monkeypatch.setenv("DPDFNET_TPU_PALLAS", "1")
     monkeypatch.setenv("DPDFNET_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setenv("DPDFNET_TPU_INTRA_TM", "1")     # the JAX default; off in the port
+    assert pallas_gru.intra_tm_enabled()                  # the JAX default route
     name, B, T = "dpdfnet2_48khz_hr", 32, 2
     cfg_j, cfg = jax_get_config(name), get_config(name)
     p_np = jax_params_np(name)
@@ -298,20 +307,47 @@ def test_fm_forward_spec_matches_jax(monkeypatch):
                              cfg_j, jnp.asarray(spec), jax_init_state(cfg_j, batch=B))
 
     params = prepare_inference_params(params_from_jax(p_np, device="cpu"), cfg)
-    layouts = []
-    real = tmd._dprnn_fm
-    monkeypatch.setattr(tmd, "_dprnn_fm", lambda *a: layouts.append(1) or real(*a))
     with torch.no_grad():
         out_t, st_t, _ = tmd.forward_spec(params, cfg, torch.from_numpy(spec),
                                           init_state(cfg, batch=B, device="cpu"))
-    assert len(layouts) == 2                      # both branches on the fm chain
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-4)
     lj = {k: np.asarray(v) for k, v in tree_leaves(st_j)}
     for k, v in tree_leaves(st_t):
         np.testing.assert_allclose(v.numpy(), lj[k], atol=1e-4, err_msg=k)
 
 
-def test_fm_chain_default_off_in_the_port():
-    """The port's default is the row-major chain (the card's A/B); the
-    variable turns the fm chain on, as in the JAX package."""
-    assert not gru_kernels.intra_tm_enabled() and pallas_gru.intra_tm_enabled()
+def test_port_has_one_dprnn_route(monkeypatch):
+    """The six JAX switches of the fm chain and the bf16 planes move nothing
+    in the port: at B = 32 under ``"default"`` (where both would have
+    engaged), ``forward_spec`` with every one of them set is bit-equal to
+    ``forward_spec`` without them, and no intra call takes a layout mode."""
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models import dpdfnet as tmd
+    from dpdfnet_tpu_torch.models.fuse import prepare_inference_params
+    from dpdfnet_tpu_torch.models.state import init_state
+    from dpdfnet_tpu_torch.utils.serialization import params_from_jax
+    from dpdfnet_tpu_torch.utils.tree import tree_leaves
+
+    name, B, T = "dpdfnet2_48khz_hr", 32, 2
+    cfg = get_config(name)
+    params = prepare_inference_params(params_from_jax(jax_params_np(name), device="cpu"), cfg)
+    spec = torch.from_numpy((0.3 * np.random.default_rng(7).normal(
+        size=(B, T, cfg.freq_bins, 2))).astype(np.float32))
+    modes = []
+    real = gru_kernels.dprnn_intra_block
+    monkeypatch.setattr(gru_kernels, "dprnn_intra_block",
+                        lambda *a, **kw: modes.append(kw.get("fm_batch")) or real(*a, **kw))
+
+    def run():
+        with torch.no_grad():
+            return tmd.forward_spec(params, cfg, spec, init_state(cfg, batch=B, device="cpu"),
+                                    precision="default")
+
+    out, st, _ = run()
+    for name_, value in zip(FM_ENV, ("1", "1", "1", "1", "2", "bf16")):
+        monkeypatch.setenv(name_, value)
+    out_set, st_set, _ = run()
+    assert modes and not any(modes)
+    assert torch.equal(out_set, out)
+    for (k, a), (_, b) in zip(tree_leaves(st_set), tree_leaves(st)):
+        assert torch.equal(a, b), k

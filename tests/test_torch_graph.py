@@ -1,9 +1,9 @@
 """The logic around the captured streaming programs that the CPU can check:
 the graph cache key changes with every switch ``forward_spec`` and the
 stream ends read per call (a graph captured under one setting must never
-replay under another), the launch counting around a capture and its
-replays, and the caller's ownership of the state ``process_frames``
-returns.  The graphs themselves need a card
+replay under another) and with none of the switches the port retired,
+the launch counting around a capture and its replays, and the caller's
+ownership of the state ``process_frames`` returns.  The graphs themselves need a card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 18).
 """
 
@@ -24,12 +24,18 @@ import torch_testing  # noqa: F401  (the thread budget)
 SWITCHES = {
     "stack": ("DPDFNET_TPU_STACK", "1", "exact", 1, "high"),
     "v2": ("DPDFNET_TPU_PALLAS_V2", "1", "exact", 1, "default"),
-    "intra_tm": ("DPDFNET_TPU_INTRA_TM", "1", "exact", 1, "high"),
-    "entry_relayout": ("DPDFNET_TPU_ENTRY_RELAYOUT", "1", "vec", 8, "high"),
-    "h_ingest": ("DPDFNET_TPU_H_INGEST", "1", "vec", 8, "high"),
-    "inter_defer": ("DPDFNET_TPU_INTER_DEFER", "1", "vec", 8, "high"),
-    "plane_io_bf16": ("DPDFNET_TPU_PLANE_IO", "bf16", "exact", 1, "default"),
     "stream_dft_gemm": ("DPDFNET_TPU_STREAM_DFT_GEMM", "1", "exact", 1, "high"),
+}
+
+# (value, kind, T, precision) of each JAX switch the port does not read: the
+# freq-major chain's and the bf16 planes', each where it would have engaged
+RETIRED = {
+    "DPDFNET_TPU_INTRA_TM": ("1", "exact", 1, "high"),
+    "DPDFNET_TPU_ENTRY_RELAYOUT": ("1", "vec", 8, "high"),
+    "DPDFNET_TPU_H_INGEST": ("1", "vec", 8, "high"),
+    "DPDFNET_TPU_INTER_DEFER": ("1", "vec", 8, "high"),
+    "DPDFNET_TPU_INTER_TS": ("1", "vec", 8, "high"),
+    "DPDFNET_TPU_PLANE_IO": ("bf16", "exact", 1, "default"),
 }
 
 
@@ -41,7 +47,7 @@ def engine():
 
 @pytest.fixture
 def clean_env(monkeypatch):
-    for var, *_ in SWITCHES.values():
+    for var in [v[0] for v in SWITCHES.values()] + list(RETIRED):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.delenv("DPDFNET_TPU_STATE_F32H", raising=False)
     return monkeypatch
@@ -57,6 +63,19 @@ def test_graph_key_changes_with_each_switch(engine, clean_env, switch):
     assert on != off
     n = 2 if kind == "exact" else 3
     assert on[:n] == off[:n]                    # the JAX key itself is the same
+
+
+@pytest.mark.parametrize("var", list(RETIRED))
+def test_graph_key_ignores_retired_variables(engine, clean_env, var):
+    """The key holds only what the port reads; INTER_TS is set with
+    INTER_DEFER on, where it would have turned the deferred tail off."""
+    value, kind, T, precision = RETIRED[var]
+    st = engine.init_stream_state(batch=2)
+    if var == "DPDFNET_TPU_INTER_TS":
+        clean_env.setenv("DPDFNET_TPU_INTER_DEFER", "1")
+    before = stream_graph_key(kind, 2, T, precision, st)
+    clean_env.setenv(var, value)
+    assert stream_graph_key(kind, 2, T, precision, st) == before
 
 
 def test_graph_key_changes_under_force_disabled_and_with_the_state_dtypes(engine, clean_env):

@@ -146,22 +146,20 @@ def test_bench_sweep_prints_one_line_per_point(monkeypatch):
         bench_sweep.parse_point("b2:s8:x")
 
 
-def test_stream_sweep_points_and_intra_tm(monkeypatch):
-    monkeypatch.setenv(stream_sweep.TM, "0")
+def test_stream_sweep_points(monkeypatch):
     calls = []
     monkeypatch.setattr(bench, "run_stream_bench", _fake(
-        bench.run_stream_bench, calls,
-        lambda a: {"metric": "m", "value": 1.5, "device": "cpu",
-                   "tm": os.environ.get(stream_sweep.TM)}))
+        bench.run_stream_bench, calls, lambda a: {"metric": "m", "value": 1.5, "device": "cpu"}))
     lines = _main(stream_sweep, ["--model", "dpdfnet2", "--seconds", "0.2", "--device", "cpu",
-                                 "--points", "exact:s2:high", "thr:s4:h2:turbo:tm1"])
+                                 "--points", "exact:s2:high", "thr:s4:h2:turbo"])
     got = [json.loads(ln) for ln in lines]
-    assert [g["point"] for g in got] == ["exact:s2:high", "thr:s4:h2:turbo:tm1"]
-    assert [g["tm"] for g in got] == ["0", "1"]
-    assert os.environ[stream_sweep.TM] == "0"                   # restored
+    assert [g["point"] for g in got] == ["exact:s2:high", "thr:s4:h2:turbo"]
     assert [(c["mode"], c["streams"], c["hops_per_call"], c["precision"]) for c in calls] == \
         [("exact", 2, 0, "high"), ("throughput", 4, 2, "turbo")]
     assert all(c["seconds"] == 0.2 and c["device"] == "cpu" for c in calls)
+    # a point names run_stream_bench's arguments and nothing else
+    assert set(stream_sweep.parse_point("thr:s4:h2:turbo")) == {
+        "mode", "streams", "hops_per_call", "precision"}
 
 
 def test_resampler_delta_reports_every_ratio():
