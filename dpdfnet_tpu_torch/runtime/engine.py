@@ -225,6 +225,62 @@ def _host(ys) -> np.ndarray:
         return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 
+def _staged(a: np.ndarray, pin: bool) -> torch.Tensor:
+    """Host array ``a`` as the tensor an offline call uploads from: with
+    ``pin`` (a card takes it) a copy in pinned memory from PyTorch's caching
+    host allocator, made by torch's multi-threaded ``copy_``; else ``a``
+    itself."""
+    src = torch.from_numpy(a)
+    if not pin:
+        return src
+    return torch.empty(src.shape, dtype=src.dtype, pin_memory=True).copy_(src)
+
+
+def _upload_staged(x: torch.Tensor, device: torch.device, pinned: bool) -> torch.Tensor:
+    """The offline call's :func:`_upload`: ``x`` on ``device``, without the
+    host waiting for the copy where ``x`` is pinned (the span
+    ``engine.upload``; the bytes that cross to a card count as
+    ``engine.h2d_bytes``, and from pinned memory as ``engine.pinned_bytes``
+    too)."""
+    with telemetry.span("engine.upload", card=device.index):
+        y = x.to(device, non_blocking=pinned)
+        if device.type != "cpu":
+            telemetry.count("engine.h2d_bytes", y.nbytes)
+            if pinned:
+                telemetry.count("engine.pinned_bytes", y.nbytes)
+        return y
+
+
+def _fetch_rows(ys, B: int, S: int, pin: bool) -> np.ndarray:
+    """The offline call's :func:`_host`: the replicas' output rows ``ys``
+    (each ``[r, S]`` on its device, in mesh order, ``B`` rows in all) as
+    one ``[B, S]`` array that the caller owns (the span ``engine.fetch``).
+    With ``pin`` every replica's rows are copied into their row slice of
+    one pinned tensor without waiting, then each replica's stream is
+    synchronised once and the pinned rows are copied into a fresh array by
+    torch's multi-threaded ``copy_``: pinned memory, which the caching host
+    allocator hands out again, never reaches the caller.  The bytes from a
+    card count as ``engine.d2h_bytes``, and through pinned memory as
+    ``engine.pinned_bytes`` too."""
+    with telemetry.span("engine.fetch"):
+        out = np.empty((B, S), np.float32)
+        host = torch.empty((B, S), dtype=torch.float32, pin_memory=True) if pin else \
+            torch.from_numpy(out)
+        r0 = 0
+        for y in ys:
+            host[r0:r0 + y.shape[0]].copy_(y, non_blocking=pin)
+            r0 += y.shape[0]
+            if y.is_cuda:
+                telemetry.count("engine.d2h_bytes", y.nbytes)
+                if pin:
+                    telemetry.count("engine.pinned_bytes", y.nbytes)
+        for dev in {y.device for y in ys if y.is_cuda}:
+            torch.cuda.current_stream(dev).synchronize()
+        if pin:
+            torch.from_numpy(out).copy_(host)
+        return out
+
+
 class Engine:
     """Holds params on one device, or replicated over a mesh, for one model
     configuration."""
@@ -709,7 +765,8 @@ class Engine:
         Args:
             wavs: ``[S]`` or ``[B, S]`` float32 at ``cfg.sample_rate``.
             attn_limit_db: optional attenuation limit (dB).
-            lengths: optional per-utterance valid lengths (defaults to S);
+            lengths: optional per-utterance valid lengths (defaults to S;
+                one per row, else ``ValueError``; clipped to ``[0, S]``):
                 output past each length is zeroed, and each row runs only
                 the segments its own length needs.
             progress_callback: optional ``fn(done, total)`` in frames,
@@ -717,60 +774,83 @@ class Engine:
                 one (the segment-stepped path; the same output).
 
         Returns:
-            Enhanced float32 audio (numpy) with the same shape as ``wavs``.
+            Enhanced float32 audio (numpy) with the same shape as ``wavs``,
+            in an array of its own (it shares memory with nothing the engine
+            keeps or reuses).
 
-        The batch is zero-padded to ``bucket_len(S)`` samples, whole
-        segments of frames.  A row's need is the segments of
-        ``bucket_len(length)``, none for an empty row or a mesh's padding
-        row; each shard's rows run longest need first, and segment ``i``
-        runs over the rows whose need reaches it (:meth:`_offline_shards`).
+        The caller's ``[B, S]`` is what crosses to the devices: on a card it
+        is copied into pinned memory and uploaded without the host waiting,
+        and the device zero-pads it to ``bucket_len(S)`` samples, whole
+        segments of frames (and on a mesh to a multiple of its size with
+        zero rows).  A row's need is the segments of ``bucket_len(length)``,
+        none for an empty row or a mesh's padding row; each shard's rows run
+        longest need first, and segment ``i`` runs over the rows whose need
+        reaches it (:meth:`_offline_shards`).  The device cuts the output to
+        the caller's rows and ``S`` samples and zeroes each row past its
+        length, and only that ``[B, S]`` comes back, through pinned memory
+        on a card.
 
         Spans: ``engine.enhance_waveforms`` over ``engine.pad`` (bucket,
-        zero-pad, the schedule, an ``engine.upload`` per replica and per
-        row order), ``engine.launch`` (every replica's work enqueued),
-        ``engine.fetch``, ``engine.unpad``.  Counters:
-        ``engine.row_segments`` (row-segments run) and
-        ``engine.row_segments_full`` (rows times segments of the call).
+        the schedule, the copy into pinned memory, an ``engine.upload`` per
+        replica for its rows, row order and lengths, the zero-pad enqueued),
+        ``engine.launch`` (every replica's work enqueued), ``engine.unpad``
+        (the cut and the zeroing past each length enqueued), ``engine.fetch``
+        (the copies back into pinned memory, the wait for the devices, the
+        copy into the returned array).  Counters: ``engine.row_segments``
+        (row-segments run), ``engine.row_segments_full`` (rows times
+        segments of the call), and with the byte counters
+        ``engine.pinned_bytes`` (bytes that crossed through pinned memory).
         """
         with telemetry.span("engine.enhance_waveforms"):
             value = audio_lib.validate_attn_limit_db(attn_limit_db)
             alpha = 0.0 if value is None else float(np.float32(10.0 ** (-value / 20.0)))
+            # host copies to and from a card go through pinned memory
+            pin = any(rep.device.type == "cuda" for rep in self.replicas)
             with telemetry.span("engine.pad"):
                 squeeze = np.ndim(wavs) == 1
-                x = np.atleast_2d(np.asarray(wavs, dtype=np.float32))
+                x = np.ascontiguousarray(np.atleast_2d(np.asarray(wavs, dtype=np.float32)))
                 B, S = x.shape
                 S_pad = self.bucket_len(S)
                 n_seg = int(self._bucket_segments(S))
                 n = len(self.replicas)
                 # on a mesh the batch is padded with zero rows to a multiple of its size
-                xp = np.zeros((-(-B // n) * n, S_pad), np.float32)
-                xp[:B, :S] = x
-                b = xp.shape[0] // n
-                need = np.zeros(xp.shape[0], np.int64)
+                b = -(-B // n)
+                need = np.zeros(b * n, np.int64)
+                ln = None
                 if lengths is None:
                     need[:B] = n_seg
                 else:
                     ln = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, S)
+                    if ln.size != B:
+                        raise ValueError(f"{ln.size} lengths for a batch of {B}")
                     need[:B] = np.where(ln > 0, self._bucket_segments(ln), 0)
+                    if (ln == S).all():
+                        ln = None                   # no sample to zero
                 telemetry.count("engine.row_segments", int(need.sum()))
                 telemetry.count("engine.row_segments_full", B * n_seg)
-                wavs, plans = [], []
+                xs = _staged(x, pin)
+                wavs, plans, cuts = [], [], []
                 for j, rep in enumerate(self.replicas):
+                    r0, r1 = min(j * b, B), min((j + 1) * b, B)
                     nj = need[j * b:(j + 1) * b]
                     order = np.argsort(-nj, kind="stable")
-                    wavs.append(_upload(torch.from_numpy(xp[j * b:(j + 1) * b]), rep.device))
+                    w = _upload_staged(xs[r0:r1], rep.device, pin)
+                    # zero-padded on the device, to S_pad samples and b rows
+                    wavs.append(torch.nn.functional.pad(w, (0, S_pad - S, 0, b - (r1 - r0))))
                     plans.append((None if (order == np.arange(b)).all() else
-                                  _upload(torch.from_numpy(order), rep.device),
+                                  _upload_staged(_staged(order, pin), rep.device, pin),
                                   [int(np.count_nonzero(nj > i)) for i in range(n_seg)]))
+                    cuts.append((r1 - r0, None if ln is None else
+                                 _upload_staged(_staged(ln[r0:r1], pin), rep.device, pin)))
             with telemetry.span("engine.launch"), _math_mode(self.precision):
                 ys = self._offline_shards(wavs, alpha, progress_callback, plans)
-            y = _host(ys)
 
             with telemetry.span("engine.unpad"):
-                out = np.zeros_like(x)
-                n = min(S, y.shape[1])
-                out[:, :n] = y[:B, :n]
-                if lengths is not None:
-                    for i, ln in enumerate(np.asarray(lengths).reshape(-1)):
-                        out[i, int(ln):] = 0.0
+                # each replica's own rows and the caller's S samples (bucket_len
+                # leaves the output S_pad - win_len >= S long), zero past each length
+                for j, (rows, lj) in enumerate(cuts):
+                    y = ys[j][:rows, :S]
+                    ys[j] = (y.contiguous() if lj is None else torch.where(
+                        torch.arange(S, device=y.device) < lj[:, None], y, 0.0))
+            out = _fetch_rows(ys, B, S, pin)
             return out[0] if squeeze else out

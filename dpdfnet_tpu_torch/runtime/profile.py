@@ -29,8 +29,10 @@ self ms per span (``host_ms``), the device's idle ms by the innermost
 span the host was in at each idle gap's middle (``idle_ms``; ``outside
 spans`` where none), the graphs captured (``captures``), the bytes
 copied to and from the card and the offline row-segments run and in the
-full rectangle (``counters``), and the share of those that ran
-(``row_segment_share``; 1.0 here, where no call passes ``lengths``).  Needs a CUDA device; random
+full rectangle (``counters``), the share of those that ran
+(``row_segment_share``; 1.0 here, where no call passes ``lengths``), and
+the share of the bytes copied to and from the card that crossed through
+pinned memory (``pinned_share``: about 1 offline, 0 streaming).  Needs a CUDA device; random
 contracted weights (``init_params`` + ``contract_params``, seed 0); the
 tier sets its own cuBLAS / cuDNN math mode for each engine call.
 """
@@ -88,6 +90,14 @@ def kernel_launches(names) -> dict:
         if hit:
             counts[hit[0]] += 1
     return dict(counts)
+
+
+def pinned_share(counters: dict):
+    """``engine.pinned_bytes`` over the bytes copied to and from cards
+    (``engine.h2d_bytes`` + ``engine.d2h_bytes``): how much of the host's
+    copying went through pinned memory; ``None`` where nothing crossed."""
+    crossed = counters.get("engine.h2d_bytes", 0) + counters.get("engine.d2h_bytes", 0)
+    return counters.get("engine.pinned_bytes", 0) / crossed if crossed else None
 
 
 # the profiled run's own range, the window that busy and idle time cover
@@ -267,6 +277,7 @@ def main(argv=None) -> int:
         "row_segment_share": (snap["counters"].get("engine.row_segments", 0)
                               / snap["counters"]["engine.row_segments_full"]
                               if snap["counters"].get("engine.row_segments_full") else None),
+        "pinned_share": pinned_share(snap["counters"]),
     }, indent=1))
     return 0
 

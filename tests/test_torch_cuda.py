@@ -1226,9 +1226,13 @@ def test_cuda_engine_records_its_graph_spans(dev):
         sorted({ev.name for ev in mirrors})
     counts = telemetry.counters()
     S_pad = eng.bucket_len(wav.shape[1])
-    assert counts["engine.h2d_bytes"] == frame_bytes + 2 * S_pad * 4
-    # two rows of S_pad - win_len samples (the frames' span less the alignment)
-    assert counts["engine.d2h_bytes"] == frame_bytes + 2 * (S_pad - cfg.win_len) * 4
+    # the offline call's two rows of S samples each way (the card pads to
+    # S_pad and cuts back to S), both through pinned memory; the live call
+    # pins nothing
+    wav_bytes = wav.size * 4
+    assert counts["engine.h2d_bytes"] == frame_bytes + wav_bytes
+    assert counts["engine.d2h_bytes"] == frame_bytes + wav_bytes
+    assert counts["engine.pinned_bytes"] == 2 * wav_bytes
     n_seg = ((S_pad + cfg.win_len) // cfg.hop + 1) // eng.seg_frames
     assert counts["engine.row_segments"] == counts["engine.row_segments_full"] == 2 * n_seg
     telemetry.reset()
@@ -1240,7 +1244,8 @@ def test_cuda_offline_rows_drop_out_as_their_lengths_end(dev):
     ``seg_frames=16`` (an empty row, one ending on a segment's last valid
     sample, the longest, two in between): each row within 1e-4 of that
     row enhanced alone at its own length and zero past it, the
-    counters exact, and the row order uploaded once."""
+    counters exact, and the rows, the row order and the lengths uploaded
+    once, all through pinned memory."""
     from dpdfnet_tpu_torch.config import get_config
     from dpdfnet_tpu_torch.models.params import contract_params, init_params
     from dpdfnet_tpu_torch.runtime import telemetry
@@ -1264,11 +1269,105 @@ def test_cuda_offline_rows_drop_out_as_their_lengths_end(dev):
     telemetry.reset()
     assert counts["engine.row_segments"] == sum(need)
     assert counts["engine.row_segments_full"] == len(lengths) * max(need)
-    S_pad = eng.bucket_len(wav.shape[1])
-    assert counts["engine.h2d_bytes"] == len(lengths) * (S_pad * 4 + 8)
+    # the caller's rows (the card pads them), the row order and the lengths
+    assert counts["engine.h2d_bytes"] == len(lengths) * (wav.shape[1] * 4 + 8 + 8)
+    assert counts["engine.d2h_bytes"] == wav.size * 4
+    assert counts["engine.pinned_bytes"] == counts["engine.h2d_bytes"] + counts["engine.d2h_bytes"]
     for i, n in enumerate(lengths):
         assert np.all(got[i, n:] == 0.0)
         if n:
             alone = eng.enhance_waveforms(wav[i, :n])
             assert float(np.abs(alone).max()) > 0
             assert float(np.abs(got[i, :n] - alone).max()) < TOL
+
+
+def _host_path_engine(dev, case):
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.parallel.mesh import make_mesh
+    from dpdfnet_tpu_torch.runtime.engine import Engine
+
+    cfg = get_config("dpdfnet8_48khz_hr")
+    kw = {"seg_frames": 16, "bucket_s": 0.0}
+    if case.startswith("mesh"):
+        kw["mesh"] = make_mesh([dev, dev])
+    else:
+        kw["device"] = dev
+    return Engine(cfg, contract_params(init_params(cfg, seed=0, device=dev)), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "no_lengths", "one_d", "attn_limit",
+                                  "mesh_padding_row", "mesh_replica_without_rows"])
+def test_cuda_offline_bit_identical_to_the_host_path(dev, case):
+    """On the card the pinned upload, the pad on the card, the cut and
+    zeroing on the card and the pinned fetch of ``[B, S]`` give, bit for
+    bit, the output of the host-side pad, pageable copies and cut
+    (``offline_host_path``); dpdfnet8_48khz_hr at ``seg_frames=16``, a
+    mesh of two replicas on one card (B=3: a padding row; B=1: a replica
+    with no row of the caller's)."""
+    from offline_host_path import enhance_host_padded
+
+    eng = _host_path_engine(dev, case)
+    cfg = eng.cfg
+    seg = 16 * cfg.hop
+    rng = np.random.default_rng(26)
+    lengths = {"mixed": [seg, 0, 3 * seg + 5, 2 * seg - 7, 4 * seg],
+               "attn_limit": [seg, 0, 3 * seg + 5, 2 * seg - 7, 4 * seg],
+               "mesh_padding_row": [4 * seg, seg + 3, 2 * seg],
+               "mesh_replica_without_rows": [3 * seg - 11]}.get(case)
+    kwargs = {}
+    if case in ("no_lengths", "one_d"):
+        wav = (0.1 * rng.normal(size=(3, 2 * seg + 101))).astype(np.float32)
+        wav = wav[0] if case == "one_d" else wav
+    else:
+        lengths = np.array(lengths)
+        wav = np.zeros((len(lengths), int(lengths.max())), np.float32)
+        for i, n in enumerate(lengths):
+            wav[i, :n] = 0.1 * rng.normal(size=n)
+        kwargs["lengths"] = lengths
+    if case == "attn_limit":
+        kwargs["attn_limit_db"] = 12.0
+    got = eng.enhance_waveforms(wav, **kwargs)
+    ref = enhance_host_padded(eng, wav, **kwargs)
+    assert got.shape == wav.shape and float(np.abs(got).max()) > 0
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_offline_output_owns_its_memory_and_pins_every_byte(dev):
+    """The returned array is the caller's own: a second call with other
+    input leaves the first result as it was and shares no memory with it.
+    Under ``telemetry.recording()`` every byte the offline call moves
+    between host and card goes through pinned memory, and a live
+    ``process_frames`` call pins none."""
+    from dpdfnet_tpu_torch.runtime import telemetry
+
+    eng = _graph_engine(dev)
+    cfg = eng.cfg
+    rng = np.random.default_rng(27)
+    lengths = np.array([cfg.sample_rate, cfg.sample_rate // 3, 0, cfg.sample_rate // 2])
+    a = (0.1 * rng.normal(size=(4, cfg.sample_rate))).astype(np.float32)
+    b = (0.1 * rng.normal(size=(4, cfg.sample_rate))).astype(np.float32)
+    first = eng.enhance_waveforms(a, lengths=lengths)
+    kept = first.copy()
+    telemetry.reset()
+    with telemetry.recording():
+        second = eng.enhance_waveforms(b, lengths=lengths)
+    counts = telemetry.counters()
+    telemetry.reset()
+    np.testing.assert_array_equal(first, kept)
+    assert not np.array_equal(first, second)
+    assert not np.shares_memory(first, second)
+    assert not torch.from_numpy(second).is_pinned()
+    assert counts["engine.pinned_bytes"] == counts["engine.h2d_bytes"] + counts["engine.d2h_bytes"]
+    assert counts["engine.d2h_bytes"] == b.size * 4
+    frames = (0.1 * rng.normal(size=(4, 2, cfg.win_len))).astype(np.float32)
+    st = eng.init_stream_state(batch=4)
+    eng.process_frames(frames, st)                  # captures the graph
+    with telemetry.recording():
+        eng.process_frames(frames, st)
+    counts = telemetry.counters()
+    telemetry.reset()
+    assert counts["engine.h2d_bytes"] == counts["engine.d2h_bytes"] == frames.size * 4
+    assert counts.get("engine.pinned_bytes", 0) == 0

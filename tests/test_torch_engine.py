@@ -22,10 +22,12 @@ from dpdfnet_tpu.config import get_config as jax_get_config
 from dpdfnet_tpu.runtime.engine import Engine as JaxEngine
 
 from dpdfnet_tpu_torch.config import get_config
+from dpdfnet_tpu_torch.parallel.mesh import make_mesh
 from dpdfnet_tpu_torch.runtime import telemetry
 from dpdfnet_tpu_torch.runtime.engine import Engine, engine_from_quality
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 
+from offline_host_path import enhance_host_padded
 from torch_testing import jax_params_np
 
 CONFIGS = ["dpdfnet2", "dpdfnet8_48khz_hr"]
@@ -211,3 +213,55 @@ def test_engine_progress_reports_one_per_segment_with_rows_dropping_out():
     assert calls == [(0, T)] + [(16 * (i + 1), T) for i in range(T // 16)]
     assert all(type(v) is int for c in calls for v in c)
     np.testing.assert_array_equal(stepped, eng.enhance_waveforms(wavs, lengths=lengths))
+
+
+def _host_path_case(case):
+    """(engine, wavs, kwargs) of one case of the host-path comparison."""
+    eng = _mixed_engine()
+    if case.startswith("mesh"):
+        # B=3 on two replicas: the second shard is one row and a zero row;
+        # B=2 on three: an empty row, and a replica with only a zero row
+        n, lengths = (2, [7000, 900, 6000]) if case == "mesh_padding_row" else (3, [5000, 0])
+        eng = Engine(eng.cfg, eng.params, seg_frames=16, bucket_s=0.0, fuse=False,
+                     mesh=make_mesh(["cpu"] * n))
+        return eng, _mixed_batch(lengths, seed=33), {"lengths": np.array(lengths)}
+    rng = np.random.default_rng(34)
+    if case == "no_lengths":
+        return eng, (0.1 * rng.normal(size=(3, 5000))).astype(np.float32), {}
+    if case == "one_d":
+        return eng, (0.1 * rng.normal(size=4321)).astype(np.float32), {}
+    kwargs = {"lengths": MIXED}
+    if case == "attn_limit":
+        kwargs["attn_limit_db"] = 12.0
+    return eng, _mixed_batch(MIXED, seed=35), kwargs
+
+
+@pytest.mark.parametrize("case", ["mixed_with_empty_row", "no_lengths", "one_d", "attn_limit",
+                                  "mesh_padding_row", "mesh_replica_without_rows"])
+def test_device_pad_and_cut_bit_equal_to_the_host_path(case):
+    """The engine pads, cuts and zeroes on the device and fetches only the
+    caller's ``[B, S]``: its output equals, bit for bit, the host-side pad,
+    fetch of the padded output and cut (``offline_host_path``), and is an
+    array of its own that a second call leaves as it was."""
+    eng, wavs, kwargs = _host_path_case(case)
+    got = eng.enhance_waveforms(wavs, **kwargs)
+    ref = enhance_host_padded(eng, wavs, **kwargs)
+    assert got.shape == wavs.shape and got.dtype == np.float32
+    assert float(np.abs(got).max()) > 0
+    np.testing.assert_array_equal(got, ref)
+    kept = got.copy()
+    again = eng.enhance_waveforms(np.flip(wavs, -1), **kwargs)
+    np.testing.assert_array_equal(got, kept)
+    assert not np.shares_memory(got, again) and not np.shares_memory(got, wavs)
+
+
+def test_lengths_give_one_per_row_and_a_negative_one_zeroes_its_row():
+    """``lengths`` must hold one length per row; a length below 0 is
+    clipped to 0, so the card zeroes the whole row, also where the
+    attenuation limit blends in the noisy signal."""
+    eng = _mixed_engine()
+    wavs = _mixed_batch([3000, 3000], seed=36)
+    with pytest.raises(ValueError, match="1 lengths for a batch of 2"):
+        eng.enhance_waveforms(wavs, lengths=np.array([3000]))
+    got = eng.enhance_waveforms(wavs, attn_limit_db=6.0, lengths=np.array([-5, 3000]))
+    assert np.all(got[0] == 0.0) and float(np.abs(got[1]).max()) > 0

@@ -24,6 +24,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from dpdfnet_tpu_torch.config import get_config
 from dpdfnet_tpu_torch.models.params import contract_params, init_params
+from dpdfnet_tpu_torch.parallel.mesh import make_mesh
 from dpdfnet_tpu_torch.runtime import profile as profile_lib
 from dpdfnet_tpu_torch.runtime import telemetry
 from dpdfnet_tpu_torch.runtime.engine import Engine
@@ -125,10 +126,13 @@ def test_profiler_records_every_cpu_span(pool):
     ranges = {ev.name for ev in prof.events()}
     assert set(POOL_TREE) | set(OFFLINE_TREE) <= ranges
     snap = telemetry.snapshot()
-    assert snap["spans"]["engine.upload"]["count"] == 2
+    # the live call's frames; the offline call's rows and its lengths (the
+    # device zeroes the second row past 2000 samples)
+    assert snap["spans"]["engine.upload"]["count"] == 3
     assert all(s.card is None for s in recs if s.name == "engine.upload")
-    # nothing crosses to a card here; the live call staged one chunk length;
-    # the offline call's two rows each need its one segment
+    # nothing crosses to a card here (no byte counter, no pinned bytes);
+    # the live call staged one chunk length; the offline call's two rows
+    # each need its one segment
     assert snap["counters"] == {"pool.stage_lengths": 1, "engine.row_segments": 2,
                                 "engine.row_segments_full": 2}
 
@@ -143,6 +147,32 @@ def test_recording_records_the_same_spans_without_a_profiler(pool, monkeypatch):
         _calls(pool)
     assert not telemetry.enabled()
     _check_tree(telemetry.spans())
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_offline_call_on_the_cpu_pins_nothing(pool, replicas):
+    """A CPU engine, and a mesh of two CPU replicas, stage nothing in pinned
+    memory: an offline call with a row order and lengths counts no
+    ``engine.pinned_bytes`` and no bytes to a card, records the offline
+    tree, and uploads each replica's rows, row order and lengths."""
+    eng = pool._engine
+    if replicas > 1:
+        eng = Engine(eng.cfg, eng.params, fuse=False, mesh=make_mesh(["cpu"] * replicas))
+    rng = np.random.default_rng(2)
+    lengths = np.array([2000, 40000, 0, 20000])
+    wav = (0.1 * rng.normal(size=(4, 40000))).astype(np.float32)
+    with telemetry.recording():
+        eng.enhance_waveforms(wav, lengths=lengths)
+    recs = telemetry.spans()
+    by_id = {s.id: s for s in recs}
+    assert {s.name for s in recs} == set(OFFLINE_TREE)
+    for s in recs:
+        assert (by_id[s.parent].name if s.parent else None) == OFFLINE_TREE[s.name]
+    snap = telemetry.snapshot()
+    assert snap["spans"]["engine.upload"]["count"] == 3 * replicas
+    assert snap["counters"].get("engine.pinned_bytes", 0) == 0
+    assert snap["counters"] == {"engine.row_segments": 1 + 3 + 0 + 2,
+                                "engine.row_segments_full": 4 * 3}
 
 
 @pytest.mark.parametrize("lengths", [(1, 1, 1), (1, 2, 3), (1, 3, 3)])
@@ -284,3 +314,12 @@ def test_profile_idle_goes_to_the_covering_span_past_many_children():
     view = profile_lib.device_view(evs, {"engine.fetch", "engine.upload"})
     assert view["busy_us"] == {0: 8_000}
     assert view["idle_us"] == {"engine.fetch": 2_000}
+
+
+@pytest.mark.parametrize("counters,share", [
+    ({"engine.h2d_bytes": 300, "engine.d2h_bytes": 100, "engine.pinned_bytes": 396}, 0.99),
+    ({"engine.h2d_bytes": 8, "engine.d2h_bytes": 8}, 0.0),
+    ({"engine.row_segments": 2}, None),
+])
+def test_profile_pinned_share_is_pinned_over_crossed_bytes(counters, share):
+    assert profile_lib.pinned_share(counters) == share
