@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -46,6 +47,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()       # one build and load at a time (a mesh's threads)
 
 
 def nvcc_path() -> str:
@@ -106,10 +108,13 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed; threads that ask
+    at once build and load it once."""
     lib = _LOADED.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _LOADED[name] = lib
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build([name])
+                lib = _LOADED[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib

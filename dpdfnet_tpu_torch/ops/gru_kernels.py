@@ -70,6 +70,7 @@ import contextvars
 import ctypes
 import functools
 import os
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -449,11 +450,15 @@ def _check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
+_COUNT_LOCK = threading.Lock()      # the counters' read-modify-write, over threads
+
+
 def _count_launch(wrapper) -> None:
     """Count a launch of ``wrapper``'s kernel, unless it was recorded into
     a CUDA graph under capture: a capture runs nothing."""
     if not torch.cuda.is_current_stream_capturing():
-        wrapper.launches += 1
+        with _COUNT_LOCK:
+            wrapper.launches += 1
 
 
 def _launch(what: str, wrapper, dev: torch.device, fn, *args) -> None:

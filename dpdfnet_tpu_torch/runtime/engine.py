@@ -53,12 +53,17 @@ consecutive equal shards, each shard runs its replica's single-device
 path, and the outputs are gathered in order.  Offline batches are padded
 with zero rows to a multiple of the mesh size; a streaming batch must be
 such a multiple, and its state is the per-device form
-(``parallel.mesh.Sharded``).  Every shard's work is enqueued before the
-first copy back to the host, so that the devices can run side by side;
-the replicas' host work runs one after another on the calling thread,
-so host-bound work (the exact hop) does not overlap.  Without a mesh,
-or with one device in it, the engine is its only replica and runs the
-same path on the whole batch.
+(``parallel.mesh.Sharded``).  An offline call hands each replica's whole
+share (its rows up, the segments, the cut, its rows back into the
+returned array) to that replica's own host thread.  The threads take
+turns at enqueueing (:class:`_Turns`), so one enqueues while the others
+stage their rows, wait for their cards and copy out, and a replica whose
+rows are done copies them out without waiting for the others.  A
+streaming call enqueues every shard's work before the first copy back to
+the host, but the replicas' host work runs one after another on the
+calling thread, so host-bound work (the exact hop) does not overlap.
+Without a mesh, or with one device in it, the engine is its only replica
+and runs the same path on the whole batch in the calling thread.
 
 The engine's calls open the spans of ``runtime.telemetry`` at their phases
 (the host's copies, state, replays, padding, enqueue and waits); they
@@ -68,10 +73,14 @@ record only while a ``torch.profiler`` records or inside
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import contextvars
 import gc
 import os
+import queue
 import threading
+import weakref
 from typing import Callable, Optional
 
 import numpy as np
@@ -251,34 +260,86 @@ def _upload_staged(x: torch.Tensor, device: torch.device, pinned: bool) -> torch
         return y
 
 
-def _fetch_rows(ys, B: int, S: int, pin: bool) -> np.ndarray:
-    """The offline call's :func:`_host`: the replicas' output rows ``ys``
-    (each ``[r, S]`` on its device, in mesh order, ``B`` rows in all) as
-    one ``[B, S]`` array that the caller owns (the span ``engine.fetch``).
-    With ``pin`` every replica's rows are copied into their row slice of
-    one pinned tensor without waiting, then each replica's stream is
-    synchronised once and the pinned rows are copied into a fresh array by
+def _fetch_rows(y: torch.Tensor, out: np.ndarray, pin: bool, card: int) -> None:
+    """The offline call's :func:`_host` for one replica: its output rows
+    ``y`` (``[r, S]`` on its device) into ``out``, the same rows of the
+    array the caller gets (the span ``engine.fetch``).  With ``pin`` the
+    rows are copied into a pinned tensor without waiting, the replica's
+    stream is synchronised, and the pinned rows are copied into ``out`` by
     torch's multi-threaded ``copy_``: pinned memory, which the caching host
     allocator hands out again, never reaches the caller.  The bytes from a
     card count as ``engine.d2h_bytes``, and through pinned memory as
     ``engine.pinned_bytes`` too."""
-    with telemetry.span("engine.fetch"):
-        out = np.empty((B, S), np.float32)
-        host = torch.empty((B, S), dtype=torch.float32, pin_memory=True) if pin else \
+    with telemetry.span("engine.fetch", card=card):
+        host = torch.empty(y.shape, dtype=torch.float32, pin_memory=True) if pin else \
             torch.from_numpy(out)
-        r0 = 0
-        for y in ys:
-            host[r0:r0 + y.shape[0]].copy_(y, non_blocking=pin)
-            r0 += y.shape[0]
-            if y.is_cuda:
-                telemetry.count("engine.d2h_bytes", y.nbytes)
-                if pin:
-                    telemetry.count("engine.pinned_bytes", y.nbytes)
-        for dev in {y.device for y in ys if y.is_cuda}:
-            torch.cuda.current_stream(dev).synchronize()
+        host.copy_(y, non_blocking=pin)
+        if y.is_cuda:
+            telemetry.count("engine.d2h_bytes", y.nbytes)
+            if pin:
+                telemetry.count("engine.pinned_bytes", y.nbytes)
+            torch.cuda.current_stream(y.device).synchronize()
         if pin:
             torch.from_numpy(out).copy_(host)
-        return out
+
+
+def _report_to(progress_callback):
+    """The ``step`` of :meth:`Engine._offline_rows` that calls
+    ``progress_callback(done, T)`` in this thread, after one scalar of the
+    segment that ran is copied to the host (so the report follows the
+    device and not the enqueue); ``None`` without a callback."""
+    if progress_callback is None:
+        return None
+
+    def step(done: int, T: int, o) -> None:
+        if o is not None:
+            o[:1, -1, :1].sum().item()
+        progress_callback(done, T)
+    return step
+
+
+class _Turns:
+    """A lock granted in the order it was asked for: the replica threads'
+    turns at enqueueing work.  Eager enqueueing is mostly Python under the
+    GIL with a short release around each op's dispatch; threads that
+    enqueue at once hand the GIL over at every op, a thread switch each,
+    and on four H100 cards made every thread's enqueue 12 times slower than
+    one thread's alone (``PERF.md``).  Taken in turns, one thread
+    enqueues while the others copy and wait, which release the GIL for
+    long stretches; asked again after each turn, the turns go round the
+    replicas that still have work, as one loop over them would."""
+
+    __slots__ = ("_cv", "_next", "_serving")
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._next = 0          # the ticket the next request gets
+        self._serving = 0       # the ticket whose turn it is
+
+    def __enter__(self):
+        with self._cv, telemetry.span("engine.turn"):
+            ticket = self._next
+            self._next += 1
+            self._cv.wait_for(lambda: self._serving == ticket)
+
+    def __exit__(self, *exc):
+        with self._cv:
+            self._serving += 1
+            self._cv.notify_all()
+        return False
+
+
+_NO_TURN = contextlib.nullcontext()     # one replica: the calling thread enqueues alone
+_WORKER_PREFIX = "dpdfnet-replica"
+
+
+def _shut_down(workers) -> None:
+    """Stop a freed engine's replica threads; each is joined unless this is
+    one of them (the last reference to an engine may go with a finished
+    task), which then ends on its own as soon as it returns."""
+    wait = not threading.current_thread().name.startswith(_WORKER_PREFIX)
+    for w in workers:
+        w.shutdown(wait=wait)
 
 
 class Engine:
@@ -345,6 +406,15 @@ class Engine:
                 Engine(cfg, weights[d], precision=precision, compute_dtype=compute_dtype,
                        seg_frames=seg_frames, bucket_s=bucket_s, fuse=False, device=d)
                 for d in mesh.devices[1:])
+            # one host thread per replica for the offline call, the same one
+            # on every call (so each thread makes its CUDA library handles on
+            # one card only); started by the first call, stopped when the
+            # engine is freed
+            self._workers = tuple(
+                concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix=f"{_WORKER_PREFIX}{j}")
+                for j in range(mesh.size))
+            self._submit_lock = threading.Lock()
+            weakref.finalize(self, _shut_down, self._workers)
 
     @property
     def replicas(self) -> tuple:
@@ -411,6 +481,7 @@ class Engine:
                 stft_ops.window_sumsquare(self._window_np, T, self.cfg.hop), device=self.device)
         return wss
 
+    @torch.inference_mode()
     def _offline(self, wav: torch.Tensor, alpha: float,
                  progress_callback: Optional[Callable[[int, int], None]] = None
                  ) -> torch.Tensor:
@@ -425,66 +496,171 @@ class Engine:
         after each segment, ``done = min((i + 1) * seg_frames, T)`` (ints
         only).  Before each report one scalar of the segment is copied to
         the host, so the report follows the device and not the enqueue."""
-        return self._offline_shards([wav], alpha, progress_callback)[0]
+        return self._offline_rows(wav, alpha, step=_report_to(progress_callback))
+
+    def _offline_rows(self, wav: torch.Tensor, alpha: float, order=None, rows=None,
+                      step=None, turn=_NO_TURN) -> torch.Tensor:
+        """Front, segments and back of ``wav`` ``[b, S]`` on this engine's
+        device; returns the output on the device.  Nothing here waits for
+        the device.
+
+        ``order`` and ``rows`` (from :meth:`enhance_waveforms`) schedule the
+        row-segments: the rows are taken in ``order`` (a device index,
+        longest need first; ``None`` keeps them as they are) by one gather
+        before the front, segment ``i`` runs over the first ``rows[i]`` of
+        them (the state sliced on dim 0, a view; with no rows left it
+        launches nothing), each segment's output goes into the output
+        buffer, zero where no segment ran, and one gather after the back
+        restores the rows' order.  Without ``rows`` every row runs every
+        segment.  ``step(done, T, o)``, where given, is called with
+        ``(0, T, None)`` after the front and after each segment ``i`` with
+        ``done = min((i + 1) * seg_frames, T)`` and the segment's output
+        ``o`` (``None`` where it ran no row).  The front, each segment that
+        runs a row and the back are enqueued inside ``turn`` (a context
+        manager; see :class:`_Turns`)."""
+        with turn:
+            if order is not None:
+                wav = wav.index_select(0, order)
+            spec = self._front(wav)
+            T = spec.shape[1]
+            seg = self.seg_frames
+            n_seg = -(-T // seg)
+            rows = rows or [spec.shape[0]] * n_seg
+            st = state_lib.init_state(self.cfg, batch=rows[0], dtype=spec.dtype,
+                                      device=self.device)
+            out = torch.empty_like(spec) if min(rows) == spec.shape[0] else torch.zeros_like(spec)
+        if step is not None:
+            step(0, T, None)
+        for i in range(n_seg):
+            n, o = rows[i], None
+            if n:
+                with turn:
+                    if i and n < rows[i - 1]:
+                        st = tree_map(lambda _, leaf: leaf[:n], st)
+                    o, st = self._segment(spec[:n, i * seg:(i + 1) * seg].contiguous(), st)
+                    if n_seg == 1 and n == out.shape[0]:
+                        out = o
+                    else:
+                        out[:n, i * seg:(i + 1) * seg] = o
+            if step is not None:
+                step(min((i + 1) * seg, T), T, o)
+        with turn:
+            y = self._back(spec, out, alpha)
+            return y if order is None else y.index_select(0, torch.argsort(order))
 
     @torch.inference_mode()
-    def _offline_shards(self, wavs, alpha: float,
-                        progress_callback: Optional[Callable[[int, int], None]] = None,
-                        plans=None):
-        """:meth:`_offline` over one shard ``[b, S]`` per replica, each on its
-        replica's device: every shard's front, then segment by segment
-        every shard's segment (a progress report after each segment of all
-        shards), then every shard's back.  Nothing here waits for a device
-        unless progress is reported, so the replicas' devices can run side
-        by side.  Returns one output per shard, on its device.
+    def _offline_part(self, card: int, x: np.ndarray, out: np.ndarray, need: np.ndarray,
+                      S_pad: int, ln: Optional[np.ndarray], alpha: float, step=None,
+                      turn=_NO_TURN) -> None:
+        """One replica's share of :meth:`enhance_waveforms`, on its device:
+        its caller's rows ``x`` ``[r, S]`` in, enhanced into ``out`` (the
+        same rows of the returned array).  ``need`` holds the segments each
+        of its ``b >= r`` rows needs (the rows past ``r`` are the mesh's
+        zero padding), ``ln`` the rows' lengths (``None``: nothing to
+        zero), ``step`` and ``turn`` go to :meth:`_offline_rows`.  Its spans carry
+        ``card``, the replica's place in the mesh: ``engine.pad`` (the rows
+        into pinned memory and an ``engine.upload`` each for them, their
+        order and lengths, the zero-pad to ``S_pad`` samples and ``b`` rows
+        enqueued), ``engine.launch`` (:meth:`_offline_rows` enqueued),
+        ``engine.unpad`` (the cut to ``[r, S]`` and the zeroing past each
+        length enqueued) and ``engine.fetch`` (:func:`_fetch_rows`)."""
+        pin = self.device.type == "cuda"
+        r, S = x.shape
+        b = need.shape[0]
+        with telemetry.span("engine.pad", card=card):
+            w = _upload_staged(_staged(x, pin), self.device, pin)
+            w = torch.nn.functional.pad(w, (0, S_pad - S, 0, b - r))
+            order = np.argsort(-need, kind="stable")
+            order = (None if (order == np.arange(b)).all() else
+                     _upload_staged(_staged(order, pin), self.device, pin))
+            rows = [int(np.count_nonzero(need > i)) for i in range(int(self._bucket_segments(S)))]
+            lj = None if ln is None else _upload_staged(_staged(ln, pin), self.device, pin)
+        with telemetry.span("engine.launch", card=card):
+            y = self._offline_rows(w, alpha, order, rows, step, turn)
+        with telemetry.span("engine.unpad", card=card):
+            # the caller's rows and S samples (bucket_len leaves the output
+            # S_pad - win_len >= S long), zero past each length
+            y = y[:r, :S]
+            y = y.contiguous() if lj is None else torch.where(
+                torch.arange(S, device=y.device) < lj[:, None], y, 0.0)
+        _fetch_rows(y, out, pin, card)
 
-        ``plans`` (from :meth:`enhance_waveforms`), one ``(order, rows)``
-        per shard, schedules the row-segments: the shard's rows are taken
-        in ``order`` (a device index, longest need first; ``None`` keeps
-        them as they are) by one gather before the front, segment ``i``
-        runs over the first ``rows[i]`` of them (the state sliced on dim 0,
-        a view; a shard with no rows left launches nothing), each
-        segment's output goes into the shard's output buffer, zero where no
-        segment ran, and one gather after the back restores the rows'
-        order.  Without ``plans`` every row runs every segment."""
-        plans = plans or [(None, None)] * len(wavs)
-        wavs = [w if order is None else w.index_select(0, order)
-                for w, (order, _) in zip(wavs, plans)]
-        specs = [rep._front(w) for rep, w in zip(self.replicas, wavs)]
-        T = specs[0].shape[1]
-        seg = self.seg_frames
-        n_seg = -(-T // seg)
-        rows = [[spec.shape[0]] * n_seg if r is None else r
-                for spec, (_, r) in zip(specs, plans)]
-        states = [state_lib.init_state(self.cfg, batch=r[0], dtype=spec.dtype,
-                                       device=rep.device)
-                  for rep, spec, r in zip(self.replicas, specs, rows)]
-        outs = [torch.empty_like(spec) if min(r) == spec.shape[0]
-                else torch.zeros_like(spec) for spec, r in zip(specs, rows)]
+    def _offline_shards(self, outs, run: Callable, progress_callback) -> list:
+        """``run(j, step, turn)`` for every replica ``j``, which enhances the
+        replica's rows into ``outs[j]`` (its rows of the array the call
+        returns); returns each replica's rows as a host tensor (``outs[j]``
+        itself), for the caller to gather.  With one replica ``run`` runs
+        in the calling thread.  Else each replica runs in its own thread,
+        and this returns once every one has stopped; the threads share one
+        :class:`_Turns` at enqueueing, and each runs in a copy of the
+        caller's context variables, on its replica's device, with its
+        spans under the caller's innermost span.  With
+        ``progress_callback``, ``step`` (see :meth:`_offline_rows`) copies
+        one scalar of the replica's segment to the host and waits at a
+        barrier of all the replicas, whose last arrival queues ``(done,
+        T)`` for the calling thread, which makes the reports: ``(0, T)``
+        first, then one after each segment of all shards.  The first
+        exception of a replica (in mesh order, over the barrier's
+        ``BrokenBarrierError`` of the others), or of the callback, reaches
+        the caller as it was raised; the barrier is broken on it, so no
+        replica waits for one that failed."""
+        if len(self.replicas) == 1:
+            run(0, _report_to(progress_callback), _NO_TURN)
+            return [torch.from_numpy(o) for o in outs]
+        n = len(self._workers)
+        parent = telemetry.current()
+        turn = _Turns()
+        reports = queue.SimpleQueue()           # (done, T), and None as a replica stops
+        step = barrier = None
         if progress_callback is not None:
-            progress_callback(0, T)
-        for i in range(n_seg):
-            ran = []
-            for j, rep in enumerate(self.replicas):
-                n = rows[j][i]
-                if n == 0:
-                    continue
-                if i and n < rows[j][i - 1]:
-                    states[j] = tree_map(lambda _, leaf: leaf[:n], states[j])
-                o, states[j] = rep._segment(specs[j][:n, i * seg:(i + 1) * seg].contiguous(),
-                                            states[j])
-                if n_seg == 1 and n == outs[j].shape[0]:
-                    outs[j] = o
-                else:
-                    outs[j][:n, i * seg:(i + 1) * seg] = o
-                ran.append(o)
-            if progress_callback is not None:
-                for o in ran:
+            report = [None]
+            barrier = threading.Barrier(n, action=lambda: reports.put(report[0]))
+
+            def step(done: int, T: int, o) -> None:
+                if o is not None:
                     o[:1, -1, :1].sum().item()
-                progress_callback(min((i + 1) * seg, T), T)
-        ys = [rep._back(spec, o, alpha) for rep, spec, o in zip(self.replicas, specs, outs)]
-        return [y if order is None else y.index_select(0, torch.argsort(order))
-                for y, (order, _) in zip(ys, plans)]
+                report[0] = (done, T)           # every replica's is the same
+                barrier.wait()
+
+        def work(j: int, device: torch.device) -> None:
+            try:
+                with telemetry.under(parent), (torch.cuda.device(device) if device.type == "cuda"
+                                               else contextlib.nullcontext()):
+                    run(j, step, turn)
+            except BaseException:
+                if barrier is not None:
+                    barrier.abort()
+                raise
+            finally:
+                reports.put(None)
+
+        with self._submit_lock:     # one call's tasks queue together on every thread
+            futures = [w.submit(contextvars.copy_context().run, work, j, rep.device)
+                       for j, (w, rep) in enumerate(zip(self._workers, self.replicas))]
+        try:
+            stopped = 0
+            while stopped < n:
+                got = reports.get()
+                if got is None:
+                    stopped += 1
+                else:
+                    progress_callback(*got)
+        except BaseException:
+            if barrier is not None:
+                barrier.abort()
+            concurrent.futures.wait(futures)
+            raise
+        errors = [f.exception() for f in futures]
+        del futures
+        err = next((e for e in errors if e is not None
+                    and not isinstance(e, threading.BrokenBarrierError)),
+                   next((e for e in errors if e is not None), None))
+        if err is not None:
+            try:
+                raise err
+            finally:
+                del err, errors
+        return [torch.from_numpy(o) for o in outs]
 
     def _scale_spec(self, spec: torch.Tensor) -> torch.Tensor:
         """The float32 spectrum at the compute dtype, times wnorm rounded to
@@ -778,79 +954,66 @@ class Engine:
             in an array of its own (it shares memory with nothing the engine
             keeps or reuses).
 
-        The caller's ``[B, S]`` is what crosses to the devices: on a card it
-        is copied into pinned memory and uploaded without the host waiting,
-        and the device zero-pads it to ``bucket_len(S)`` samples, whole
-        segments of frames (and on a mesh to a multiple of its size with
-        zero rows).  A row's need is the segments of ``bucket_len(length)``,
-        none for an empty row or a mesh's padding row; each shard's rows run
-        longest need first, and segment ``i`` runs over the rows whose need
-        reaches it (:meth:`_offline_shards`).  The device cuts the output to
-        the caller's rows and ``S`` samples and zeroes each row past its
-        length, and only that ``[B, S]`` comes back, through pinned memory
-        on a card.
+        The caller's ``[B, S]`` is what crosses to the devices: each
+        replica's rows, on a card copied into pinned memory and uploaded
+        without the host waiting, and the device zero-pads them to
+        ``bucket_len(S)`` samples, whole segments of frames (and on a mesh
+        to an equal share of rows with zero rows).  A row's need is the
+        segments of ``bucket_len(length)``, none for an empty row or a
+        mesh's padding row; each shard's rows run longest need first, and
+        segment ``i`` runs over the rows whose need reaches it
+        (:meth:`_offline_rows`).  The device cuts the output to the
+        caller's rows and ``S`` samples and zeroes each row past its
+        length, and only those rows come back, through pinned memory on a
+        card, into the returned array.  On a mesh each replica does all of
+        that for its own rows in its own host thread (:meth:`_offline_shards`);
+        the calling thread validates, schedules and waits.
 
-        Spans: ``engine.enhance_waveforms`` over ``engine.pad`` (bucket,
-        the schedule, the copy into pinned memory, an ``engine.upload`` per
-        replica for its rows, row order and lengths, the zero-pad enqueued),
-        ``engine.launch`` (every replica's work enqueued), ``engine.unpad``
-        (the cut and the zeroing past each length enqueued), ``engine.fetch``
-        (the copies back into pinned memory, the wait for the devices, the
-        copy into the returned array).  Counters: ``engine.row_segments``
-        (row-segments run), ``engine.row_segments_full`` (rows times
-        segments of the call), and with the byte counters
-        ``engine.pinned_bytes`` (bytes that crossed through pinned memory).
+        Spans: ``engine.enhance_waveforms`` over each replica's
+        ``engine.pad`` › ``engine.upload``, ``engine.launch``,
+        ``engine.unpad`` and ``engine.fetch`` (:meth:`_offline_part`; on a
+        mesh opened in the replica's thread, in the caller's call).
+        Counters: ``engine.row_segments`` (row-segments run),
+        ``engine.row_segments_full`` (rows times segments of the call), and
+        with the byte counters ``engine.pinned_bytes`` (bytes that crossed
+        through pinned memory).
         """
         with telemetry.span("engine.enhance_waveforms"):
             value = audio_lib.validate_attn_limit_db(attn_limit_db)
             alpha = 0.0 if value is None else float(np.float32(10.0 ** (-value / 20.0)))
-            # host copies to and from a card go through pinned memory
-            pin = any(rep.device.type == "cuda" for rep in self.replicas)
-            with telemetry.span("engine.pad"):
-                squeeze = np.ndim(wavs) == 1
-                x = np.ascontiguousarray(np.atleast_2d(np.asarray(wavs, dtype=np.float32)))
-                B, S = x.shape
-                S_pad = self.bucket_len(S)
-                n_seg = int(self._bucket_segments(S))
-                n = len(self.replicas)
-                # on a mesh the batch is padded with zero rows to a multiple of its size
-                b = -(-B // n)
-                need = np.zeros(b * n, np.int64)
-                ln = None
-                if lengths is None:
-                    need[:B] = n_seg
-                else:
-                    ln = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, S)
-                    if ln.size != B:
-                        raise ValueError(f"{ln.size} lengths for a batch of {B}")
-                    need[:B] = np.where(ln > 0, self._bucket_segments(ln), 0)
-                    if (ln == S).all():
-                        ln = None                   # no sample to zero
-                telemetry.count("engine.row_segments", int(need.sum()))
-                telemetry.count("engine.row_segments_full", B * n_seg)
-                xs = _staged(x, pin)
-                wavs, plans, cuts = [], [], []
-                for j, rep in enumerate(self.replicas):
-                    r0, r1 = min(j * b, B), min((j + 1) * b, B)
-                    nj = need[j * b:(j + 1) * b]
-                    order = np.argsort(-nj, kind="stable")
-                    w = _upload_staged(xs[r0:r1], rep.device, pin)
-                    # zero-padded on the device, to S_pad samples and b rows
-                    wavs.append(torch.nn.functional.pad(w, (0, S_pad - S, 0, b - (r1 - r0))))
-                    plans.append((None if (order == np.arange(b)).all() else
-                                  _upload_staged(_staged(order, pin), rep.device, pin),
-                                  [int(np.count_nonzero(nj > i)) for i in range(n_seg)]))
-                    cuts.append((r1 - r0, None if ln is None else
-                                 _upload_staged(_staged(ln[r0:r1], pin), rep.device, pin)))
-            with telemetry.span("engine.launch"), _math_mode(self.precision):
-                ys = self._offline_shards(wavs, alpha, progress_callback, plans)
+            squeeze = np.ndim(wavs) == 1
+            x = np.ascontiguousarray(np.atleast_2d(np.asarray(wavs, dtype=np.float32)))
+            B, S = x.shape
+            S_pad = self.bucket_len(S)
+            n_seg = int(self._bucket_segments(S))
+            n = len(self.replicas)
+            # on a mesh the batch is padded with zero rows to a multiple of its size
+            b = -(-B // n)
+            need = np.zeros(b * n, np.int64)
+            ln = None
+            if lengths is None:
+                need[:B] = n_seg
+            else:
+                ln = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, S)
+                if ln.size != B:
+                    raise ValueError(f"{ln.size} lengths for a batch of {B}")
+                need[:B] = np.where(ln > 0, self._bucket_segments(ln), 0)
+                if (ln == S).all():
+                    ln = None                   # no sample to zero
+            telemetry.count("engine.row_segments", int(need.sum()))
+            telemetry.count("engine.row_segments_full", B * n_seg)
+            out = np.empty((B, S), np.float32)
+            rows = [slice(min(j * b, B), min((j + 1) * b, B)) for j in range(n)]
 
-            with telemetry.span("engine.unpad"):
-                # each replica's own rows and the caller's S samples (bucket_len
-                # leaves the output S_pad - win_len >= S long), zero past each length
-                for j, (rows, lj) in enumerate(cuts):
-                    y = ys[j][:rows, :S]
-                    ys[j] = (y.contiguous() if lj is None else torch.where(
-                        torch.arange(S, device=y.device) < lj[:, None], y, 0.0))
-            out = _fetch_rows(ys, B, S, pin)
+            def run(j: int, step, turn) -> None:
+                self.replicas[j]._offline_part(j, x[rows[j]], out[rows[j]],
+                                               need[j * b:(j + 1) * b], S_pad,
+                                               None if ln is None else ln[rows[j]],
+                                               alpha, step, turn)
+
+            with _math_mode(self.precision):
+                ys = self._offline_shards([out[r] for r in rows], run, progress_callback)
+            for r, y in zip(rows, ys):      # written in place, unless a shard came back apart
+                if y.data_ptr() != out[r].ctypes.data:
+                    torch.from_numpy(out[r]).copy_(y)
             return out[0] if squeeze else out

@@ -13,7 +13,10 @@ On, a span records its id, its parent's id (the innermost span open on
 the same thread), its call id (a span with no parent opens a call, and
 every span under it shares its id), its name, its start and end from
 ``time.perf_counter_ns()`` (the clock of ``time.perf_counter()``), its
-thread and the card it was opened with (``card=``, or ``None``).  While
+thread and the card it was opened with (``card=``, or ``None``).  A
+thread that works for another's call opens its spans inside
+``with under(parent):``, ``parent`` the calling thread's :func:`current`
+span, so that they are children of that span in its call.  While
 a profiler records, a span is also a ``torch.profiler.record_function``
 range, so that it lies on the profiler's timeline beside the device's
 operations.
@@ -122,6 +125,41 @@ def _stack() -> list:
     return stack
 
 
+def current():
+    """The innermost span open on this thread, to hand to :func:`under` in
+    another thread; ``None`` where none is open (tracing off included)."""
+    stack = getattr(_local, "stack", None)
+    return stack[-1] if stack else None
+
+
+def under(parent):
+    """A context manager in which the spans this thread opens are children
+    of ``parent`` (a :func:`current` of another thread) and share its call;
+    the shared null context when ``parent`` is ``None``."""
+    if parent is None:
+        return _NULL
+    return _Under(parent)
+
+
+class _Under:
+    """``parent`` on this thread's stack while the block runs; never recorded."""
+
+    __slots__ = ("parent",)
+
+    def __init__(self, parent):
+        self.parent = parent
+
+    def __enter__(self):
+        _stack().append(self.parent)
+        return self.parent
+
+    def __exit__(self, *exc):
+        stack = _stack()
+        if stack and stack[-1] is self.parent:
+            stack.pop()
+        return False
+
+
 class _Open:
     """A span while it is open."""
 
@@ -190,11 +228,21 @@ def counters(since_s: Optional[float] = None) -> Dict[str, int]:
 
 
 def self_ns(recs: List[Span]) -> Dict[int, int]:
-    """Each span's own time: its duration less its child spans'."""
-    own = {s.id: s.ns for s in recs}
+    """Each span's own time: its duration less the part of it that its
+    child spans cover (children on several threads may overlap)."""
+    kids: Dict[int, list] = defaultdict(list)
     for s in recs:
-        if s.parent in own:
-            own[s.parent] -= s.ns
+        kids[s.parent].append((s.start_ns, s.end_ns))
+    own = {}
+    for s in recs:
+        covered, end = 0, None
+        for a, b in sorted(kids.get(s.id, ())):
+            if end is not None and a < end:
+                a = end
+            if b > a:
+                covered += b - a
+                end = b
+        own[s.id] = s.ns - covered
     return own
 
 

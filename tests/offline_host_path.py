@@ -3,9 +3,11 @@
 
 The batch is zero-padded into a host array (to ``bucket_len(S)`` samples,
 and on a mesh to a multiple of its size with zero rows), each replica's
-rows are uploaded from pageable memory, ``Engine._offline_shards`` runs
-the same schedule, the whole padded output comes back, and the host cuts
-it into ``np.zeros_like`` and zeroes each row past its length in a loop.
+rows are uploaded from pageable memory, each replica's
+``Engine._offline_rows`` runs the same schedule, one replica after
+another in the calling thread, the whole padded output comes back, and
+the host cuts it into ``np.zeros_like`` and zeroes each row past its
+length in a loop.
 The tests hold the engine's output to this path bit for bit.  It imports
 neither JAX nor the JAX package, so the card's tests use it too.
 """
@@ -37,16 +39,15 @@ def enhance_host_padded(eng, wavs, attn_limit_db=None, lengths=None):
     else:
         ln = np.clip(np.asarray(lengths, np.int64).reshape(-1), 0, S)
         need[:B] = np.where(ln > 0, eng._bucket_segments(ln), 0)
-    shards, plans = [], []
-    for j, rep in enumerate(eng.replicas):
-        nj = need[j * b:(j + 1) * b]
-        order = np.argsort(-nj, kind="stable")
-        shards.append(torch.from_numpy(xp[j * b:(j + 1) * b]).to(rep.device))
-        plans.append((None if (order == np.arange(b)).all() else
-                      torch.from_numpy(order).to(rep.device),
-                      [int(np.count_nonzero(nj > i)) for i in range(n_seg)]))
-    with _math_mode(eng.precision):
-        ys = eng._offline_shards(shards, alpha, None, plans)
+    ys = []
+    with _math_mode(eng.precision), torch.inference_mode():
+        for j, rep in enumerate(eng.replicas):
+            nj = need[j * b:(j + 1) * b]
+            order = np.argsort(-nj, kind="stable")
+            ys.append(rep._offline_rows(
+                torch.from_numpy(xp[j * b:(j + 1) * b]).to(rep.device), alpha,
+                None if (order == np.arange(b)).all() else torch.from_numpy(order).to(rep.device),
+                [int(np.count_nonzero(nj > i)) for i in range(n_seg)]))
     parts = [y.cpu().numpy() for y in ys]
     y = parts[0] if len(parts) == 1 else np.concatenate(parts)
     out = np.zeros_like(x)

@@ -1371,3 +1371,62 @@ def test_cuda_offline_output_owns_its_memory_and_pins_every_byte(dev):
     telemetry.reset()
     assert counts["engine.h2d_bytes"] == counts["engine.d2h_bytes"] == frames.size * 4
     assert counts.get("engine.pinned_bytes", 0) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_bit_identical_to_each_cards_engine(dev):
+    """A mesh over every card present, up to four (two replicas on the one
+    card where there is one): each replica's rows, run in its own host
+    thread, equal bit for bit its card's engine without a mesh on that
+    replica's shard, in one call and from the stepped path; under
+    ``telemetry.recording()`` the call is one call id with one
+    ``engine.launch`` span per card, each from a thread of its own.
+    dpdfnet8_48khz_hr at ``seg_frames=16``, 3 rows a replica over 8
+    segments."""
+    from dpdfnet_tpu_torch.config import get_config
+    from dpdfnet_tpu_torch.models.params import contract_params, init_params
+    from dpdfnet_tpu_torch.parallel.mesh import make_mesh
+    from dpdfnet_tpu_torch.runtime import telemetry
+    from dpdfnet_tpu_torch.runtime.engine import Engine
+    from dpdfnet_tpu_torch.utils.tree import tree_map
+
+    count = min(torch.cuda.device_count(), 4)
+    devs = ([torch.device("cuda", i) for i in range(count)] if count > 1
+            else [torch.device("cuda", 0)] * 2)
+    cfg = get_config("dpdfnet8_48khz_hr")
+    kw = {"seg_frames": 16, "bucket_s": 0.0}
+    params = contract_params(init_params(cfg, seed=0, device=devs[0]))
+    mesh = Engine(cfg, params, mesh=make_mesh(devs), **kw)
+    ones = [Engine(cfg, tree_map(lambda _, x: x.to(d), params), device=d, **kw) for d in devs]
+    seg = 16 * cfg.hop
+    rng = np.random.default_rng(28)
+    n = len(devs)
+    lengths = np.array([8 * seg, 5 * seg + 7, 2 * seg - 3] * n)
+    lengths[-1] = seg // 2                                  # a row that ends early
+    wav = np.zeros((3 * n, 8 * seg), np.float32)
+    for i, k in enumerate(lengths):
+        wav[i, :k] = 0.1 * rng.normal(size=k)
+    got = mesh.enhance_waveforms(wav, lengths=lengths)
+    assert float(np.abs(got).max()) > 0
+    for j, one in enumerate(ones):
+        rows = slice(3 * j, 3 * j + 3)
+        np.testing.assert_array_equal(got[rows], one.enhance_waveforms(wav[rows],
+                                                                        lengths=lengths[rows]))
+    telemetry.reset()
+    with telemetry.recording():
+        again = mesh.enhance_waveforms(wav, lengths=lengths)
+    recs = telemetry.spans()
+    telemetry.reset()
+    np.testing.assert_array_equal(again, got)
+    assert len({s.call for s in recs}) == 1
+    launch = [s for s in recs if s.name == "engine.launch"]
+    assert sorted(s.card for s in launch) == list(range(n))
+    assert len({s.thread for s in launch}) == n
+    calls = []
+    stepped = mesh.enhance_waveforms(wav, lengths=lengths,
+                                     progress_callback=lambda d, t: calls.append((d, t)))
+    np.testing.assert_array_equal(stepped, got)
+    ref_calls = []
+    ones[0].enhance_waveforms(wav[:3], lengths=lengths[:3],
+                              progress_callback=lambda d, t: ref_calls.append((d, t)))
+    assert calls == ref_calls and len(calls) > 8

@@ -21,6 +21,9 @@ relative and each leaf's update within 1e-4 of its largest magnitude.
 
 import functools
 import gc
+import sys
+import threading
+import time
 import types
 import weakref
 
@@ -48,7 +51,7 @@ from dpdfnet_tpu_torch.runtime.engine import Engine, engine_from_quality
 from dpdfnet_tpu_torch.utils.serialization import params_from_jax
 from dpdfnet_tpu_torch.utils.tree import tree_leaves
 
-from torch_testing import jax_params_np
+from torch_testing import jax_params_np, port_params_np
 
 MODEL = "dpdfnet2"
 N_DEV = 8
@@ -150,7 +153,10 @@ def test_mesh_replica_whose_rows_all_end_early_launches_nothing_after(monkeypatc
     shard's rows run 4 and 3 segments, the second shard's only row ends in
     the first segment and its padding row runs none, so the second replica
     runs one segment of one row and nothing after.  Within 1e-6 of the
-    engine without a mesh; the stepped path reports every segment."""
+    engine without a mesh; the stepped path reports every segment, each
+    after that segment of both replicas (the replicas run in threads of
+    their own, so only each replica's own order and the barrier between
+    segments are fixed)."""
     cfg = get_config(MODEL)
     p = params_from_jax(jax_params_np(MODEL), device="cpu")
     kw = dict(seg_frames=16, bucket_s=0.0)
@@ -170,7 +176,9 @@ def test_mesh_replica_whose_rows_all_end_early_launches_nothing_after(monkeypatc
     calls = []
     got = two.enhance_waveforms(wav, lengths=lengths,
                                 progress_callback=lambda d, n: calls.append((d, n)))
-    assert rows == [(True, 2), (False, 1), (True, 2), (True, 2), (True, 1)]
+    assert [n for first, n in rows if first] == [2, 2, 2, 1]
+    assert [n for first, n in rows if not first] == [1]
+    assert (False, 1) in rows[:2]               # before either replica's second segment
     assert calls == [(0, 64), (16, 64), (32, 64), (48, 64), (64, 64)]
     assert float(np.abs(got[2, :900]).max()) > 0 and np.all(got[2, 900:] == 0.0)
     np.testing.assert_allclose(got, ref, atol=SELF_ATOL)
@@ -213,6 +221,264 @@ def test_engine_is_freed_when_dropped_without_the_cyclic_collector():
     with engine_mod._gc_paused():
         assert not gc.isenabled()
     assert gc.isenabled() == was
+
+
+# --------------------------------------------------------------------------- #
+# The offline call's replica threads
+# --------------------------------------------------------------------------- #
+
+OFFLINE_CASES = {
+    # B, the rows' lengths in 16-frame segments (None: no lengths), S
+    "no_lengths": (4, None, 2.5),
+    "lengths": (4, (3.2, 1.0, 1.9, 0.0), 3.2),
+    "rows_end_early": (3, (4.0, 3.0, 0.5), 4.0),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _two_and_one(model):
+    """A mesh of two CPU replicas and one engine without a mesh, on the same
+    weights, at ``seg_frames=16`` and no bucket floor."""
+    cfg, p = get_config(model), port_params_np(model)
+    kw = dict(seg_frames=16, bucket_s=0.0)
+    return (Engine(cfg, p, mesh=pmesh.make_mesh(["cpu"] * 2), **kw),
+            Engine(cfg, p, device="cpu", **kw))
+
+
+def _offline_case(model, case):
+    cfg = get_config(model)
+    B, segs, S = OFFLINE_CASES[case]
+    seg = 16 * cfg.hop
+    S = int(S * seg)
+    wav = speechlike_test_signal(S / cfg.sample_rate, cfg.sample_rate, seed=11, batch=B)
+    wav = np.ascontiguousarray(wav[:, :S])
+    lengths = None if segs is None else np.array([int(k * seg) for k in segs])
+    if lengths is not None:
+        wav[np.arange(S)[None, :] >= lengths[:, None]] = 0.0
+    return wav, lengths
+
+
+@pytest.mark.parametrize("case", sorted(OFFLINE_CASES))
+@pytest.mark.parametrize("model", ["dpdfnet2", "dpdfnet8_48khz_hr"])
+def test_mesh_offline_bit_identical_to_one_engine_per_shard(model, case):
+    """Each replica's rows, run in its own thread, equal bit for bit the
+    engine without a mesh on that replica's shard (its rows, and the
+    mesh's zero padding rows of length 0); the stepped path gives the
+    same output and the reports of the engine without a mesh."""
+    two, one = _two_and_one(model)
+    wav, lengths = _offline_case(model, case)
+    B, S = wav.shape
+    got = two.enhance_waveforms(wav, lengths=lengths)
+    assert got.shape == (B, S) and float(np.abs(got).max()) > 0
+    b = -(-B // 2)
+    for j in range(2):
+        rows = slice(j * b, min((j + 1) * b, B))
+        r = rows.stop - rows.start
+        shard = np.zeros((b, S), np.float32)
+        shard[:r] = wav[rows]
+        ln = None
+        if lengths is not None or r < b:
+            ln = np.zeros(b, np.int64)
+            ln[:r] = S if lengths is None else lengths[rows]
+        np.testing.assert_array_equal(got[rows], one.enhance_waveforms(shard, lengths=ln)[:r])
+    calls, ref_calls = [], []
+    stepped = two.enhance_waveforms(wav, lengths=lengths,
+                                    progress_callback=lambda d, n: calls.append((d, n)))
+    one.enhance_waveforms(wav, lengths=lengths,
+                          progress_callback=lambda d, n: ref_calls.append((d, n)))
+    np.testing.assert_array_equal(stepped, got)
+    assert calls == ref_calls and len(calls) == 1 + -(-calls[0][1] // 16)
+    assert all(type(d) is int and type(n) is int for d, n in calls)
+
+
+class Boom(RuntimeError):
+    pass
+
+
+def _on_time(fn, seconds=120):
+    """``fn()`` in a thread of its own, joined within ``seconds``: its
+    exception (or None), and whether it ended."""
+    got = []
+
+    def run():
+        try:
+            fn()
+            got.append(None)
+        except BaseException as exc:            # noqa: BLE001 (handed to the test)
+            got.append(exc)
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=seconds)
+    return (got[0] if got else None), not th.is_alive()
+
+
+def test_mesh_progress_callback_runs_in_the_calling_thread():
+    """The replicas' threads queue the reports and the calling thread makes
+    them, so a callback that calls the same engine again (which queues
+    work behind the replicas' current call) returns, and the outer call
+    gives the same output and reports as without it."""
+    two, _ = _two_and_one(MODEL)
+    wav, lengths = _offline_case(MODEL, "lengths")
+    want = two.enhance_waveforms(wav, lengths=lengths)
+    inner = two.enhance_waveforms(wav[:1])
+    callers, seen, nested, got = [], [], [], []
+
+    def report(done, total):
+        seen.append(((done, total), threading.current_thread()))
+        if done and not nested:
+            nested.append(two.enhance_waveforms(wav[:1]))
+
+    def call():
+        callers.append(threading.current_thread())
+        got.append(two.enhance_waveforms(wav, lengths=lengths, progress_callback=report))
+
+    err, ended = _on_time(call)
+    assert ended, "a callback that called the engine again never returned"
+    assert err is None
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(nested[0], inner)
+    ref = []
+    two.enhance_waveforms(wav, lengths=lengths, progress_callback=lambda d, n: ref.append((d, n)))
+    assert [r for r, _ in seen] == ref and len(ref) > 2
+    assert all(t is callers[0] for _, t in seen)
+
+
+@pytest.mark.parametrize("where", ["segment", "segment_stepped", "callback"])
+def test_mesh_replica_exception_reaches_the_caller(monkeypatch, where):
+    """An exception raised in the second replica's thread (in a segment,
+    with or without the progress barrier) or in the progress callback
+    reaches the caller as the same object, after both replicas stopped,
+    and never leaves the other replica waiting; the engine then runs the
+    next call as before."""
+    two, _ = _two_and_one(MODEL)
+    wav, lengths = _offline_case(MODEL, "lengths")
+    want = two.enhance_waveforms(wav, lengths=lengths)
+    raised = []
+    orig = Engine._segment
+
+    def seg(self, spec_seg, st):
+        if self is not two and where != "callback":
+            raised.append(Boom(where))
+            raise raised[-1]
+        return orig(self, spec_seg, st)
+
+    def report(done, total):
+        if where == "callback" and done > 0:
+            raised.append(Boom(where))
+            raise raised[-1]
+
+    monkeypatch.setattr(Engine, "_segment", seg)
+    progress = None if where == "segment" else report
+    err, ended = _on_time(lambda: two.enhance_waveforms(wav, lengths=lengths,
+                                                        progress_callback=progress))
+    assert ended, "a replica thread never stopped"
+    assert len(raised) == 1 and err is raised[0]
+    del err
+    raised.clear()
+    monkeypatch.setattr(Engine, "_segment", orig)
+    np.testing.assert_array_equal(two.enhance_waveforms(wav, lengths=lengths), want)
+
+
+@pytest.mark.parametrize("calls", ["none", "one", "one_failed"])
+def test_mesh_replica_threads_end_when_the_engine_is_freed(monkeypatch, calls):
+    """A mesh engine starts its replica threads at its first offline call,
+    one per replica, and they end when the engine is freed (by its last
+    reference, the cyclic collector off), after a call that failed too."""
+    cfg = get_config(MODEL)
+    before = set(threading.enumerate())
+    wav, _ = _offline_case(MODEL, "no_lengths")
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        eng = Engine(cfg, port_params_np(MODEL), mesh=pmesh.make_mesh(["cpu"] * 3),
+                     seg_frames=16, bucket_s=0.0)
+        if calls == "one_failed":
+            def seg(self, spec_seg, st):
+                raise Boom("segment")
+            monkeypatch.setattr(Engine, "_segment", seg)
+            with pytest.raises(Boom):
+                eng.enhance_waveforms(wav)
+        elif calls == "one":
+            eng.enhance_waveforms(wav)
+        started = [t for t in threading.enumerate() if t not in before]
+        assert len(started) == (0 if calls == "none" else 3)
+        ref = weakref.ref(eng)
+        del eng
+        deadline = time.monotonic() + 10    # a thread may drop the last reference
+        while ref() is not None and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert ref() is None
+    finally:
+        if was:
+            gc.enable()
+    for t in started:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in started)
+    assert not set(started) & set(threading.enumerate())
+
+
+def test_turns_go_one_at_a_time_in_the_order_asked():
+    """The replica threads' turns at enqueueing (``engine._Turns``): one
+    holder at a time, granted in the order they were asked for, and
+    handed on when a holder raises."""
+    turns = engine_mod._Turns()
+    order, inside, most = [], [0], [0]
+
+    def take(k):
+        try:
+            with turns:
+                inside[0] += 1
+                most[0] = max(most[0], inside[0])
+                order.append(k)
+                time.sleep(0.002)
+                inside[0] -= 1
+                if k == 2:
+                    raise Boom("turn")
+        except Boom:
+            pass
+
+    threads = []
+    with turns:                                 # every request waits behind this one
+        for k in range(6):
+            threads.append(threading.Thread(target=take, args=(k,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 10
+            while turns._next < k + 2 and time.monotonic() < deadline:
+                time.sleep(0.001)
+            assert turns._next == k + 2
+    for t in threads:
+        t.join(timeout=10)
+    assert not any(t.is_alive() for t in threads)
+    assert order == list(range(6)) and most[0] == 1
+
+
+def test_launch_counter_loses_no_increment_across_threads(monkeypatch):
+    """The kernel wrappers' launch counters, which a mesh's replica threads
+    raise at once: 16 threads x 2000 increments, switching threads every
+    microsecond, count every one."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    wrapper = gk.dprnn_intra_block
+    before = wrapper.launches
+    barrier = threading.Barrier(16, timeout=30)
+
+    def work():
+        barrier.wait()
+        for _ in range(2000):
+            gk._count_launch(wrapper)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert wrapper.launches == before + 16 * 2000
+    finally:
+        sys.setswitchinterval(interval)
+        wrapper.launches = before
 
 
 def test_mesh_exact_streaming_is_chunk_invariant_and_matches_jax():

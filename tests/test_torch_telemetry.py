@@ -154,10 +154,17 @@ def test_offline_call_on_the_cpu_pins_nothing(pool, replicas):
     """A CPU engine, and a mesh of two CPU replicas, stage nothing in pinned
     memory: an offline call with a row order and lengths counts no
     ``engine.pinned_bytes`` and no bytes to a card, records the offline
-    tree, and uploads each replica's rows, row order and lengths."""
+    tree, and uploads each replica's rows, row order and lengths.  Every
+    span of the call shares its call id, and each replica's spans carry
+    its place in the mesh as ``card``; on the mesh they are opened in the
+    replica's own thread, one thread per replica, and each wait for a turn
+    at enqueueing is an ``engine.turn`` span under its ``engine.launch``
+    (front, segments and back: three turns or more a replica)."""
     eng = pool._engine
+    tree = OFFLINE_TREE
     if replicas > 1:
         eng = Engine(eng.cfg, eng.params, fuse=False, mesh=make_mesh(["cpu"] * replicas))
+        tree = dict(OFFLINE_TREE, **{"engine.turn": "engine.launch"})
     rng = np.random.default_rng(2)
     lengths = np.array([2000, 40000, 0, 20000])
     wav = (0.1 * rng.normal(size=(4, 40000))).astype(np.float32)
@@ -165,9 +172,21 @@ def test_offline_call_on_the_cpu_pins_nothing(pool, replicas):
         eng.enhance_waveforms(wav, lengths=lengths)
     recs = telemetry.spans()
     by_id = {s.id: s for s in recs}
-    assert {s.name for s in recs} == set(OFFLINE_TREE)
+    assert {s.name for s in recs} == set(tree)
     for s in recs:
-        assert (by_id[s.parent].name if s.parent else None) == OFFLINE_TREE[s.name]
+        assert (by_id[s.parent].name if s.parent else None) == tree[s.name]
+    assert len({s.call for s in recs}) == 1
+    turns = [s for s in recs if s.name == "engine.turn"]
+    assert all(sum(by_id[s.parent].card == j for s in turns) >= 3 for j in range(replicas)) \
+        if replicas > 1 else not turns
+    root = next(s for s in recs if s.name == "engine.enhance_waveforms")
+    for name in ("engine.pad", "engine.launch", "engine.unpad", "engine.fetch"):
+        mine = [s for s in recs if s.name == name]
+        assert sorted(s.card for s in mine) == list(range(replicas)), name
+        assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in mine)
+    threads = {s.card: s.thread for s in recs if s.name == "engine.launch"}
+    assert len(set(threads.values()) | {root.thread}) == (1 if replicas == 1 else 1 + replicas)
+    assert all(telemetry.self_ns(recs)[s.id] >= 0 for s in recs)
     snap = telemetry.snapshot()
     assert snap["spans"]["engine.upload"]["count"] == 3 * replicas
     assert snap["counters"].get("engine.pinned_bytes", 0) == 0
@@ -240,6 +259,49 @@ def test_threads_keep_separate_stacks():
         assert child.thread == root.thread
     assert recs["a.root"].call != recs["b.root"].call
     assert recs["a.root"].thread != recs["b.root"].thread
+
+
+def test_under_opens_another_threads_spans_in_the_callers_call():
+    """A span opened in another thread inside ``under(parent)`` is a child
+    of ``parent`` in its call; outside it the thread opens calls of its
+    own.  Off, or with no span open, ``current()`` is None and
+    ``under(None)`` the null context."""
+    assert telemetry.current() is None and telemetry.under(None) is telemetry.span("x")
+    seen = {}
+
+    def work(parent):
+        with telemetry.under(parent):
+            with telemetry.span("worker.child", card=1):
+                seen["inside"] = telemetry.current().name
+        with telemetry.span("worker.alone"):
+            pass
+
+    with telemetry.recording():
+        assert telemetry.current() is None
+        with telemetry.span("caller") as caller:
+            assert telemetry.current() is caller
+            th = threading.Thread(target=work, args=(telemetry.current(),))
+            th.start()
+            th.join(timeout=10)
+            assert not th.is_alive()
+        assert telemetry.current() is None
+    recs = {s.name: s for s in telemetry.spans()}
+    root, child, alone = recs["caller"], recs["worker.child"], recs["worker.alone"]
+    assert seen == {"inside": "worker.child"}
+    assert child.parent == root.id and child.call == root.call and child.card == 1
+    assert child.thread != root.thread
+    assert alone.parent is None and alone.call != root.call
+
+
+def test_self_time_less_the_union_of_children_on_several_threads():
+    """A span's self time is its duration less the part its children
+    cover: children of two threads that overlap count their union."""
+    S = telemetry.Span
+    recs = [S(1, None, 1, "call", 0, 100, 1), S(2, 1, 1, "a", 10, 60, 2),
+            S(3, 1, 1, "b", 40, 90, 3), S(4, 2, 1, "a.in", 20, 30, 2),
+            S(5, None, 2, "other", 0, 50, 1), S(6, 5, 2, "x", 0, 10, 1),
+            S(7, 5, 2, "y", 10, 20, 1)]
+    assert telemetry.self_ns(recs) == {1: 20, 2: 40, 3: 50, 4: 10, 5: 30, 6: 10, 7: 10}
 
 
 def test_cap_counts_dropped_records(monkeypatch):
